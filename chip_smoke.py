@@ -12,15 +12,22 @@ Phases, each printing one JSON object per line:
               of the production path, with its time, the plain version's,
               one library call's where one computes the same function, and
               the least time the card could take (bytes or operations);
+              the fused conv (K4a/K4b/K5) at five production shapes, with
+              its tolerance ratio (≤ 1 passes) and differing elements;
 4. forward  — the 81,511,048-parameter production UNet in bf16 at
-              (1, 112, 112, 80, 32), fuse_gn_silu False and True, timed in
-              turns; with ``--profile`` the device time by kernel;
+              (1, 112, 112, 80, 32): unfused, fuse_gn_silu (K3) and
+              fuse_conv (K4b), timed in turns; with ``--profile`` the
+              device time by kernel;
 5. synthesis— the ``fast_cwdm_tpu_torch.cli.sample`` entry point on one
               synthetic 240×240×155 BraTS case with seeded weights, 10-step
-              sampled schedule, every GN→SiLU through K3; the launch counts
-              of that run; then ``make_synthesis_fn`` unfused and fused;
+              sampled schedule, twice: every GN→SiLU through K3 (ddpm),
+              then every ResBlock conv through K4b (dpm++, 10 evaluations,
+              as ``bench.py --fused --dpm 10``); the launch counts of each
+              run; then ``make_synthesis_fn`` of four variants in turns;
 6. reference— the whole synthesis at a tiny fp32 config on the card
-              against the same on the CPU (plain versions), same noise.
+              against the same on the CPU (plain versions), same noise:
+              fuse_gn_silu under ddpm, and fuse_conv under ddpm, ddim and
+              dpm++.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits nonzero before
@@ -42,10 +49,20 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores
 VOLUME = (224, 224, 160)
 LATENT = (112, 112, 80)
 # (channels, spatial) of the production UNet's levels where GN→SiLU runs
 K3_SHAPES = ((64, (112, 112, 80)), (128, (56, 56, 40)), (256, (14, 14, 10)))
+# (label, B, Ci, (X, Y, Z), Co) of the fused ResBlock convs, bf16
+CONV_SHAPES = (
+    ("level 0", 1, 64, (112, 112, 80), 64),
+    ("level 0 decoder concat", 1, 128, (112, 112, 80), 64),
+    ("level 3", 1, 256, (14, 14, 10), 256),
+    ("level 4 decoder concat, X = 7", 1, 512, (7, 7, 5), 256),
+    ("B = 2, per-(B, C) statistics", 2, 128, (28, 28, 20), 128),
+)
+CONV_TOL = "1 ulp of plain in the output dtype + 2^-16 conv(|act|, |w|)"
 
 
 def emit(rec: dict) -> None:
@@ -64,8 +81,8 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+def bound_ms(n_bytes: float, flops: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -186,6 +203,118 @@ def phase_kernels(torch, F) -> dict:
     return out
 
 
+def conv_inputs(torch, g, bsz, ci, sp, co, dtype):
+    """x (channels_last_3d), w (3,3,3,Ci,Co), b, and GN statistics of x
+    with a nonzero bias (pro(0) != 0 tests the zero padding)."""
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
+
+    x = torch.randn((bsz, *sp, ci), generator=g, device="cuda").to(dtype).permute(0, 4, 1, 2, 3)
+    w = torch.randn((3, 3, 3, ci, co), generator=g, device="cuda") * (27 * ci) ** -0.5
+    b = 0.02 * torch.randn(co, generator=g, device="cuda")
+    mean, inv = tc.group_stats(x, 32)
+    scale = 1.0 + 0.05 * torch.randn(ci, generator=g, device="cuda")
+    bias = 0.3 + 0.05 * torch.randn(ci, generator=g, device="cuda")
+    return x, w, b, (mean, inv, scale, bias)
+
+
+def conv_cost(x, co, extra_out: int = 0) -> tuple[int, int]:
+    """(bytes, flops) of one fused conv: x, w and the output (and skip)
+    once each; 2·voxels·Co·27·Ci operations."""
+    ci = x.shape[1]
+    vox = x.numel() // ci
+    esize = x.element_size()
+    n_bytes = (x.numel() + 27 * ci * co + (1 + extra_out) * vox * co) * esize
+    return n_bytes, 2 * vox * co * 27 * ci
+
+
+def phase_conv(torch, F) -> dict:
+    """The fused conv kernel behind K4a, K4b and K5 against its plain
+    version: five production shapes in bf16 (K4b with the GN prologue and
+    without, K4a with fold_taps both ways, K5 with temb and skip) and the
+    level-1 shape in fp32; then times at level 0 and K4b's at every shape.
+    The library yardstick is ``F.conv3d`` in bf16 channels_last_3d (cuDNN)
+    on the same x: the same function with gn=None, the conv alone with the
+    prologue."""
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    checks, worst = [], {"k4a": [0.0, 0.0], "k4b": [0.0, 0.0], "k5": [0.0, 0.0]}
+
+    def check(entry, label, y, ref, x, w, gn, **info):
+        ratio = tc.tol_ratio(y, ref, x, w, gn)
+        err = float((y.float() - ref.float()).abs().max())
+        checks.append(dict(entry=entry, shape=label, x=list(x.shape), co=w.shape[-1],
+                           dtype=str(x.dtype).split(".")[-1], max_abs_err=err, tol_ratio=ratio,
+                           n_differ=int((y != ref).sum()), **info))
+        worst[entry] = [max(worst[entry][0], err), max(worst[entry][1], ratio)]
+
+    timings = []
+    shapes = [(lab, b, ci, sp, co, torch.bfloat16) for lab, b, ci, sp, co in CONV_SHAPES]
+    shapes.append(("level 1, fp32", 1, 128, (56, 56, 40), 128, torch.float32))
+    for label, bsz, ci, sp, co, dtype in shapes:
+        x, w, b, gn = conv_inputs(torch, g, bsz, ci, sp, co, dtype)
+        ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
+        check("k4b", label, tc.conv3d_fused(x, w, b, gn=gn, block_x=2), ref, x, w, gn, prologue=True)
+        nb, fl = conv_cost(x, co)
+        b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
+        timings.append(dict(entry="k4b", shape=label, x=list(x.shape), co=co, bound_ms=b_ms,
+                            bound_by=b_by, gflop=fl / 1e9, mbytes=nb / 1e6,
+                            ms=time_ms(torch, lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2),
+                                       reps=10)))
+        if dtype == torch.float32:
+            continue
+        for fold in (True, False):
+            check("k4a", label, tc.conv3d_fused(x, w, b, gn=gn, fold_taps=fold), ref, x, w, gn,
+                  prologue=True, fold_taps=fold)
+        del ref
+        check("k4b", label, tc.conv3d_fused(x, w, b, block_x=2),
+              tc.conv3d_fused_plain(x, w, b), x, w, None, prologue=False)
+        temb = torch.randn((bsz, co), generator=g, device="cuda")
+        skip = torch.randn((bsz, *sp, co), generator=g, device="cuda").to(dtype).permute(0, 4, 1, 2, 3)
+        check("k5", label, tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip),
+              tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip), x, w, gn,
+              prologue=True, temb=True, skip=True)
+        del x, w, gn, temb, skip
+    torch.cuda.empty_cache()
+
+    # level 0, 64 → 64: each entry point, its plain version, cuDNN
+    x, w, b, gn = conv_inputs(torch, g, *CONV_SHAPES[0][1:], torch.bfloat16)
+    co = w.shape[-1]
+    temb = torch.randn((1, co), generator=g, device="cuda")
+    skip = torch.randn((1, *CONV_SHAPES[0][3], co), generator=g, device="cuda")
+    skip = skip.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+    w_lib = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+    b_lib = b.to(torch.bfloat16)
+    lib_ms = time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1))
+    runs = {
+        "k4b": (lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2),
+                lambda: tc.conv3d_fused_plain(x, w, b, gn=gn), 0),
+        "k4a": (lambda: tc.conv3d_fused(x, w, b, gn=gn),
+                lambda: tc.conv3d_fused_plain(x, w, b, gn=gn), 0),
+        "k5": (lambda: tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip),
+               lambda: tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip), 1),
+    }
+    out = {}
+    for entry, (kern, plain, extra) in runs.items():
+        nb, fl = conv_cost(x, co, extra)
+        b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS)
+        out[entry] = dict(
+            shape=list(x.shape), co=co, dtype="bfloat16", max_abs_err=worst[entry][0],
+            tol_ratio=worst[entry][1], tol=CONV_TOL, ms=time_ms(torch, kern),
+            plain_ms=time_ms(torch, plain, reps=5), library_ms=lib_ms,
+            library="F.conv3d bf16 channels_last_3d (cuDNN), the conv alone, no prologue"
+                    + (" or temb/skip" if extra else ""),
+            bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=fl,
+        )
+    # the same function as cuDNN: no prologue
+    out["k4b_no_prologue_ms"] = time_ms(torch, lambda: tc.conv3d_fused(x, w, b, block_x=2))
+    out["checks"], out["timings"] = checks, timings
+    bad = [c for c in checks if not c["tol_ratio"] <= 1.0]
+    if bad:
+        fail(f"the fused conv disagrees with its plain version: {bad}")
+    return out
+
+
 def seeded_production(torch, **overrides) -> tuple[dict, dict]:
     """The production config and its seeded weights (a torch state_dict),
     checked to be the 81,511,048-parameter model."""
@@ -218,6 +347,7 @@ def profile_forward(torch, model, x, t) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds = (("K3 affine_silu", ("affine_silu",)),
+             ("K4b fused conv3d", ("conv3d_bf16", "conv3d_f32")),
              ("convolution", ("conv", "xmma", "cudnn", "fprop", "implicit", "gemm")),
              ("reduction (GroupNorm statistics)", ("reduce",)),
              ("elementwise and copies", ("elementwise", "copy", "cat", "upsample",
@@ -239,10 +369,15 @@ def profile_forward(torch, model, x, t) -> dict:
             "top_kernels": [dict(ms=ms, count=n, name=k) for ms, n, k in rows[:12]]}
 
 
+FORWARD_VARIANTS = {"unfused": {}, "fused": dict(fuse_gn_silu=True),
+                    "fuse_conv": dict(fuse_conv=True)}
+
+
 def phase_forward(torch, profile: bool = False) -> dict:
-    """The production forward unfused and fused, timed in turns (unfused,
-    fused, fused, unfused; three rounds; host clock around a synchronised
-    forward), and the fp32 forward as the yardstick of bf16's own error."""
+    """The production forward unfused, with fuse_gn_silu (K3) and with
+    fuse_conv (K4b), timed in turns (u, f, c, c, f, u; two rounds; host
+    clock around a synchronised forward), and the fp32 forward as the
+    yardstick of bf16's own error."""
     from fast_cwdm_tpu_torch.cli import common
 
     cfg, sd = seeded_production(torch)
@@ -250,25 +385,26 @@ def phase_forward(torch, profile: bool = False) -> dict:
     x = torch.randn((1, *LATENT, 32), generator=g, device="cuda").permute(0, 4, 1, 2, 3)
     t = torch.tensor([9], device="cuda")
     models = {}
-    for fused in (False, True):
-        m, _ = common.build_model_and_diffusion(dict(cfg, fuse_gn_silu=fused))
+    for name, flags in FORWARD_VARIANTS.items():
+        m, _ = common.build_model_and_diffusion(dict(cfg, **flags))
         m.load_state_dict(sd)
-        models[fused] = m.cuda().eval()
-    times = {False: [], True: []}
+        models[name] = m.cuda().eval()
+    times = {name: [] for name in models}
     with torch.inference_mode():
-        outs = {fused: m(x, t) for fused, m in models.items()}
-        for _ in range(3):
-            for fused in (False, True, True, False):
+        outs = {name: m(x, t) for name, m in models.items()}
+        for _ in range(2):
+            for name in ("unfused", "fused", "fuse_conv", "fuse_conv", "fused", "unfused"):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                models[fused](x, t)
+                models[name](x, t)
                 torch.cuda.synchronize()
-                times[fused].append((time.perf_counter() - t0) * 1e3)
-    res = {"unfused_ms": statistics.median(times[False]), "unfused_ms_all": times[False],
-           "fused_ms": statistics.median(times[True]), "fused_ms_all": times[True]}
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    res = {}
+    for name in models:
+        res[f"{name}_ms"] = statistics.median(times[name])
+        res[f"{name}_ms_all"] = times[name]
     if profile:
-        res["profile"] = {("fused" if f else "unfused"): profile_forward(torch, m, x, t)
-                          for f, m in models.items()}
+        res["profile"] = {name: profile_forward(torch, m, x, t) for name, m in models.items()}
     del models
     m32, _ = common.build_model_and_diffusion(dict(cfg, dtype="float32"))
     m32.load_state_dict(sd)
@@ -276,18 +412,20 @@ def phase_forward(torch, profile: bool = False) -> dict:
     with torch.inference_mode():
         y32 = m32.cuda().eval()(x, t)
     torch.backends.cudnn.allow_tf32 = True
-    y0, y1 = outs[False], outs[True]
-    for y in (y0, y1):
+    y0 = outs["unfused"]
+    for y in outs.values():
         if tuple(y.shape) != (1, 8, *LATENT) or not bool(torch.isfinite(y).all()):
             fail("production forward gave a wrong shape or non-finite values")
-    res["max_abs_diff_fused_vs_unfused"] = float((y1 - y0).abs().max())
+    res["max_abs_diff_fused_vs_unfused"] = float((outs["fused"] - y0).abs().max())
+    res["max_abs_diff_fuse_conv_vs_unfused"] = float((outs["fuse_conv"] - y0).abs().max())
     res["max_abs_diff_bf16_vs_fp32"] = float((y0 - y32).abs().max())
     res["max_abs_output"] = float(y32.abs().max())
-    # fused and unfused round in different places; they may disagree by up
-    # to twice what bf16 itself costs against fp32 (the CPU test's bound)
+    # the variants round in different places; they may disagree by up to
+    # twice what bf16 itself costs against fp32 (the CPU test's bound)
     res["tol"] = 2.0 * res["max_abs_diff_bf16_vs_fp32"]
-    if not res["max_abs_diff_fused_vs_unfused"] <= res["tol"]:
-        fail(f"fused forward disagrees with unfused: {res}")
+    if not max(res["max_abs_diff_fused_vs_unfused"],
+               res["max_abs_diff_fuse_conv_vs_unfused"]) <= res["tol"]:
+        fail(f"a fused forward disagrees with the unfused one: {res}")
     return res
 
 
@@ -313,18 +451,38 @@ def write_case(case_dir: str, seed: int = 0) -> None:
 
 
 def reset_counts():
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
     from fast_cwdm_tpu_torch.ops import elementwise_cuda as ec
     from fast_cwdm_tpu_torch.ops import wavelet_cuda as wc
 
     wc.haar_dwt3.launches = wc.haar_idwt3.launches = ec.affine_silu.launches = 0
+    tc.conv3d_fused.launches_k4a = tc.conv3d_fused.launches_k4b = 0
+    tc.conv3d_fused_v4.launches = 0
 
 
 def read_counts() -> dict:
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
     from fast_cwdm_tpu_torch.ops import elementwise_cuda as ec
     from fast_cwdm_tpu_torch.ops import wavelet_cuda as wc
 
     return {"haar_dwt3": wc.haar_dwt3.launches, "haar_idwt3": wc.haar_idwt3.launches,
-            "affine_silu": ec.affine_silu.launches}
+            "affine_silu": ec.affine_silu.launches,
+            "conv3d_fused_k4a": tc.conv3d_fused.launches_k4a,
+            "conv3d_fused_k4b": tc.conv3d_fused.launches_k4b,
+            "conv3d_fused_v4": tc.conv3d_fused_v4.launches}
+
+
+def check_sample(np, path: str, mask) -> list:
+    """The written sample: (224, 224, 155), finite, in [0,1], zero outside
+    the brain mask."""
+    from fast_cwdm_tpu_torch.data.nifti import load
+
+    got = load(path).get_fdata()
+    if got.shape != (224, 224, 155) or not np.isfinite(got).all():
+        fail(f"{path} has shape {got.shape} or non-finite values")
+    if got.min() < 0.0 or got.max() > 1.0 or np.any(got[mask == 0] != 0.0):
+        fail(f"{path} leaves [0,1] or is nonzero outside the brain mask")
+    return list(got.shape)
 
 
 def phase_synthesis(torch, tmp: str) -> tuple[dict, dict]:
@@ -332,7 +490,6 @@ def phase_synthesis(torch, tmp: str) -> tuple[dict, dict]:
 
     from fast_cwdm_tpu_torch.cli import common, sample
     from fast_cwdm_tpu_torch.data import brats
-    from fast_cwdm_tpu_torch.data.nifti import load
 
     cfg, sd = seeded_production(torch, fuse_gn_silu=True)
     weights = os.path.join(tmp, "brats_t1c_BEST_sampled_10.pt")
@@ -345,67 +502,91 @@ def phase_synthesis(torch, tmp: str) -> tuple[dict, dict]:
         "--contr=t1c", f"--output_dir={out_dir}", "--seed=0",
     ]
 
-    reset_counts()
-    timings = sample.main(flags)  # the main path, through the user's entry point
-    torch.cuda.synchronize()
-    counts = read_counts()
-
-    got = load(os.path.join(out_dir, "00001", "sample.nii.gz")).get_fdata()
     mask = brats.load_preprocessed(os.path.join(case, "BraTS-GLI-00001-000-t1n.nii.gz"))
     mask = mask[..., 0][:, :, :155]
-    res = {"sample_shape": list(got.shape), "s_per_volume_cli_first_case": timings[0],
-           "launches": counts}
-    if got.shape != (224, 224, 155) or not np.isfinite(got).all():
-        fail(f"sample.nii.gz has shape {got.shape} or non-finite values")
-    if got.min() < 0.0 or got.max() > 1.0 or np.any(got[mask == 0] != 0.0):
-        fail("sample.nii.gz leaves [0,1] or is nonzero outside the brain mask")
+
+    # main path 1: ddpm, every GN→SiLU through K3
+    reset_counts()
+    timings = sample.main(flags)  # through the user's entry point
+    torch.cuda.synchronize()
+    counts = read_counts()
+    res = {"sample_shape": check_sample(np, os.path.join(out_dir, "00001", "sample.nii.gz"), mask),
+           "s_per_volume_cli_first_case": timings[0], "launches": counts}
     if counts["haar_dwt3"] < 3 or counts["haar_idwt3"] < 1 or counts["affine_silu"] != 71 * 10:
         fail(f"the main path did not run through every kernel: {counts}")
 
-    # the same case through make_synthesis_fn, unfused (the default) and
-    # fused, on one generator seed: one warm-up each, then in turns
-    # (unfused, fused, fused, unfused) twice; host clock, condition DWTs
-    # through the image on the host
+    # main path 2: every non-up/down ResBlock's two convs through K4b
+    # (27 × 2 per forward), DPM-Solver++ with 10 evaluations; as
+    # ``bench.py --fused --dpm 10`` (fuse_conv without fuse_gn_silu)
+    conv_dir = os.path.join(tmp, "out_fuse_conv")
+    reset_counts()
+    timings = sample.main(flags + [f"--output_dir={conv_dir}", "--fuse_gn_silu=False",
+                                   "--fuse_conv=True", "--sampler=dpm++", "--sampling_steps=10"])
+    torch.cuda.synchronize()
+    conv_counts = read_counts()
+    res["fuse_conv_dpm"] = {
+        "sample_shape": check_sample(np, os.path.join(conv_dir, "00001", "sample.nii.gz"), mask),
+        "s_per_volume_cli_first_case": timings[0], "launches": conv_counts}
+    if (conv_counts["conv3d_fused_k4b"] != 54 * 10 or conv_counts["conv3d_fused_k4a"]
+            or conv_counts["conv3d_fused_v4"] or conv_counts["haar_dwt3"] < 3
+            or conv_counts["haar_idwt3"] != 1):
+        fail(f"the fused-conv path did not run through its kernels as expected: {conv_counts}")
+
+    # the same case through make_synthesis_fn, four variants on one
+    # generator seed: one warm-up each, then in turns (u, f, cd, cp, cp,
+    # cd, f, u) twice; host clock, condition DWTs through the image on the
+    # host
     item = brats.BRATSVolumes(os.path.dirname(case))[0]
     batch = {m: item[m][None] for m in brats.MODALITIES}
+    variants = {"unfused": ({}, "ddpm"), "fused": (dict(fuse_gn_silu=True), "ddpm"),
+                "fuse_conv_ddpm": (dict(fuse_conv=True), "ddpm"),
+                "fuse_conv_dpm": (dict(fuse_conv=True), "dpm++")}
     runs = {}
-    for fused in (False, True):
-        m, diff = common.build_model_and_diffusion(dict(cfg, fuse_gn_silu=fused))
+    for name, (flags_v, sampler) in variants.items():
+        m, diff = common.build_model_and_diffusion({**cfg, "fuse_gn_silu": False, **flags_v})
         m.load_state_dict(sd)
-        runs[fused] = common.make_synthesis_fn(m, diff, device="cuda")
-    times, imgs = {False: [], True: []}, {}
-    for k, fused in enumerate((False, True) + (False, True, True, False) * 2):
+        runs[name] = common.make_synthesis_fn(m, diff, sampler=sampler, sampler_steps=10,
+                                              device="cuda")
+    order = list(variants) + (list(variants) + list(variants)[::-1]) * 2
+    times, imgs = {name: [] for name in variants}, {}
+    for k, name in enumerate(order):
         gen = torch.Generator(device="cuda").manual_seed(0)
         t0 = time.perf_counter()
         cond = common.prepare_condition(batch, "t1c", device="cuda")
-        imgs[fused] = runs[fused](cond, batch["t1n"], gen)
-        if k >= 2:
-            times[fused].append(time.perf_counter() - t0)
-    for fused, name in ((False, "unfused"), (True, "fused")):
-        res[f"s_per_volume_{name}"] = statistics.median(times[fused])
-        res[f"s_per_volume_{name}_all"] = times[fused]
-    a, b = imgs[False], imgs[True]
-    res["max_abs_diff_image_fused_vs_unfused"] = float(np.abs(a - b).max())
-    res["mean_abs_diff_image_fused_vs_unfused"] = float(np.abs(a - b).mean())
-    return res, counts
+        imgs[name] = runs[name](cond, batch["t1n"], gen)
+        if k >= len(variants):
+            times[name].append(time.perf_counter() - t0)
+    for name in variants:
+        res[f"s_per_volume_{name}"] = statistics.median(times[name])
+        res[f"s_per_volume_{name}_all"] = times[name]
+    a = imgs["unfused"]
+    for name in ("fused", "fuse_conv_ddpm"):
+        res[f"max_abs_diff_image_{name}_vs_unfused"] = float(np.abs(imgs[name] - a).max())
+        res[f"mean_abs_diff_image_{name}_vs_unfused"] = float(np.abs(imgs[name] - a).mean())
+    return res, counts, conv_counts
+
+
+REFERENCE_RUNS = {  # name: (model flags, sampler)
+    "fuse_gn_silu_ddpm": (dict(fuse_gn_silu=True), "ddpm"),
+    "fuse_conv_ddpm": (dict(fuse_gn_silu=True, fuse_conv=True), "ddpm"),
+    "fuse_conv_ddim": (dict(fuse_gn_silu=True, fuse_conv=True), "ddim"),
+    "fuse_conv_dpm": (dict(fuse_gn_silu=True, fuse_conv=True), "dpm++"),
+}
 
 
 def phase_reference(torch) -> dict:
-    """The whole synthesis at a tiny fp32 config (every GN→SiLU through K3)
-    on the card against the same synthesis on the CPU, where the wrappers
-    take their plain versions, which the CPU tests hold against the JAX
-    package. Same weights, same noise; TF32 off. Tolerance 1e-4 on the
-    [0,1] image, as the CPU test against JAX."""
+    """The whole synthesis at a tiny fp32 config on the card against the
+    same synthesis on the CPU, where the wrappers take their plain
+    versions, which the CPU tests hold against the JAX package: every
+    GN→SiLU through K3 under ddpm, then also every ResBlock conv through
+    K4b under ddpm, ddim and dpm++. Same weights, same noise; TF32 off.
+    Tolerance 1e-4 on the [0,1] image, as the CPU tests against JAX."""
     import numpy as np
 
     from fast_cwdm_tpu_torch.cli import common
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
     from fast_cwdm_tpu_torch.utils.testing import seeded_state_dict
 
-    cfg = common.production_config(
-        num_channels=16, num_res_blocks=1, channel_mult="1,2", num_groups=8,
-        image_size=8, diffusion_steps=10, sample_schedule="sampled",
-        dtype="float32", fuse_gn_silu=True,
-    )
     rng = np.random.default_rng(0)
     vols = {m: rng.random((1, 16, 16, 16, 1)).astype(np.float32)
             for m in ("t1n", "t1c", "t2w", "t2f")}
@@ -413,31 +594,50 @@ def phase_reference(torch) -> dict:
     noise = rng.standard_normal((1, 8, 8, 8, 8)).astype(np.float32)
     step_noise = rng.standard_normal((10, 1, 8, 8, 8, 8)).astype(np.float32)
     torch.backends.cudnn.allow_tf32 = False
-    out = {}
-    for dev in ("cpu", "cuda"):
-        model, diffusion = common.build_model_and_diffusion(cfg)
-        shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-        model.load_state_dict({k: torch.from_numpy(v)
-                               for k, v in seeded_state_dict(shapes).items()})
-        run = common.make_synthesis_fn(model, diffusion, crop_z=12, device=dev)
-        cond = common.prepare_condition(vols, "t1c", device=dev)
-        out[dev] = run(cond, vols["t1n"], noise=noise, step_noise=step_noise)
+    res = {}
+    for name, (flags, sampler) in REFERENCE_RUNS.items():
+        cfg = common.production_config(
+            num_channels=16, num_res_blocks=1, channel_mult="1,2", num_groups=8,
+            image_size=8, diffusion_steps=10, sample_schedule="sampled",
+            dtype="float32", **flags,
+        )
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model, diffusion = common.build_model_and_diffusion(cfg)
+            shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+            model.load_state_dict({k: torch.from_numpy(v)
+                                   for k, v in seeded_state_dict(shapes).items()})
+            run = common.make_synthesis_fn(model, diffusion, crop_z=12, sampler=sampler,
+                                           device=dev)
+            cond = common.prepare_condition(vols, "t1c", device=dev)
+            k4b = tc.conv3d_fused.launches_k4b
+            out[dev] = run(cond, vols["t1n"], noise=noise, step_noise=step_noise)
+            k4b = tc.conv3d_fused.launches_k4b - k4b
+        err = float(np.abs(out["cuda"] - out["cpu"]).max())
+        res[name] = {"shape": list(out["cuda"].shape), "max_abs_err_cuda_vs_cpu": err,
+                     "tol": 1e-4, "max_image": float(out["cpu"].max()), "k4b_launches": k4b}
+        if not (err <= 1e-4 and np.isfinite(out["cuda"]).all()):
+            fail(f"the synthesis on the card disagrees with the CPU's: {name} {res[name]}")
+        if flags.get("fuse_conv") and k4b != 8 * 2 * 10:
+            fail(f"the tiny fuse_conv synthesis launched K4b {k4b} times, expected 160")
     torch.backends.cudnn.allow_tf32 = True
-    err = float(np.abs(out["cuda"] - out["cpu"]).max())
-    res = {"shape": list(out["cuda"].shape), "max_abs_err_cuda_vs_cpu": err, "tol": 1e-4,
-           "max_image": float(out["cpu"].max())}
-    if not (err <= 1e-4 and np.isfinite(out["cuda"]).all()):
-        fail(f"the synthesis on the card disagrees with the CPU's: {res}")
     return res
 
 
-KERNELS = {
+KERNELS = {  # name: (source, replaces, key of its kernels-phase record)
     "haar_dwt3": ("fast_cwdm_tpu_torch/ops/csrc/haar3d.cu",
-                  "fast_cwdm_tpu/ops/wavelet_pallas.py:53 (_dwt3_kernel)"),
+                  "fast_cwdm_tpu/ops/wavelet_pallas.py:53 (_dwt3_kernel)", "haar_dwt3"),
     "haar_idwt3": ("fast_cwdm_tpu_torch/ops/csrc/haar3d.cu",
-                   "fast_cwdm_tpu/ops/wavelet_pallas.py:80 (_idwt3_kernel)"),
+                   "fast_cwdm_tpu/ops/wavelet_pallas.py:80 (_idwt3_kernel)", "haar_idwt3"),
     "affine_silu": ("fast_cwdm_tpu_torch/ops/csrc/affine_silu.cu",
-                    "fast_cwdm_tpu/ops/elementwise_pallas.py:66 (_affine_silu_kernel)"),
+                    "fast_cwdm_tpu/ops/elementwise_pallas.py:66 (_affine_silu_kernel)",
+                    "affine_silu"),
+    "conv3d_fused_k4a": ("fast_cwdm_tpu_torch/ops/csrc/conv3d.cu",
+                         "fast_cwdm_tpu/ops/conv3d_pallas.py:36 (_kernel)", "k4a"),
+    "conv3d_fused_k4b": ("fast_cwdm_tpu_torch/ops/csrc/conv3d.cu",
+                         "fast_cwdm_tpu/ops/conv3d_pallas.py:154 (_blocked_kernel)", "k4b"),
+    "conv3d_fused_v4": ("fast_cwdm_tpu_torch/ops/csrc/conv3d.cu",
+                        "fast_cwdm_tpu/ops/conv3d_pallas.py:341 (_v4_make_kernel)", "k5"),
 }
 
 
@@ -478,20 +678,31 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
 
+    t0 = time.perf_counter()
     kern = phase_kernels(torch, F)
-    emit({"phase": "kernels", **kern})
-    emit({"phase": "forward", "gpu": smi, **phase_forward(torch, args.profile)})
+    kern.update(phase_conv(torch, F))
+    emit({"phase": "kernels", "gpu": smi, "seconds": time.perf_counter() - t0, **kern})
+    t0 = time.perf_counter()
+    fwd = phase_forward(torch, args.profile)
+    emit({"phase": "forward", "gpu": smi, "seconds": time.perf_counter() - t0, **fwd})
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        res, counts = phase_synthesis(torch, tmp)
-    emit({"phase": "synthesis", "gpu": smi, **res})
-    emit({"phase": "reference", **phase_reference(torch)})
+        res, counts, conv_counts = phase_synthesis(torch, tmp)
+    emit({"phase": "synthesis", "gpu": smi, "seconds": time.perf_counter() - t0, **res})
+    t0 = time.perf_counter()
+    ref = phase_reference(torch)
+    emit({"phase": "reference", "seconds": time.perf_counter() - t0, **ref})
 
     line = []
-    for name, (source, replaces) in KERNELS.items():
-        k = kern[name]
+    for name, (source, replaces, key) in KERNELS.items():
+        k = kern[key]
+        # launches: from the main path that runs the kernel (K1-K3: the
+        # K3 CLI run; the conv entries: the fused-conv CLI run)
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": k["max_abs_err"], "tol": k["tol"],
+            "launches": (conv_counts if name.startswith("conv3d") else counts)[name],
+            "max_abs_err": k["max_abs_err"], "tol": k["tol"],
+            "tol_ratio": k.get("tol_ratio"),
             "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],

@@ -5,9 +5,11 @@ running on an NVIDIA H100 (sm_90a). The JAX package beside it is the
 reference this port is held against; nothing here imports it.
 
 - ``ops``       Haar DWT/IDWT (plain torch + CUDA kernels K1/K2), fused
-                GroupNorm-apply+SiLU (plain torch + CUDA kernel K3)
+                GroupNorm-apply+SiLU (plain torch + CUDA kernel K3), fused
+                GN→SiLU→3³ conv (plain torch + one CUDA kernel for K4a/K4b/K5)
 - ``models``    3D ``UNetModel`` with the reference torch parameter layout
-- ``diffusion`` beta schedules, respacing, ancestral sampling loop
+- ``diffusion`` beta schedules, respacing, ancestral, DDIM and
+                DPM-Solver++ sampling loops
 - ``data``      NIfTI IO and BraTS eval preprocessing (numpy only)
 - ``cli``       synthesis plumbing and the ``sample`` entry point
 

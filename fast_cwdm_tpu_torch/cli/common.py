@@ -1,9 +1,10 @@
 """Synthesis plumbing: config → model/diffusion, weights, the wavelet
 condition, and the reverse chain + postprocess as one callable.
 
-Port of ``fast_cwdm_tpu/cli/common.py`` (ddpm sampler). Public functions
-take and return the JAX package's channels-last ``(B, X, Y, Z, C)``
-layout. Everything runs on ``cuda`` unless ``device="cpu"`` is passed.
+Port of ``fast_cwdm_tpu/cli/common.py`` (ddpm, ddim and dpm++ samplers).
+Public functions take and return the JAX package's channels-last
+``(B, X, Y, Z, C)`` layout. Everything runs on ``cuda`` unless
+``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -103,6 +104,11 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, chunk=None,
     LLL, clamp to [0,1], zero where ``mask_vol`` is 0, crop Z to
     ``crop_z``; returns (B, X, Y, crop_z) float32.
 
+    ``sampler``: "ddpm" (ancestral, every step of ``diffusion``), "ddim"
+    (eta 0, every step of ``diffusion``; the CLI respaces it to
+    ``ddim{N}``) or "dpm++" (DPM-Solver++(2M) with ``sampler_steps``
+    evaluations, default min(50, T)).
+
     ``noise``/``step_noise`` inject the initial and per-step noise (for
     parity with the JAX package's key stream); otherwise both are drawn
     from ``generator``. ``chunk`` is accepted for signature parity and has
@@ -110,8 +116,6 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, chunk=None,
     """
     if sampler not in ("ddpm", "ddim", "dpm++"):
         raise ValueError(f"sampler must be ddpm, ddim or dpm++, got {sampler!r}")
-    if sampler != "ddpm":
-        raise NotImplementedError(f"sampler={sampler!r} is not ported yet (ddpm only)")
     dev = resolve_device(device)
     model = model.to(dev).eval()
 
@@ -127,11 +131,14 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, chunk=None,
         as_dev = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
             a, dtype=torch.float32, device=dev)
         shape = (cond.shape[0], *cond.shape[1:-1], diffusion.target_channels)
-        sample = diffusion.p_sample_loop(
-            model_fn, shape, cond=cond, noise=as_dev(noise),
-            step_noise=as_dev(step_noise), generator=generator, device=dev,
-            clip_denoised=clip_denoised,
-        )
+        kw = dict(cond=cond, noise=as_dev(noise), generator=generator, device=dev,
+                  clip_denoised=clip_denoised)
+        if sampler == "dpm++":
+            steps = sampler_steps or min(50, diffusion.num_timesteps)
+            sample = diffusion.dpm_solver_pp_loop(model_fn, shape, steps=steps, **kw)
+        else:
+            loop = diffusion.ddim_sample_loop if sampler == "ddim" else diffusion.p_sample_loop
+            sample = loop(model_fn, shape, step_noise=as_dev(step_noise), **kw)
         img = torch.clamp(wv.idwt_normalized(sample, 1, diffusion.wavelet), 0.0, 1.0)
         img = torch.where(mask == 0, 0.0, img)
         return img[..., 0].cpu().numpy()[:, :, :, :crop_z]

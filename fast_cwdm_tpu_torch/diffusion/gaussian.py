@@ -1,4 +1,5 @@
-"""Gaussian diffusion: schedule tables and the ancestral sampling loop.
+"""Gaussian diffusion: schedule tables and the sampling loops (ancestral,
+DDIM, and DPM-Solver++ through ``diffusion/dpm.py``).
 
 Port of the sampling part of ``fast_cwdm_tpu/diffusion/gaussian.py``.
 Tables are computed in float64 on the host and kept as float32 numpy
@@ -10,8 +11,8 @@ and the i2i condition C=24. ``model_fn(x, t)`` takes and returns
 channels-last tensors.
 
 Noise: ``jax.random``'s key stream cannot be reproduced in torch, so the
-loop takes its initial noise (``noise=``) and per-step noise
-(``step_noise=``) as tensors, or draws both from a ``torch.Generator``.
+loops take their initial noise (``noise=``) and per-step noise
+(``step_noise=``) as tensors, or draw both from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from fast_cwdm_tpu_torch import resolve_device
-from fast_cwdm_tpu_torch.diffusion import schedules
+from fast_cwdm_tpu_torch.diffusion import dpm, schedules
 from fast_cwdm_tpu_torch.ops import wavelet as wv
 
 MODALITIES = ("t1n", "t1c", "t2w", "t2f")
@@ -169,6 +170,12 @@ class GaussianDiffusion:
             - self._extract("sqrt_recipm1_alphas_cumprod", t, n) * eps
         )
 
+    def predict_eps_from_xstart(self, x_t, t, pred_xstart):
+        n = x_t.dim()
+        return (
+            self._extract("sqrt_recip_alphas_cumprod", t, n) * x_t - pred_xstart
+        ) / self._extract("sqrt_recipm1_alphas_cumprod", t, n)
+
     def predict_xstart_from_xprev(self, x_t, t, xprev):
         c1 = self._extract("posterior_mean_coef1", t, x_t.dim())
         c2 = self._extract("posterior_mean_coef2", t, x_t.dim())
@@ -284,14 +291,7 @@ class GaussianDiffusion:
         CUDA, which raises where there is no GPU).
         """
         t_total = self.num_timesteps if time is None else time
-        if device is None:
-            ref = cond if cond is not None else noise
-            device = ref.device if ref is not None else resolve_device()
-        if step_noise is not None and len(step_noise) < t_total:
-            raise ValueError(f"step_noise has {len(step_noise)} entries for {t_total} steps")
-        img = noise if noise is not None else torch.randn(
-            tuple(shape), generator=generator, device=device
-        )
+        img = self._start(shape, cond, noise, step_noise, generator, device, t_total)
         for k, i in enumerate(range(t_total - 1, -1, -1)):
             t = torch.full((img.shape[0],), i, dtype=torch.long, device=img.device)
             eps = (
@@ -304,3 +304,78 @@ class GaussianDiffusion:
                 denoised_fn=denoised_fn, model_kwargs=model_kwargs,
             )["sample"]
         return img
+
+    def _start(self, shape, cond, noise, step_noise, generator, device, t_total):
+        """The initial x_T, drawn unless given, and a check of step_noise."""
+        if device is None:
+            ref = cond if cond is not None else noise
+            device = ref.device if ref is not None else resolve_device()
+        if step_noise is not None and len(step_noise) < t_total:
+            raise ValueError(f"step_noise has {len(step_noise)} entries for {t_total} steps")
+        if noise is not None:
+            return noise
+        return torch.randn(tuple(shape), generator=generator, device=device)
+
+    # -- DDIM ------------------------------------------------------------
+
+    def ddim_sample(self, model_fn, x, t, noise=None, *, cond=None, clip_denoised=True,
+                    denoised_fn=None, eta: float = 0.0, model_kwargs=None):
+        """DDIM step x_t → x_{t-1} (eta-parameterised); ``noise`` is the
+        standard-normal draw, needed only when ``eta`` > 0."""
+        out = self.p_mean_variance(
+            model_fn, x, t, cond=cond, clip_denoised=clip_denoised,
+            denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+        )
+        x_ref = x[..., : self.target_channels] if self.mode == "i2i" else x
+        n = x_ref.dim()
+        eps = self.predict_eps_from_xstart(x_ref, t, out["pred_xstart"])
+        abar = self._extract("alphas_cumprod", t, n)
+        abar_prev = self._extract("alphas_cumprod_prev", t, n)
+        sigma = eta * torch.sqrt((1 - abar_prev) / (1 - abar)) * torch.sqrt(1 - abar / abar_prev)
+        sample = out["pred_xstart"] * torch.sqrt(abar_prev) + torch.sqrt(
+            1 - abar_prev - sigma**2
+        ) * eps
+        if eta != 0.0:
+            if noise is None:
+                raise ValueError("ddim_sample with eta > 0 needs its noise")
+            nonzero = (t != 0).to(x_ref.dtype).reshape((-1,) + (1,) * (n - 1))
+            sample = sample + nonzero * sigma * noise
+        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_sample_loop(self, model_fn, shape, *, cond=None, noise=None, step_noise=None,
+                         generator: torch.Generator | None = None, device=None,
+                         clip_denoised=True, denoised_fn=None, eta: float = 0.0,
+                         model_kwargs=None, time: int | None = None) -> torch.Tensor:
+        """The DDIM chain from ``time`` (default: every step) to 0; noise
+        as in :meth:`p_sample_loop` (per-step noise is drawn only when
+        ``eta`` > 0)."""
+        t_total = self.num_timesteps if time is None else time
+        img = self._start(shape, cond, noise, step_noise, generator, device, t_total)
+        return self.ddim_scan_steps(
+            model_fn, img, range(t_total - 1, -1, -1), step_noise, cond=cond,
+            generator=generator, clip_denoised=clip_denoised,
+            denoised_fn=denoised_fn, eta=eta, model_kwargs=model_kwargs,
+        )
+
+    def ddim_scan_steps(self, model_fn, img, ts, step_noise=None, *, cond=None,
+                        generator: torch.Generator | None = None, clip_denoised=True,
+                        denoised_fn=None, eta: float = 0.0, model_kwargs=None) -> torch.Tensor:
+        """DDIM over an arbitrary timestep segment ``ts`` (descending);
+        ``step_noise[k]`` is the noise of the k-th step of the segment."""
+        for k, i in enumerate(ts):
+            t = torch.full((img.shape[0],), int(i), dtype=torch.long, device=img.device)
+            eps = None
+            if eta != 0.0:
+                shape = (*img.shape[:-1], self.target_channels)
+                eps = step_noise[k] if step_noise is not None else torch.randn(
+                    shape, generator=generator, device=img.device
+                )
+            img = self.ddim_sample(
+                model_fn, img, t, eps, cond=cond, clip_denoised=clip_denoised,
+                denoised_fn=denoised_fn, eta=eta, model_kwargs=model_kwargs,
+            )["sample"]
+        return img
+
+    def dpm_solver_pp_loop(self, model_fn, shape, **kwargs) -> torch.Tensor:
+        """DPM-Solver++ multistep sampling (:mod:`.dpm`)."""
+        return dpm.dpm_solver_pp_loop(self, model_fn, shape, **kwargs)

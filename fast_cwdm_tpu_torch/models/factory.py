@@ -2,7 +2,8 @@
 
 Port of ``fast_cwdm_tpu/models/factory.py`` for ``UNetModel``: the same
 ``model_and_diffusion_defaults`` keys, so CLIs stay flag-compatible, plus
-``fuse_gn_silu`` (route every GroupNorm→SiLU site through kernel K3).
+``fuse_gn_silu`` (route every GroupNorm→SiLU site through kernel K3) and
+``fuse_conv`` (route the ResBlocks' GN→SiLU→conv chains through K4b).
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def diffusion_defaults() -> dict[str, Any]:
 
 
 def model_and_diffusion_defaults() -> dict[str, Any]:
-    """Canonical flag schema (the JAX package's, plus ``fuse_gn_silu``)."""
+    """Canonical flag schema (the JAX package's, plus ``fuse_gn_silu`` and
+    ``fuse_conv``)."""
     res = dict(
         image_size=64,
         num_channels=128,
@@ -71,6 +73,7 @@ def model_and_diffusion_defaults() -> dict[str, Any]:
         # compute dtype ("", "float32", "bfloat16"): "" follows use_fp16
         dtype="",
         fuse_gn_silu=False,
+        fuse_conv=False,
     )
     res.update(diffusion_defaults())
     return res
@@ -143,6 +146,7 @@ def create_model(
     use_freq=False,
     dtype=None,
     fuse_gn_silu=False,
+    fuse_conv=False,
 ) -> UNetModel:
     """Flag-compatible UNetModel constructor."""
     if use_freq:
@@ -176,6 +180,7 @@ def create_model(
         resample_2d=resample_2d,
         additive_skips=additive_skips,
         fuse_gn_silu=fuse_gn_silu,
+        fuse_conv=fuse_conv,
         dtype=parse_dtype(dtype, use_fp16),
     )
 
@@ -225,7 +230,7 @@ _MODEL_KEYS = (
     "num_heads_upsample", "use_scale_shift_norm", "dropout", "resblock_updown",
     "use_fp16", "use_new_attention_order", "dims", "num_groups", "in_channels",
     "out_channels", "bottleneck_attention", "resample_2d", "additive_skips",
-    "use_freq", "dtype", "fuse_gn_silu",
+    "use_freq", "dtype", "fuse_gn_silu", "fuse_conv",
 )
 
 

@@ -12,10 +12,11 @@ JAX package's ``training/bridge.py::flax_to_torch`` emits
 load with ``load_state_dict(strict=True)``.
 
 Ported: ResBlocks (with resblock_updown, scale-shift norm, additive skips),
-conv/avg-pool resampling, and the fused GN-apply+SiLU route (kernel K3,
-``fuse_gn_silu``). Not yet ported, and refused with ``NotImplementedError``:
-attention blocks (the production config has none), class conditioning,
-gradient checkpointing, and ``fuse_conv`` (the fused conv kernel K4).
+conv/avg-pool resampling, the fused GN-apply+SiLU route (kernel K3,
+``fuse_gn_silu``) and the fused GN→SiLU→conv route (kernel K4b,
+``fuse_conv``). Not yet ported, and refused with ``NotImplementedError``:
+attention blocks (the production config has none), class conditioning and
+gradient checkpointing.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from fast_cwdm_tpu_torch.models.nn import (
     conv_nd,
     timestep_embedding,
 )
+from fast_cwdm_tpu_torch.ops.conv3d_cuda import conv3d_fused, group_stats
 
 
 class Linear(nn.Linear):
@@ -86,10 +88,24 @@ class Downsample(nn.Module):
         return self.op(x) if hasattr(self, "op") else avg_pool_nd(x, self.window)
 
 
-def FusableConv3d(in_ch: int, out_ch: int, *, dtype=None, zero_init: bool = False) -> Conv3d:
+class FusableConv3d(Conv3d):
     """The ResBlock 3³ conv: input and fp32 params cast to ``dtype`` (or
-    the input's dtype when None, `unet.py:190-193`)."""
-    return Conv3d(in_ch, out_ch, 3, dtype=dtype, zero_init=zero_init, follow_input=True)
+    the input's dtype when None, `unet.py:190-193`). With ``gn`` (mean,
+    inv, scale, bias) the GN-apply+SiLU prologue runs inside the fused conv
+    (K4b, ``conv3d_fused(block_x=2)``), for every C and X: the JAX
+    package's fallback to an XLA conv (C > 128, X odd) is a TPU VMEM and
+    tiling limit, and computes the same function."""
+
+    def __init__(self, in_ch: int, out_ch: int, *, dtype=None, zero_init: bool = False):
+        super().__init__(in_ch, out_ch, 3, dtype=dtype, zero_init=zero_init, follow_input=True)
+
+    def forward(self, x: torch.Tensor, gn=None) -> torch.Tensor:
+        if gn is None:
+            return super().forward(x)
+        dt = self.compute_dtype or x.dtype
+        xx = x.to(dt, memory_format=torch.channels_last_3d)
+        w = self.weight.to(dt).permute(2, 3, 4, 1, 0)  # OIDHW → DHWIO
+        return conv3d_fused(xx, w, self.bias.to(dt), gn=gn, block_x=2)
 
 
 class ResBlock(nn.Module):
@@ -106,16 +122,14 @@ class ResBlock(nn.Module):
                  num_groups=32, resample_2d=True, fuse_conv=False,
                  fuse_gn_silu=False, dtype=None):
         super().__init__()
-        if fuse_conv:
-            raise NotImplementedError(
-                "fuse_conv routes ResBlock convs through the fused conv kernel "
-                "K4 (fast_cwdm_tpu/ops/conv3d_pallas.py), not ported yet"
-            )
         out_ch = out_channels or channels
         self.up, self.down = up, down
         self.resample_2d = resample_2d
         self.use_scale_shift_norm = use_scale_shift_norm
         self.fuse_gn_silu = fuse_gn_silu
+        # both GN→SiLU→conv chains through K4b (`unet.py:257-264`)
+        self.fuse = fuse_conv and not (up or down) and not use_scale_shift_norm and dropout == 0
+        self.num_groups = num_groups
         self.in_layers = nn.Sequential(
             GroupNorm32(num_groups, channels),
             nn.SiLU(),
@@ -139,7 +153,20 @@ class ResBlock(nn.Module):
     def _norm_act(self, norm: GroupNorm32, h: torch.Tensor) -> torch.Tensor:
         return norm(h, act="silu") if self.fuse_gn_silu else F.silu(norm(h))
 
+    def _forward_fused(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        norm_in, _, conv_in = self.in_layers
+        norm_out, _, _, conv_out = self.out_layers
+        mean, inv = group_stats(x, self.num_groups)
+        h = conv_in(x, gn=(mean, inv, norm_in.weight, norm_in.bias))
+        emb_out = self.emb_layers[1](F.silu(emb)).to(h.dtype)
+        h2 = h + emb_out[(...,) + (None,) * (h.dim() - 2)]
+        mean2, inv2 = group_stats(h2, self.num_groups)
+        h = conv_out(h2, gn=(mean2, inv2, norm_out.weight, norm_out.bias))
+        return self.skip_connection(x) + h
+
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        if self.fuse:
+            return self._forward_fused(x, emb)
         norm_in, _, conv_in = self.in_layers
         h = self._norm_act(norm_in, x)
         if self.up:

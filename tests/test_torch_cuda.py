@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels K1/K2/K3 on the card: each against its
-plain torch version, their wrappers' refusals, and the autograd pair.
+"""The hand-written CUDA kernels on the card: K1/K2/K3 and the fused conv
+behind K4a/K4b/K5, each against its plain torch version, their wrappers'
+refusals, the autograd pair, and a fuse_conv UNet that reaches K4b.
 
 Marked ``cuda``: skipped where no GPU is present. This file imports no JAX,
 so it also runs where JAX is not installed:
@@ -10,6 +11,8 @@ so it also runs where JAX is not installed:
 import pytest
 import torch
 
+from fast_cwdm_tpu_torch.models.unet import UNetModel
+from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
 from fast_cwdm_tpu_torch.ops import elementwise_cuda as ec
 from fast_cwdm_tpu_torch.ops import wavelet as wv
 from fast_cwdm_tpu_torch.ops import wavelet_cuda as wc
@@ -90,3 +93,102 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                        torch.zeros(1, 8, device="cuda"))
     with pytest.raises(ValueError):
         ec.affine_silu(h, torch.ones(8, device="cuda"), torch.zeros(1, 8, device="cuda"))
+
+
+def _conv_case(gen, dtype, bsz, ci, co, spatial, gn_kind):
+    x = torch.randn((bsz, *spatial, ci), generator=gen, device="cuda").to(dtype)
+    x = x.permute(0, 4, 1, 2, 3)  # channels_last_3d
+    w = 0.1 * torch.randn((3, 3, 3, ci, co), generator=gen, device="cuda")
+    b = 0.1 * torch.randn(co, generator=gen, device="cuda")
+    gn = None
+    if gn_kind:
+        lead = (bsz, ci) if gn_kind == "batch" else (ci,)
+        mean, inv = (tc.group_stats(x, 8) if gn_kind == "batch" else
+                     (0.1 * torch.randn(ci, generator=gen, device="cuda"),
+                      0.5 + torch.rand(ci, generator=gen, device="cuda")))
+        scale = 1.0 + 0.2 * torch.randn(lead, generator=gen, device="cuda")
+        bias = 0.5 + 0.1 * torch.randn(lead, generator=gen, device="cuda")  # pro(0) != 0
+        gn = (mean, inv, scale, bias)
+    return x, w, b, gn
+
+
+# odd X/Y/Z and Z longer than one 16-voxel tile, Ci not a multiple of 16,
+# Co under one 64-wide tile, B = 2 with per-(B, C) statistics
+CONV_CASES = [
+    (1, 16, 16, (5, 6, 7), "channel"),
+    (2, 24, 8, (3, 4, 17), "batch"),
+    (2, 64, 72, (4, 5, 9), None),
+    (1, 32, 64, (7, 7, 5), "batch"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_conv3d_fused_matches_plain(gen, dtype, case):
+    """K4a and K4b against the plain version, within tc.tol_ratio (one ulp
+    of the output plus 2^-16 of conv(|act|, |w|))."""
+    x, w, b, gn = _conv_case(gen, dtype, *case)
+    ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
+    for block_x, counter in ((2, "launches_k4b"), (None, "launches_k4a")):
+        before = getattr(tc.conv3d_fused, counter)
+        y = tc.conv3d_fused(x, w, b, gn=gn, block_x=block_x)
+        torch.cuda.synchronize()
+        assert getattr(tc.conv3d_fused, counter) == before + 1
+        assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last_3d)
+        assert tc.tol_ratio(y, ref, x, w, gn) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3d_fused_v4_matches_plain(gen, dtype):
+    """K5's epilogue: + (b + temb) + skip, B = 2, Ci != Co."""
+    x, w, b, gn = _conv_case(gen, dtype, 2, 48, 32, (3, 5, 11), "batch")
+    temb = torch.randn((2, 32), generator=gen, device="cuda")
+    skip = torch.randn((2, 3, 5, 11, 32), generator=gen, device="cuda").to(dtype).permute(0, 4, 1, 2, 3)
+    before = tc.conv3d_fused_v4.launches
+    y = tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip)
+    torch.cuda.synchronize()
+    assert tc.conv3d_fused_v4.launches == before + 1
+    ref = tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip)
+    # kernel and plain version add the epilogue in the same order
+    assert tc.tol_ratio(y, ref, x, w, gn) <= 1.0
+
+
+def test_fuse_conv_unet_launches_k4b_only(gen, monkeypatch):
+    """A fuse_conv UNet on the card raises K4b's count by 2 per fused
+    ResBlock, never calls the plain version, and agrees with the same
+    model on the CPU (fp32, TF32 off)."""
+    cfg = dict(image_size=16, in_channels=16, model_channels=16, out_channels=8,
+               num_res_blocks=1, attention_resolutions=(), channel_mult=(1, 2),
+               num_groups=8, resblock_updown=True, bottleneck_attention=False,
+               resample_2d=False, fuse_conv=True)
+    torch.manual_seed(0)
+    cpu = UNetModel(**cfg).eval()
+    for p in cpu.parameters():  # nonzero output convs
+        torch.nn.init.normal_(p, std=0.1)
+    card = UNetModel(**cfg).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.cuda()
+    n_fused = sum(getattr(m, "fuse", False) for m in card.modules())
+    assert n_fused == 8
+    x = torch.randn((1, 8, 8, 8, 16), generator=gen, device="cuda").permute(0, 4, 1, 2, 3)
+    t = torch.tensor([3], device="cuda")
+    with torch.no_grad():
+        ref = cpu(x.cpu(), t.cpu())
+        monkeypatch.setattr(tc, "conv3d_fused_plain", None)  # a call would raise
+        before = tc.conv3d_fused.launches_k4b
+        y = card(x, t)
+        torch.cuda.synchronize()
+    assert tc.conv3d_fused.launches_k4b == before + 2 * n_fused
+    torch.testing.assert_close(y.cpu(), ref, atol=1e-4, rtol=0)
+
+
+def test_conv3d_wrappers_refuse_what_the_kernel_does_not_take(gen):
+    x, w, b, _ = _conv_case(gen, torch.bfloat16, 1, 16, 16, (4, 4, 4), None)
+    with pytest.raises(TypeError):
+        tc.conv3d_fused(x.half(), w, b)
+    with pytest.raises(ValueError):
+        tc.conv3d_fused(x.contiguous(), w, b)  # NCDHW-contiguous memory
+    with pytest.raises(ValueError):
+        tc.conv3d_fused(x[:, :12], w[:, :, :, :12], b)  # Ci % 8 != 0
+    with pytest.raises(ValueError):
+        tc.conv3d_fused_v4(x, w, b, skip=torch.zeros_like(x, dtype=torch.float32))

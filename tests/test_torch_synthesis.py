@@ -67,6 +67,39 @@ def test_synthesis_matches_jax():
     np.testing.assert_allclose(ours, ref, atol=1e-4)
 
 
+@pytest.mark.parametrize("sampler,fuse_conv", [("ddim", False), ("ddim", True), ("dpm++", True)])
+def test_samplers_match_jax(sampler, fuse_conv):
+    """make_synthesis_fn with the ddim and dpm++ samplers, port vs JAX on
+    the same weights and initial noise (eta 0: no per-step noise), fp32,
+    image atol 1e-4; fuse_conv on both sides where set (the JAX model's
+    XLA fallback off the TPU, the port's plain version of K4b)."""
+    cfg = common.production_config(**TINY, fuse_conv=fuse_conv)
+    model, diffusion, sd = _seeded_model(cfg)
+    assert any(getattr(m, "fuse", False) for m in model.modules()) == fuse_conv
+    jmodel, jdiff = jcommon.build_model_and_diffusion(jcommon.production_config(**TINY))
+    jmodel = jmodel.clone(fuse_conv=fuse_conv)
+    params = torch_to_flax(sd, jmodel)
+
+    rng = np.random.default_rng(1)
+    vols = {m: rng.random((1, 16, 16, 16, 1)).astype(np.float32) for m in ("t1n", "t1c", "t2w", "t2f")}
+    vols["t1n"][:, :4] = 0.0
+    key = jax.random.PRNGKey(5)
+    steps = 4 if sampler == "dpm++" else None
+    ref = jcommon.make_synthesis_fn(jmodel, params, jdiff, crop_z=12, sampler=sampler,
+                                    sampler_steps=steps)(
+        jcommon.prepare_condition(vols, "t1c"), vols["t1n"], key)
+    shape = (1, 8, 8, 8, 8)
+    # dpm++ draws its latent from the key itself, ddim from the first split
+    init_key = key if sampler == "dpm++" else jax.random.split(key)[0]
+    noise = np.array(jax.random.normal(init_key, shape, jnp.float32))
+    run = common.make_synthesis_fn(model, diffusion, crop_z=12, sampler=sampler,
+                                   sampler_steps=steps, device="cpu")
+    ours = run(common.prepare_condition(vols, "t1c", device="cpu"), vols["t1n"], noise=noise)
+    assert ours.shape == ref.shape == (1, 16, 16, 12)
+    assert np.all(ours[:, :4] == 0.0) and ours.max() > 0.0
+    np.testing.assert_allclose(ours, ref, atol=1e-4)
+
+
 def _make_case(case_dir, shape=(24, 24, 15), seed=0):
     os.makedirs(case_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
@@ -101,6 +134,17 @@ def test_cli_sample_on_cpu(tmp_path):
     assert np.all(out[:, :, 15:] == 0.0)  # the padded slices are background
     assert out.max() > 0.0
     assert (tmp_path / "out" / "00001" / "target.nii.gz").exists()
+
+
+def test_cli_sample_fused_conv_dpm_on_cpu(tmp_path):
+    """The flags of the fused-conv DPM-Solver++ serving path reach the
+    model and the sampler."""
+    flags = _tiny_flags(tmp_path) + ["--device=cpu", "--fuse_conv=True", "--sampler=dpm++",
+                                     "--sampling_steps=3"]
+    sample.main(flags)
+    out = load(str(tmp_path / "out" / "00001" / "sample.nii.gz")).get_fdata()
+    assert out.shape == (8, 8, 155)
+    assert np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0 and out.max() > 0.0
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path):
@@ -141,7 +185,5 @@ def test_port_imports_no_jax():
 def test_unported_samplers_and_formats_raise(tmp_path):
     cfg = common.production_config(**TINY)
     model, diffusion = common.build_model_and_diffusion(cfg)
-    with pytest.raises(NotImplementedError, match="ddpm only"):
-        common.make_synthesis_fn(model, diffusion, sampler="dpm++", device="cpu")
     with pytest.raises(NotImplementedError, match="M7"):
         common.load_params(str(tmp_path / "x.ckpt"), model)

@@ -138,6 +138,32 @@ def test_fuse_gn_silu_true_vs_false(dtype):
         assert np.max(np.abs(y1 - y0)) <= BF16_FACTOR * np.max(np.abs(y0 - y32))
 
 
+FUSE_CFG = dict(TINY_CFG, in_channels=32, model_channels=64, num_groups=32)
+
+
+@pytest.mark.parametrize("updown", [True, False])
+def test_fuse_conv_matches_jax_fp32(updown):
+    """fuse_conv on both sides: the JAX model takes its XLA fallback off
+    the TPU (the kernel's math), the port the plain version of K4b. fp32,
+    atol 5e-5."""
+    cfg = dict(FUSE_CFG, resblock_updown=updown)
+    jmodel, params, x, t = _jax_pair(cfg, fuse_conv=True)
+    ref = _apply(jmodel, params, x, t)
+    model = _port(cfg, params, fuse_conv=True)
+    assert sum(m.fuse for m in model.modules() if hasattr(m, "fuse")) == 8
+    np.testing.assert_allclose(_run_port(model, x, t), ref, atol=5e-5)
+
+
+def test_fuse_conv_matches_jax_bf16():
+    """bf16: within BF16_FACTOR times what bf16 costs the JAX model against
+    fp32."""
+    jmodel, params, x, t = _jax_pair(FUSE_CFG, dtype=jnp.bfloat16, fuse_conv=True)
+    ref = _apply(jmodel, params, x, t)
+    ref32 = _apply(JUNetModel(fuse_conv=True, **FUSE_CFG), params, x, t)
+    ours = _run_port(_port(FUSE_CFG, params, dtype=torch.bfloat16, fuse_conv=True), x, t)
+    assert np.max(np.abs(ours - ref)) <= BF16_FACTOR * np.max(np.abs(ref - ref32))
+
+
 def test_state_dict_from_jax_inverts_the_bridge():
     """The port's layout walk is the inverse of the JAX bridge's import."""
     for updown in (True, False):
@@ -152,7 +178,5 @@ def test_state_dict_from_jax_inverts_the_bridge():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="K4"):
-        UNetModel(fuse_conv=True, **TINY_CFG)
     with pytest.raises(NotImplementedError, match="AttentionBlock"):
         UNetModel(**dict(TINY_CFG, attention_resolutions=(2,)))
