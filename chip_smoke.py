@@ -12,8 +12,10 @@ Phases, each printing one JSON object per line:
               of the production path, with its time, the plain version's,
               one library call's where one computes the same function, and
               the least time the card could take (bytes or operations);
-              the fused conv (K4a/K4b/K5) at five production shapes, with
-              its tolerance ratio (≤ 1 passes) and differing elements;
+              the fused conv (K4a/K4b/K5) on both of its kernels (wgmma,
+              mma.sync) at eight shapes, with the tolerance ratio (≤ 1
+              passes) and differing elements, and both kernels, cuDNN and
+              the bound at every distinct conv shape of the forward;
 4. forward  — the 81,511,048-parameter production UNet in bf16 at
               (1, 112, 112, 80, 32): unfused, fuse_gn_silu (K3) and
               fuse_conv (K4b), timed in turns; with ``--profile`` the
@@ -23,7 +25,9 @@ Phases, each printing one JSON object per line:
               sampled schedule, twice: every GN→SiLU through K3 (ddpm),
               then every ResBlock conv through K4b (dpm++, 10 evaluations,
               as ``bench.py --fused --dpm 10``); the launch counts of each
-              run; then ``make_synthesis_fn`` of four variants in turns;
+              run, by entry point and by kernel (levels 0-2 on wgmma, by
+              ``conv3d_cuda.route``); then ``make_synthesis_fn`` of four
+              variants in turns;
 6. reference— the whole synthesis at a tiny fp32 config on the card
               against the same on the CPU (plain versions), same noise:
               fuse_gn_silu under ddpm, and fuse_conv under ddpm, ddim and
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -54,15 +59,30 @@ VOLUME = (224, 224, 160)
 LATENT = (112, 112, 80)
 # (channels, spatial) of the production UNet's levels where GN→SiLU runs
 K3_SHAPES = ((64, (112, 112, 80)), (128, (56, 56, 40)), (256, (14, 14, 10)))
-# (label, B, Ci, (X, Y, Z), Co) of the fused ResBlock convs, bf16
+# (label, B, Ci, (X, Y, Z), Co) of the fused ResBlock convs checked against
+# the plain version, bf16
 CONV_SHAPES = (
     ("level 0", 1, 64, (112, 112, 80), 64),
     ("level 0 decoder concat", 1, 128, (112, 112, 80), 64),
+    ("level 0 decoder concat 192", 1, 192, (112, 112, 80), 64),
+    ("level 1", 1, 128, (56, 56, 40), 128),
     ("level 3", 1, 256, (14, 14, 10), 256),
     ("level 4 decoder concat, X = 7", 1, 512, (7, 7, 5), 256),
     ("B = 2, per-(B, C) statistics", 2, 128, (28, 28, 20), 128),
+    ("Ci = 8 mod 16", 1, 24, (20, 20, 12), 64),
 )
 CONV_TOL = "1 ulp of plain in the output dtype + 2^-16 conv(|act|, |w|)"
+# ((X, Y, Z), Ci, Co): launches per forward) of every fused conv of the
+# production UNet with fuse_conv (54 per forward)
+PRODUCTION_CONVS = {
+    ((112, 112, 80), 64, 64): 7, ((112, 112, 80), 128, 64): 2, ((112, 112, 80), 192, 64): 1,
+    ((56, 56, 40), 64, 128): 1, ((56, 56, 40), 128, 128): 6, ((56, 56, 40), 192, 128): 1,
+    ((56, 56, 40), 256, 128): 2,
+    ((28, 28, 20), 128, 128): 7, ((28, 28, 20), 256, 128): 2, ((28, 28, 20), 384, 128): 1,
+    ((14, 14, 10), 128, 256): 1, ((14, 14, 10), 256, 256): 6, ((14, 14, 10), 384, 256): 1,
+    ((14, 14, 10), 512, 256): 2,
+    ((7, 7, 5), 256, 256): 11, ((7, 7, 5), 512, 256): 3,
+}
 
 
 def emit(rec: dict) -> None:
@@ -211,7 +231,7 @@ def conv_inputs(torch, g, bsz, ci, sp, co, dtype):
     x = torch.randn((bsz, *sp, ci), generator=g, device="cuda").to(dtype).permute(0, 4, 1, 2, 3)
     w = torch.randn((3, 3, 3, ci, co), generator=g, device="cuda") * (27 * ci) ** -0.5
     b = 0.02 * torch.randn(co, generator=g, device="cuda")
-    mean, inv = tc.group_stats(x, 32)
+    mean, inv = tc.group_stats(x, math.gcd(ci, 32))
     scale = 1.0 + 0.05 * torch.randn(ci, generator=g, device="cuda")
     bias = 0.3 + 0.05 * torch.randn(ci, generator=g, device="cuda")
     return x, w, b, (mean, inv, scale, bias)
@@ -228,90 +248,152 @@ def conv_cost(x, co, extra_out: int = 0) -> tuple[int, int]:
 
 
 def phase_conv(torch, F) -> dict:
-    """The fused conv kernel behind K4a, K4b and K5 against its plain
-    version: five production shapes in bf16 (K4b with the GN prologue and
-    without, K4a with fold_taps both ways, K5 with temb and skip) and the
-    level-1 shape in fp32; then times at level 0 and K4b's at every shape.
-    The library yardstick is ``F.conv3d`` in bf16 channels_last_3d (cuDNN)
-    on the same x: the same function with gn=None, the conv alone with the
-    prologue."""
+    """The fused conv behind K4a, K4b and K5, both hand-written kernels
+    against the plain version: the wgmma kernel (``conv3d_wgmma.cu``,
+    bf16, Ci % 16 == 0, Co % 64 == 0) and the mma.sync kernel
+    (``conv3d.cu``) at every shape of CONV_SHAPES each takes (K4b with the
+    GN prologue and without, K4a with fold_taps both ways, K5 with temb and
+    skip) and the level-1 shape in fp32 (mma.sync only). Then, at every
+    distinct conv shape of the production forward, the time of each
+    kernel with the prologue, of cuDNN (``F.conv3d`` bf16 channels_last_3d,
+    the conv alone) and the bound, beside the kernel ``route`` picks; the
+    fp32 level-1 and the B = 2 shapes on their routed kernel; and at level
+    0 each entry point through the routed kernel."""
     from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
 
     g = torch.Generator(device="cuda").manual_seed(2)
     checks, worst = [], {"k4a": [0.0, 0.0], "k4b": [0.0, 0.0], "k5": [0.0, 0.0]}
 
-    def check(entry, label, y, ref, x, w, gn, **info):
+    def check(entry, label, kernel, y, ref, x, w, gn, **info):
         ratio = tc.tol_ratio(y, ref, x, w, gn)
         err = float((y.float() - ref.float()).abs().max())
-        checks.append(dict(entry=entry, shape=label, x=list(x.shape), co=w.shape[-1],
-                           dtype=str(x.dtype).split(".")[-1], max_abs_err=err, tol_ratio=ratio,
-                           n_differ=int((y != ref).sum()), **info))
+        checks.append(dict(entry=entry, kernel=kernel, shape=label, x=list(x.shape),
+                           co=w.shape[-1], dtype=str(x.dtype).split(".")[-1], max_abs_err=err,
+                           tol_ratio=ratio, n_differ=int((y != ref).sum()), **info))
         worst[entry] = [max(worst[entry][0], err), max(worst[entry][1], ratio)]
 
-    timings = []
     shapes = [(lab, b, ci, sp, co, torch.bfloat16) for lab, b, ci, sp, co in CONV_SHAPES]
     shapes.append(("level 1, fp32", 1, 128, (56, 56, 40), 128, torch.float32))
     for label, bsz, ci, sp, co, dtype in shapes:
         x, w, b, gn = conv_inputs(torch, g, bsz, ci, sp, co, dtype)
+        temb = torch.randn((bsz, co), generator=g, device="cuda")
+        skip = torch.randn((bsz, *sp, co), generator=g, device="cuda").to(dtype).permute(0, 4, 1, 2, 3)
         ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
-        check("k4b", label, tc.conv3d_fused(x, w, b, gn=gn, block_x=2), ref, x, w, gn, prologue=True)
-        nb, fl = conv_cost(x, co)
-        b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
-        timings.append(dict(entry="k4b", shape=label, x=list(x.shape), co=co, bound_ms=b_ms,
-                            bound_by=b_by, gflop=fl / 1e9, mbytes=nb / 1e6,
-                            ms=time_ms(torch, lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2),
-                                       reps=10)))
+        ref_np = tc.conv3d_fused_plain(x, w, b)
+        ref_v4 = tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip)
+        # the entry points, on the kernel route() picks
+        routed = tc.route(dtype, bsz, ci, co, *sp)
+        wp = tc.pack_wgmma_weights(w) if routed == "wgmma" else None
+        check("k4b", label, routed, tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp), ref,
+              x, w, gn, prologue=True)
         if dtype == torch.float32:
             continue
         for fold in (True, False):
-            check("k4a", label, tc.conv3d_fused(x, w, b, gn=gn, fold_taps=fold), ref, x, w, gn,
-                  prologue=True, fold_taps=fold)
-        del ref
-        check("k4b", label, tc.conv3d_fused(x, w, b, block_x=2),
-              tc.conv3d_fused_plain(x, w, b), x, w, None, prologue=False)
-        temb = torch.randn((bsz, co), generator=g, device="cuda")
-        skip = torch.randn((bsz, *sp, co), generator=g, device="cuda").to(dtype).permute(0, 4, 1, 2, 3)
-        check("k5", label, tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip),
-              tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip), x, w, gn,
-              prologue=True, temb=True, skip=True)
-        del x, w, gn, temb, skip
+            check("k4a", label, routed, tc.conv3d_fused(x, w, b, gn=gn, fold_taps=fold, w_packed=wp),
+                  ref, x, w, gn, prologue=True, fold_taps=fold)
+        check("k4b", label, routed, tc.conv3d_fused(x, w, b, block_x=2, w_packed=wp), ref_np,
+              x, w, None, prologue=False)
+        check("k5", label, routed,
+              tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip, w_packed=wp), ref_v4, x, w,
+              gn, prologue=True, temb=True, skip=True)
+        # the other kernel, where it takes the shape
+        other = "mma_sync" if routed == "wgmma" else "wgmma"
+        if other == "mma_sync" or (ci % tc.WG_BK == 0 and co % tc.WG_BN == 0):
+            for entry, (g_, t_, s_, r_) in {"k4b": (gn, None, None, ref),
+                                            "k4b_np": (None, None, None, ref_np),
+                                            "k5": (gn, temb, skip, ref_v4)}.items():
+                check(entry[:3], label, other, tc._launch(entry, x, w, b, g_, t_, s_, kernel=other),
+                      r_, x, w, g_, prologue=g_ is not None, temb=t_ is not None,
+                      skip=s_ is not None)
+        del x, w, gn, temb, skip, ref, ref_np, ref_v4
     torch.cuda.empty_cache()
 
-    # level 0, 64 → 64: each entry point, its plain version, cuDNN
+    # every distinct production conv shape: both kernels with the prologue,
+    # cuDNN's conv alone, the bound, the route
+    timings = []
+    for (sp, ci, co), per_forward in PRODUCTION_CONVS.items():
+        x, w, b, gn = conv_inputs(torch, g, 1, ci, sp, co, torch.bfloat16)
+        wp = tc.pack_wgmma_weights(w)
+        w_lib = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+        b_lib = b.to(torch.bfloat16)
+        nb, fl = conv_cost(x, co)
+        b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS)
+        timings.append(dict(
+            x=list(x.shape), co=co, per_forward=per_forward,
+            route=tc.route(x.dtype, 1, ci, co, *sp),
+            wgmma_ms=time_ms(torch, lambda: tc._launch("k4b", x, w, b, gn, None, None, wp,
+                                                       "wgmma"), reps=10),
+            mma_sync_ms=time_ms(torch, lambda: tc._launch("k4b", x, w, b, gn, None, None,
+                                                          kernel="mma_sync"), reps=10),
+            cudnn_ms=time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1), reps=10),
+            bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9, mbytes=nb / 1e6))
+        del x, w, wp, gn, w_lib
+    # the fp32 level-1 conv and the B = 2 conv of CONV_SHAPES, with the
+    # prologue, on the kernel route() picks
+    other_timings = []
+    b2 = next(shape for shape in shapes if shape[1] == 2)
+    for label, bsz, ci, sp, co, dtype in (shapes[-1], b2):
+        x, w, b, gn = conv_inputs(torch, g, bsz, ci, sp, co, dtype)
+        nb, fl = conv_cost(x, co)
+        b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else
+                              PEAK_FP32_FLOPS)
+        other_timings.append(dict(
+            shape=label, x=list(x.shape), co=co, dtype=str(dtype).split(".")[-1],
+            route=tc.route(dtype, bsz, ci, co, *sp),
+            ms=time_ms(torch, lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2), reps=10),
+            bound_ms=b_ms, bound_by=b_by))
+        del x, w, gn
+    torch.cuda.empty_cache()
+
+    # level 0, 64 → 64: each entry point through the routed kernel, its
+    # plain version, cuDNN; the wgmma kernel without the prologue (cuDNN's
+    # function); the mma.sync kernel
     x, w, b, gn = conv_inputs(torch, g, *CONV_SHAPES[0][1:], torch.bfloat16)
     co = w.shape[-1]
+    wp = tc.pack_wgmma_weights(w)
     temb = torch.randn((1, co), generator=g, device="cuda")
     skip = torch.randn((1, *CONV_SHAPES[0][3], co), generator=g, device="cuda")
     skip = skip.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
     w_lib = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
     b_lib = b.to(torch.bfloat16)
     lib_ms = time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1))
-    runs = {
-        "k4b": (lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2),
+    runs = {  # the entry point; the mma.sync kernel on the same call; the plain version
+        "k4b": (lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp),
+                lambda: tc._launch("k4b", x, w, b, gn, None, None, kernel="mma_sync"),
                 lambda: tc.conv3d_fused_plain(x, w, b, gn=gn), 0),
-        "k4a": (lambda: tc.conv3d_fused(x, w, b, gn=gn),
+        "k4a": (lambda: tc.conv3d_fused(x, w, b, gn=gn, w_packed=wp),
+                lambda: tc._launch("k4a", x, w, b, gn, None, None, kernel="mma_sync"),
                 lambda: tc.conv3d_fused_plain(x, w, b, gn=gn), 0),
-        "k5": (lambda: tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip),
+        "k5": (lambda: tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip, w_packed=wp),
+               lambda: tc._launch("k5", x, w, b, gn, temb, skip, kernel="mma_sync"),
                lambda: tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip), 1),
     }
+    routed = tc.route(x.dtype, *x.shape[:2], co, *x.shape[2:])
     out = {}
-    for entry, (kern, plain, extra) in runs.items():
+    for entry, (kern, mma_sync, plain, extra) in runs.items():
         nb, fl = conv_cost(x, co, extra)
         b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS)
         out[entry] = dict(
-            shape=list(x.shape), co=co, dtype="bfloat16", max_abs_err=worst[entry][0],
-            tol_ratio=worst[entry][1], tol=CONV_TOL, ms=time_ms(torch, kern),
+            shape=list(x.shape), co=co, dtype="bfloat16", kernel=routed,
+            max_abs_err=worst[entry][0], tol_ratio=worst[entry][1], tol=CONV_TOL,
+            ms=time_ms(torch, kern), mma_sync_ms=time_ms(torch, mma_sync),
             plain_ms=time_ms(torch, plain, reps=5), library_ms=lib_ms,
             library="F.conv3d bf16 channels_last_3d (cuDNN), the conv alone, no prologue"
                     + (" or temb/skip" if extra else ""),
             bound_ms=b_ms, bound_by=b_by, bytes=nb, flops=fl,
         )
-    # the same function as cuDNN: no prologue
-    out["k4b_no_prologue_ms"] = time_ms(torch, lambda: tc.conv3d_fused(x, w, b, block_x=2))
-    out["checks"], out["timings"] = checks, timings
+    out["level0_wgmma_no_prologue_ms"] = time_ms(
+        torch, lambda: tc._launch("no prologue", x, w, b, None, None, None, wp, "wgmma"))
+    out["level0_mma_sync_no_prologue_ms"] = time_ms(
+        torch, lambda: tc._launch("no prologue", x, w, b, None, None, None, kernel="mma_sync"))
+    out["checks"], out["timings"], out["other_timings"] = checks, timings, other_timings
     bad = [c for c in checks if not c["tol_ratio"] <= 1.0]
     if bad:
         fail(f"the fused conv disagrees with its plain version: {bad}")
+    # the wgmma kernel's prologue divides by its own branch-free reciprocal
+    out["wgmma_recip_mismatches_of_2_126_range"] = tc.recip_mismatches()
+    if out["wgmma_recip_mismatches_of_2_126_range"]:
+        fail("the wgmma kernel's reciprocal differs from IEEE 1/d on [1, 2^126)")
     return out
 
 
@@ -347,7 +429,8 @@ def profile_forward(torch, model, x, t) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds = (("K3 affine_silu", ("affine_silu",)),
-             ("K4b fused conv3d", ("conv3d_bf16", "conv3d_f32")),
+             ("K4b fused conv3d, wgmma", ("conv3d_wgmma",)),
+             ("K4b fused conv3d, mma.sync", ("conv3d_bf16", "conv3d_f32")),
              ("convolution", ("conv", "xmma", "cudnn", "fprop", "implicit", "gemm")),
              ("reduction (GroupNorm statistics)", ("reduce",)),
              ("elementwise and copies", ("elementwise", "copy", "cat", "upsample",
@@ -458,6 +541,8 @@ def reset_counts():
     wc.haar_dwt3.launches = wc.haar_idwt3.launches = ec.affine_silu.launches = 0
     tc.conv3d_fused.launches_k4a = tc.conv3d_fused.launches_k4b = 0
     tc.conv3d_fused_v4.launches = 0
+    for k in tc.kernel_launches:
+        tc.kernel_launches[k] = 0
 
 
 def read_counts() -> dict:
@@ -469,7 +554,7 @@ def read_counts() -> dict:
             "affine_silu": ec.affine_silu.launches,
             "conv3d_fused_k4a": tc.conv3d_fused.launches_k4a,
             "conv3d_fused_k4b": tc.conv3d_fused.launches_k4b,
-            "conv3d_fused_v4": tc.conv3d_fused_v4.launches}
+            "conv3d_fused_v4": tc.conv3d_fused_v4.launches, **tc.kernel_launches}
 
 
 def check_sample(np, path: str, mask) -> list:
@@ -527,9 +612,20 @@ def phase_synthesis(torch, tmp: str) -> tuple[dict, dict]:
     res["fuse_conv_dpm"] = {
         "sample_shape": check_sample(np, os.path.join(conv_dir, "00001", "sample.nii.gz"), mask),
         "s_per_volume_cli_first_case": timings[0], "launches": conv_counts}
+    # by kernel: what route() gives the 54 production convs, × 10
+    # evaluations; levels 0 and 1 (20 sites) must be among the wgmma ones
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
+
+    routes = {shape: tc.route(torch.bfloat16, 1, shape[1], shape[2], *shape[0])
+              for shape in PRODUCTION_CONVS}
+    want_wgmma = 10 * sum(n for shape, n in PRODUCTION_CONVS.items() if routes[shape] == "wgmma")
+    large = [shape for shape in PRODUCTION_CONVS if shape[0][0] >= 56]
+    res["fuse_conv_dpm"]["wgmma_launches_expected"] = want_wgmma
     if (conv_counts["conv3d_fused_k4b"] != 54 * 10 or conv_counts["conv3d_fused_k4a"]
             or conv_counts["conv3d_fused_v4"] or conv_counts["haar_dwt3"] < 3
-            or conv_counts["haar_idwt3"] != 1):
+            or conv_counts["haar_idwt3"] != 1 or conv_counts["conv3d_wgmma"] != want_wgmma
+            or conv_counts["conv3d_mma_sync"] != 540 - want_wgmma
+            or any(routes[shape] != "wgmma" for shape in large)):
         fail(f"the fused-conv path did not run through its kernels as expected: {conv_counts}")
 
     # the same case through make_synthesis_fn, four variants on one
@@ -624,6 +720,9 @@ def phase_reference(torch) -> dict:
     return res
 
 
+# the conv entries run on either hand-written kernel, by conv3d_cuda.route
+CONV_SOURCES = ("fast_cwdm_tpu_torch/ops/csrc/conv3d_wgmma.cu (bf16, wgmma) + "
+                "fast_cwdm_tpu_torch/ops/csrc/conv3d.cu (mma.sync, fp32)")
 KERNELS = {  # name: (source, replaces, key of its kernels-phase record)
     "haar_dwt3": ("fast_cwdm_tpu_torch/ops/csrc/haar3d.cu",
                   "fast_cwdm_tpu/ops/wavelet_pallas.py:53 (_dwt3_kernel)", "haar_dwt3"),
@@ -632,12 +731,11 @@ KERNELS = {  # name: (source, replaces, key of its kernels-phase record)
     "affine_silu": ("fast_cwdm_tpu_torch/ops/csrc/affine_silu.cu",
                     "fast_cwdm_tpu/ops/elementwise_pallas.py:66 (_affine_silu_kernel)",
                     "affine_silu"),
-    "conv3d_fused_k4a": ("fast_cwdm_tpu_torch/ops/csrc/conv3d.cu",
-                         "fast_cwdm_tpu/ops/conv3d_pallas.py:36 (_kernel)", "k4a"),
-    "conv3d_fused_k4b": ("fast_cwdm_tpu_torch/ops/csrc/conv3d.cu",
-                         "fast_cwdm_tpu/ops/conv3d_pallas.py:154 (_blocked_kernel)", "k4b"),
-    "conv3d_fused_v4": ("fast_cwdm_tpu_torch/ops/csrc/conv3d.cu",
-                        "fast_cwdm_tpu/ops/conv3d_pallas.py:341 (_v4_make_kernel)", "k5"),
+    "conv3d_fused_k4a": (CONV_SOURCES, "fast_cwdm_tpu/ops/conv3d_pallas.py:36 (_kernel)", "k4a"),
+    "conv3d_fused_k4b": (CONV_SOURCES, "fast_cwdm_tpu/ops/conv3d_pallas.py:154 (_blocked_kernel)",
+                         "k4b"),
+    "conv3d_fused_v4": (CONV_SOURCES, "fast_cwdm_tpu/ops/conv3d_pallas.py:341 (_v4_make_kernel)",
+                        "k5"),
 }
 
 
@@ -704,6 +802,7 @@ def main(argv=None) -> int:
             "max_abs_err": k["max_abs_err"], "tol": k["tol"],
             "tol_ratio": k.get("tol_ratio"),
             "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
+            "kernel": k.get("kernel"), "mma_sync_ms": k.get("mma_sync_ms"),
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })

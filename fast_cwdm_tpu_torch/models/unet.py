@@ -34,7 +34,7 @@ from fast_cwdm_tpu_torch.models.nn import (
     conv_nd,
     timestep_embedding,
 )
-from fast_cwdm_tpu_torch.ops.conv3d_cuda import conv3d_fused, group_stats
+from fast_cwdm_tpu_torch.ops.conv3d_cuda import conv3d_fused, group_stats, pack_wgmma_weights
 
 
 class Linear(nn.Linear):
@@ -94,18 +94,36 @@ class FusableConv3d(Conv3d):
     inv, scale, bias) the GN-apply+SiLU prologue runs inside the fused conv
     (K4b, ``conv3d_fused(block_x=2)``), for every C and X: the JAX
     package's fallback to an XLA conv (C > 128, X odd) is a TPU VMEM and
-    tiling limit, and computes the same function."""
+    tiling limit, and computes the same function. The conv is handed
+    :meth:`packed_weight`, which it calls only where the card's route is
+    the wgmma kernel: the weight is repacked once and kept until the
+    parameter changes (its version, storage or device)."""
 
     def __init__(self, in_ch: int, out_ch: int, *, dtype=None, zero_init: bool = False):
         super().__init__(in_ch, out_ch, 3, dtype=dtype, zero_init=zero_init, follow_input=True)
+        self._packed = (None, None)  # (key, pack_wgmma_weights of the weight)
+
+    def packed_weight(self) -> torch.Tensor:
+        """``pack_wgmma_weights`` of the DHWIO weight, rebuilt only when the
+        parameter was written (``load_state_dict``, an optimizer step) or
+        moved."""
+        wt = self.weight
+        key = (wt._version, wt.data_ptr(), wt.device)
+        if self._packed[0] != key:
+            with torch.no_grad():
+                self._packed = (key, pack_wgmma_weights(wt.permute(2, 3, 4, 1, 0)))
+        return self._packed[1]
 
     def forward(self, x: torch.Tensor, gn=None) -> torch.Tensor:
         if gn is None:
             return super().forward(x)
         dt = self.compute_dtype or x.dtype
         xx = x.to(dt, memory_format=torch.channels_last_3d)
-        w = self.weight.to(dt).permute(2, 3, 4, 1, 0)  # OIDHW → DHWIO
-        return conv3d_fused(xx, w, self.bias.to(dt), gn=gn, block_x=2)
+        # OIDHW → DHWIO; the conv casts it to dt (the wgmma route reads the
+        # packed copy instead)
+        w = self.weight.permute(2, 3, 4, 1, 0)
+        return conv3d_fused(xx, w, self.bias.to(dt), gn=gn, block_x=2,
+                            w_packed=self.packed_weight)
 
 
 class ResBlock(nn.Module):

@@ -14,10 +14,18 @@ the output (B, Co, X, Y, Z) in ``channels_last_3d`` memory, which is the
 JAX package's (B, X, Y, Z, C). ``w`` keeps the JAX layout (3, 3, 3, Ci,
 Co). ``gn`` is (mean, inv, scale, bias), each (Ci,) or (B, Ci).
 
+Two hand-written kernels compute the function on the card:
+``csrc/conv3d_wgmma.cu`` (bf16 on ``wgmma``, an 8×8×8-voxel by 64-channel
+block, a two-stage staging ring; it reads the weight repacked once by
+:func:`pack_wgmma_weights`) and ``csrc/conv3d.cu`` (``mma.sync`` bf16 or
+fp32 FMA, any Ci and Co multiple of 8). :func:`route` picks one from the
+dtype and shape alone, by a rule fixed from the card's per-shape timings.
+
 A CPU tensor takes the plain torch version; a CUDA tensor launches the
-kernel or raises. ``conv3d_fused.launches_k4a`` / ``launches_k4b`` (by
-``block_x``) and ``conv3d_fused_v4.launches`` count kernel launches.
-Inference only: the JAX package has no backward for these kernels either.
+routed kernel or raises. ``conv3d_fused.launches_k4a`` / ``launches_k4b``
+(by ``block_x``) and ``conv3d_fused_v4.launches`` count launches by entry
+point, ``kernel_launches`` by kernel. Inference only: the JAX package has
+no backward for these kernels either.
 """
 
 from __future__ import annotations
@@ -120,16 +128,101 @@ def tol_ratio(ours: torch.Tensor, ref: torch.Tensor, x: torch.Tensor, w: torch.T
     return float(((ours.float() - ref).abs() / (ulp + 2.0**-16 * mag)).max())
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("conv3d")
+# The wgmma kernel's block (csrc/conv3d_wgmma.cu): TX × TY × TZ output
+# voxels by BN output channels, BK input channels per staged chunk.
+WG_TILE = (8, 8, 8)
+WG_BN, WG_BK = 64, 16
+# Fewest blocks (of 132 SMs) at which the wgmma kernel is taken. Measured
+# on an H100 at every production conv shape (PERF.md, Findings): faster at 96
+# blocks and up (28×28×20 and larger, 1.7-2.1×), slower at 32 and fewer
+# (14×14×10 and 7×7×5), where conv3d.cu's 128-voxel blocks fill more SMs.
+WG_MIN_BLOCKS = 64
+
+
+def wgmma_layout() -> dict:
+    """The wgmma kernel's shared-memory addressing, in bytes: the halo of
+    one chunk is [BK/8][halo voxel][8 channels] (16 B per voxel row); the
+    A descriptor of x-plane ``q`` and tap (dx, dy, dz) starts at
+    ``a_offset(q, tap)``, its 8-row core matrices (8 z-consecutive voxels)
+    step by ``a_sbo`` along M (one y-line) and by ``a_lbo`` along K (the
+    next 8 channels). B (the packed weight, [27][BK/8][BN][8]) starts at
+    ``b_offset(tap)`` with ``b_sbo`` along N and ``b_lbo`` along K."""
+    tx, ty, tz = WG_TILE
+    hx, hy, hz = tx + 2, ty + 2, tz + 2
+    hv = hx * hy * hz
+    return dict(
+        tile=WG_TILE, halo=(hx, hy, hz), a_lbo=hv * 16, a_sbo=hz * 16,
+        b_lbo=WG_BN * 16, b_sbo=8 * 16,
+        a_offset=lambda q, tap: (((q + tap // 9) * hy + (tap // 3) % 3) * hz + tap % 3) * 16,
+        b_offset=lambda tap: tap * (WG_BK // 8) * WG_BN * 16,
+    )
+
+
+def route(dtype, B: int, Ci: int, Co: int, X: int, Y: int, Z: int) -> str:
+    """Which kernel a CUDA tensor of this dtype and shape goes to:
+    ``"wgmma"`` (``csrc/conv3d_wgmma.cu``) for bf16 with Ci % 16 == 0 and
+    Co % 64 == 0 where its grid has at least ``WG_MIN_BLOCKS`` blocks, else
+    ``"mma_sync"`` (``csrc/conv3d.cu``). Both are hand-written kernels; no
+    shape goes to the plain version on the card."""
+    tx, ty, tz = WG_TILE
+    blocks = B * -(-X // tx) * -(-Y // ty) * -(-Z // tz) * (Co // WG_BN)
+    if (dtype == torch.bfloat16 and Ci % WG_BK == 0 and Co % WG_BN == 0
+            and blocks >= WG_MIN_BLOCKS):
+        return "wgmma"
+    return "mma_sync"
+
+
+def pack_wgmma_weights(w: torch.Tensor) -> torch.Tensor:
+    """(3,3,3,Ci,Co) DHWIO → (Co/64, Ci/16, 27, 2, 64, 8) bf16, contiguous:
+    for each 64-wide output block and 16-channel chunk, the 27 taps' B
+    operands K-major (8 input channels of one output channel per 16-byte
+    row), one contiguous slice per chunk for the kernel's bulk copy."""
+    ci, co = w.shape[3], w.shape[4]
+    if ci % WG_BK or co % WG_BN:
+        raise ValueError(f"pack_wgmma_weights: needs Ci % {WG_BK} == 0 and Co % {WG_BN} == 0, "
+                         f"got {ci}, {co}")
+    t = w.to(torch.bfloat16).reshape(27, ci // WG_BK, WG_BK // 8, 8, co // WG_BN, WG_BN)
+    return t.permute(4, 1, 0, 2, 5, 3).contiguous()
+
+
+kernel_launches = {"conv3d_wgmma": 0, "conv3d_mma_sync": 0}
+
+
+# kernel → (source in csrc/, its C entry point, its int arguments: B, X, Y,
+# Z, Ci, Co, and for conv3d.cu the dtype code)
+_ENTRY = {"wgmma": ("conv3d_wgmma", "conv3d_wgmma", 6),
+          "mma_sync": ("conv3d", "conv3d_fused", 7)}
+
+
+def _entry(kernel: str):
+    source, symbol, n_int = _ENTRY[kernel]
+    fn = getattr(_build.load(source), symbol)
     p = ctypes.c_void_p
-    lib.conv3d_fused.argtypes = [p] * 10 + [ctypes.c_int] * 7 + [p]
-    lib.conv3d_fused.restype = ctypes.c_int
-    return lib
+    fn.argtypes = [p] * 10 + [ctypes.c_int] * n_int + [p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def _launch(name, x, w, b, gn, temb, skip) -> torch.Tensor:
-    """Check what the kernel takes, allocate the output, launch."""
+def recip_mismatches() -> int:
+    """Floats d in [1, 2^126) where the wgmma kernel's branch-free
+    reciprocal differs from IEEE 1.0f / d, counted on the card (0 keeps
+    its prologue bit for bit that of the plain version)."""
+    fn = _build.load("conv3d_wgmma").recip_normal_mismatches
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    _build.check(fn(bad.data_ptr(), torch.cuda.current_stream().cuda_stream),
+                 "recip_normal_mismatches")
+    return int(bad.item())
+
+
+def _launch(name, x, w, b, gn, temb, skip, w_packed=None, kernel=None) -> torch.Tensor:
+    """Check what the kernel takes, allocate the output, launch the kernel
+    that :func:`route` picks. ``w_packed`` is ``pack_wgmma_weights(w)`` or a
+    zero-argument function returning it, used only on the wgmma route
+    (packed here when None). ``kernel`` ("wgmma" or "mma_sync") overrides
+    the route, for measurements that compare the two kernels on one
+    shape."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODE:
@@ -145,8 +238,24 @@ def _launch(name, x, w, b, gn, temb, skip) -> torch.Tensor:
     co = w.shape[-1]
     if ci % 8 or co % 8:
         raise ValueError(f"{name}: the CUDA kernel needs Ci and Co multiples of 8, got {ci}, {co}")
+    kernel = kernel or route(x.dtype, bsz, ci, co, X, Y, Z)
+    if kernel not in ("wgmma", "mma_sync"):
+        raise ValueError(f"{name}: kernel must be 'wgmma' or 'mma_sync', got {kernel!r}")
+    if kernel == "wgmma" and (x.dtype != torch.bfloat16 or ci % WG_BK or co % WG_BN):
+        raise ValueError(f"{name}: the wgmma kernel takes bfloat16 with Ci % {WG_BK} == 0 and "
+                         f"Co % {WG_BN} == 0, got {x.dtype}, {ci}, {co}")
     dev = x.device
-    w = w.to(dev, x.dtype).contiguous()
+    if kernel == "wgmma":
+        if w_packed is None:
+            w = pack_wgmma_weights(w.to(dev))
+        else:
+            w = w_packed() if callable(w_packed) else w_packed
+        if w.shape != (co // WG_BN, ci // WG_BK, 27, 2, WG_BN, 8) or w.dtype != torch.bfloat16 \
+                or w.device != dev or not w.is_contiguous():
+            raise ValueError(f"{name}: w_packed must be pack_wgmma_weights(w) on {dev}, got "
+                             f"{w.dtype} {tuple(w.shape)}")
+    else:
+        w = w.to(dev, x.dtype).contiguous()
     b = b.to(dev, torch.float32).contiguous()
     if b.shape != (co,):
         raise ValueError(f"{name}: b must be ({co},), got {tuple(b.shape)}")
@@ -169,24 +278,29 @@ def _launch(name, x, w, b, gn, temb, skip) -> torch.Tensor:
             f"on {dev}, got {skip.dtype} {tuple(skip.shape)} strides {skip.stride()}"
         )
     out = torch.empty((bsz, co, X, Y, Z), dtype=x.dtype, device=dev, memory_format=_CL)
+    ints = (bsz, X, Y, Z, ci, co) + (() if kernel == "wgmma" else (_DTYPE_CODE[x.dtype],))
     with torch.cuda.device(dev):
-        status = _lib().conv3d_fused(
+        status = _entry(kernel)(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), *(ptr(a) for a in params),
-            ptr(temb), ptr(skip), out.data_ptr(), bsz, X, Y, Z, ci, co,
-            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream,
+            ptr(temb), ptr(skip), out.data_ptr(), *ints,
+            torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(status, name)
+    _build.check(status, f"{name} ({_ENTRY[kernel][0]}.cu)")
+    kernel_launches[f"conv3d_{kernel}"] += 1
     return out
 
 
 def conv3d_fused(x, w, b, *, gn=None, fold_taps=True, block_x=None,
-                 interpret=False) -> torch.Tensor:
+                 interpret=False, w_packed=None) -> torch.Tensor:
     """K4a (``block_x`` None) / K4b (``block_x`` set): fused [GN-apply +
     SiLU] + 3³ SAME conv + b. ``x`` (B, Ci, X, Y, Z); ``w`` (3,3,3,Ci,Co);
-    ``b`` (Co,); ``gn`` None for a plain conv."""
+    ``b`` (Co,); ``gn`` None for a plain conv. On the card, ``w_packed``
+    (``pack_wgmma_weights(w)`` kept by the caller, or a zero-argument
+    function returning it) spares the wgmma route a repack per call; the
+    other routes never read it."""
     if x.device.type == "cpu":
         return conv3d_fused_plain(x, w, b, gn=gn)
-    y = _launch("conv3d_fused", x, w, b, gn, None, None)
+    y = _launch("conv3d_fused", x, w, b, gn, None, None, w_packed)
     if block_x:
         conv3d_fused.launches_k4b += 1
     else:
@@ -200,12 +314,13 @@ conv3d_fused.launches_k4b = 0
 
 def conv3d_fused_v4(x, w, b, *, gn=None, temb=None, skip=None, tx=None, pack_n=True,
                     unroll=False, algo="im2col", interpret=False,
-                    vmem_mb=100) -> torch.Tensor:
+                    vmem_mb=100, w_packed=None) -> torch.Tensor:
     """K5: fused [GN-apply + SiLU] → 3³ SAME conv → + b + temb + skip.
-    ``temb`` (Co,) or (B, Co); ``skip`` (B, Co, X, Y, Z) in x's dtype."""
+    ``temb`` (Co,) or (B, Co); ``skip`` (B, Co, X, Y, Z) in x's dtype;
+    ``w_packed`` as in :func:`conv3d_fused`."""
     if x.device.type == "cpu":
         return conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip)
-    y = _launch("conv3d_fused_v4", x, w, b, gn, temb, skip)
+    y = _launch("conv3d_fused_v4", x, w, b, gn, temb, skip, w_packed)
     conv3d_fused_v4.launches += 1
     return y
 

@@ -41,6 +41,11 @@
 // ldmatrix.trans; 8 warps of 32x32. fp32: scalar fmaf (no TF32), an 8x4
 // register tile per thread. Both use about 80 KB of shared memory, so two
 // CTAs share an SM and one stages while the other computes.
+//
+// In bf16 the large levels of the UNet go to conv3d_wgmma.cu instead
+// (conv3d_cuda.route); this kernel keeps fp32, Ci or Co not multiples of
+// 16 and 64, and the small deep levels, where its 128-voxel blocks fill
+// more SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels on the card: K1/K2/K3 and the fused conv
-behind K4a/K4b/K5, each against its plain torch version, their wrappers'
-refusals, the autograd pair, and a fuse_conv UNet that reaches K4b.
+"""The hand-written CUDA kernels on the card: K1/K2/K3 and the two fused
+conv kernels behind K4a/K4b/K5 (mma.sync and wgmma), each against its
+plain torch version, their wrappers' refusals, the autograd pair, and
+fuse_conv UNets that reach K4b on each conv kernel.
 
 Marked ``cuda``: skipped where no GPU is present. This file imports no JAX,
 so it also runs where JAX is not installed:
@@ -182,6 +183,92 @@ def test_fuse_conv_unet_launches_k4b_only(gen, monkeypatch):
     torch.testing.assert_close(y.cpu(), ref, atol=1e-4, rtol=0)
 
 
+# (B, Ci, Co, spatial, gn): 64→64, 128→64 and 192→64 on a grid ragged in
+# Y and Z (neither a multiple of the 8×8×8 block), B = 2 with per-(B, C)
+# statistics, and a plain conv
+WGMMA_CASES = [
+    (1, 64, 64, (9, 12, 10), "channel"),
+    (1, 128, 64, (8, 13, 11), "batch"),
+    (1, 192, 64, (10, 9, 14), "channel"),
+    (2, 64, 128, (9, 10, 12), "batch"),
+    (2, 32, 64, (5, 7, 9), None),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_conv3d_wgmma_matches_plain(gen, case):
+    """The wgmma kernel (conv3d_wgmma.cu) against the plain version, within
+    tc.tol_ratio, at shapes where route() picks the other kernel: packed
+    by the wrapper, handed a packed weight, and handed a getter of one;
+    each launch counted on that kernel."""
+    x, w, b, gn = _conv_case(gen, torch.bfloat16, *case)
+    ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
+    wp = tc.pack_wgmma_weights(w)
+    before = tc.kernel_launches["conv3d_wgmma"]
+    for y in (tc._launch("k4b", x, w, b, gn, None, None, kernel="wgmma"),
+              tc._launch("k4a", x, w, b, gn, None, None, wp, "wgmma"),
+              tc._launch("getter", x, w, b, gn, None, None, lambda: wp, "wgmma")):
+        torch.cuda.synchronize()
+        assert y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last_3d)
+        assert tc.tol_ratio(y, ref, x, w, gn) <= 1.0
+    assert tc.kernel_launches["conv3d_wgmma"] == before + 3
+
+
+def test_conv3d_wgmma_v4_matches_plain(gen):
+    """K5 on the wgmma kernel: + (b + temb) + skip, B = 2, Ci != Co."""
+    x, w, b, gn = _conv_case(gen, torch.bfloat16, 2, 96, 64, (9, 11, 10), "batch")
+    temb = torch.randn((2, 64), generator=gen, device="cuda")
+    skip = torch.randn((2, 9, 11, 10, 64), generator=gen, device="cuda").bfloat16().permute(0, 4, 1, 2, 3)
+    before = tc.kernel_launches["conv3d_wgmma"]
+    y = tc._launch("k5", x, w, b, gn, temb, skip, kernel="wgmma")
+    torch.cuda.synchronize()
+    assert tc.kernel_launches["conv3d_wgmma"] == before + 1
+    ref = tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip)
+    assert tc.tol_ratio(y, ref, x, w, gn) <= 1.0
+
+
+def test_wgmma_reciprocal_is_the_ieee_quotient(gen):
+    """The wgmma kernel's prologue takes 1/(1 + expf(-u)) from a branch-free
+    reciprocal; it equals IEEE 1.0f / d for every float d in [1, 2^126)."""
+    assert tc.recip_mismatches() == 0
+
+
+def test_fuse_conv_unet_launches_wgmma(gen, monkeypatch):
+    """A bf16 fuse_conv UNet whose convs all route to the wgmma kernel
+    (WG_MIN_BLOCKS lowered for its small grid) launches it at every fused
+    conv, never the plain version, and agrees with the same model on the
+    mma.sync kernel to within twice that model's own bf16 error against
+    fp32 on the CPU."""
+    cfg = dict(image_size=16, in_channels=16, model_channels=64, out_channels=8,
+               num_res_blocks=1, attention_resolutions=(), channel_mult=(1, 2),
+               num_groups=8, resblock_updown=True, bottleneck_attention=False,
+               resample_2d=False, fuse_conv=True)
+    torch.manual_seed(0)
+    cpu = UNetModel(**cfg).eval()
+    for p in cpu.parameters():  # nonzero output convs
+        torch.nn.init.normal_(p, std=0.05)
+    card = UNetModel(**cfg, dtype=torch.bfloat16).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.cuda()
+    n_fused = sum(getattr(m, "fuse", False) for m in card.modules())
+    x = torch.randn((1, 16, 16, 16, 16), generator=gen, device="cuda").permute(0, 4, 1, 2, 3)
+    t = torch.tensor([3], device="cuda")
+    with torch.no_grad():
+        ref32 = cpu(x.cpu(), t.cpu())
+        monkeypatch.setattr(tc, "conv3d_fused_plain", None)  # a call would raise
+        monkeypatch.setattr(tc, "WG_MIN_BLOCKS", 1)
+        before = dict(tc.kernel_launches)
+        y = card(x, t)
+        torch.cuda.synchronize()
+        assert tc.kernel_launches["conv3d_wgmma"] == before["conv3d_wgmma"] + 2 * n_fused
+        assert tc.kernel_launches["conv3d_mma_sync"] == before["conv3d_mma_sync"]
+        monkeypatch.setattr(tc, "WG_MIN_BLOCKS", 10**9)  # every conv on mma.sync
+        y_mma = card(x, t)
+    assert torch.isfinite(y).all()
+    bf16_err = float((y_mma.cpu() - ref32).abs().max())
+    assert float((y - y_mma).abs().max()) <= 2 * bf16_err
+
+
 def test_conv3d_wrappers_refuse_what_the_kernel_does_not_take(gen):
     x, w, b, _ = _conv_case(gen, torch.bfloat16, 1, 16, 16, (4, 4, 4), None)
     with pytest.raises(TypeError):
@@ -192,3 +279,9 @@ def test_conv3d_wrappers_refuse_what_the_kernel_does_not_take(gen):
         tc.conv3d_fused(x[:, :12], w[:, :, :, :12], b)  # Ci % 8 != 0
     with pytest.raises(ValueError):
         tc.conv3d_fused_v4(x, w, b, skip=torch.zeros_like(x, dtype=torch.float32))
+    with pytest.raises(ValueError):
+        tc._launch("k4b", x.float(), w, b, None, None, None, kernel="wgmma")  # bf16 only
+    with pytest.raises(ValueError):
+        tc._launch("k4b", x, w, b, None, None, None, kernel="wgmma")  # Co = 16, not 64
+    with pytest.raises(ValueError):
+        tc._launch("k4b", x, w, b, None, None, None, kernel="plain")
