@@ -12,10 +12,11 @@ Phases, each printing one JSON object per line:
               of the production path, with its time, the plain version's,
               one library call's where one computes the same function, and
               the least time the card could take (bytes or operations);
-              the fused conv (K4a/K4b/K5) on both of its kernels (wgmma,
-              mma.sync) at eight shapes, with the tolerance ratio (≤ 1
-              passes) and differing elements, and both kernels, cuDNN and
-              the bound at every distinct conv shape of the forward;
+              the fused conv (K4a/K4b/K5) on each of its kernels that
+              takes the shape (wgmma, split-K, mma.sync) at nine shapes,
+              with the tolerance ratio (≤ 1 passes), differing elements
+              and two launches bit for bit, and the three kernels, cuDNN
+              and the bound at every distinct conv shape of the forward;
 4. forward  — the 81,511,048-parameter production UNet in bf16 at
               (1, 112, 112, 80, 32): unfused, fuse_gn_silu (K3) and
               fuse_conv (K4b), timed in turns; with ``--profile`` the
@@ -25,9 +26,9 @@ Phases, each printing one JSON object per line:
               sampled schedule, twice: every GN→SiLU through K3 (ddpm),
               then every ResBlock conv through K4b (dpm++, 10 evaluations,
               as ``bench.py --fused --dpm 10``); the launch counts of each
-              run, by entry point and by kernel (levels 0-2 on wgmma, by
-              ``conv3d_cuda.route``); then ``make_synthesis_fn`` of four
-              variants in turns;
+              run, by entry point and by kernel (levels 0-2 on wgmma,
+              3-4 on split-K, by ``conv3d_cuda.route``); then
+              ``make_synthesis_fn`` of four variants in turns;
 6. reference— the whole synthesis at a tiny fp32 config on the card
               against the same on the CPU (plain versions), same noise:
               fuse_gn_silu under ddpm, and fuse_conv under ddpm, ddim and
@@ -67,6 +68,7 @@ CONV_SHAPES = (
     ("level 0 decoder concat 192", 1, 192, (112, 112, 80), 64),
     ("level 1", 1, 128, (56, 56, 40), 128),
     ("level 3", 1, 256, (14, 14, 10), 256),
+    ("level 4, 7×7×5", 1, 256, (7, 7, 5), 256),
     ("level 4 decoder concat, X = 7", 1, 512, (7, 7, 5), 256),
     ("B = 2, per-(B, C) statistics", 2, 128, (28, 28, 20), 128),
     ("Ci = 8 mod 16", 1, 24, (20, 20, 12), 64),
@@ -108,12 +110,16 @@ def bound_ms(n_bytes: float, flops: float, peak: float = PEAK_FP32_FLOPS) -> tup
 
 def time_ms(torch, fn, reps: int = 25) -> float:
     """Median of ``reps`` single launches timed with CUDA events, the L2
-    cache flushed before each (the synthesis path finds its inputs cold)."""
+    cache flushed before each (the synthesis path finds its inputs cold).
+    The card spins for about a millisecond before each start event, so the
+    wrapper's host work is enqueued behind it and the events time the
+    kernels alone, not the host's launch overhead."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -248,15 +254,18 @@ def conv_cost(x, co, extra_out: int = 0) -> tuple[int, int]:
 
 
 def phase_conv(torch, F) -> dict:
-    """The fused conv behind K4a, K4b and K5, both hand-written kernels
-    against the plain version: the wgmma kernel (``conv3d_wgmma.cu``,
-    bf16, Ci % 16 == 0, Co % 64 == 0) and the mma.sync kernel
-    (``conv3d.cu``) at every shape of CONV_SHAPES each takes (K4b with the
-    GN prologue and without, K4a with fold_taps both ways, K5 with temb and
-    skip) and the level-1 shape in fp32 (mma.sync only). Then, at every
-    distinct conv shape of the production forward, the time of each
-    kernel with the prologue, of cuDNN (``F.conv3d`` bf16 channels_last_3d,
-    the conv alone) and the bound, beside the kernel ``route`` picks; the
+    """The fused conv behind K4a, K4b and K5, the three hand-written
+    kernels against the plain version: the wgmma kernel
+    (``conv3d_wgmma.cu``) and the split-K kernel (``conv3d_splitk.cu``),
+    both bf16 with Ci % 16 == 0 and Co % 64 == 0 (split-K where its halo
+    fits), and the mma.sync kernel (``conv3d.cu``), at every shape of
+    CONV_SHAPES each takes (K4b with the GN prologue and without, K4a with
+    fold_taps both ways, K5 with temb and skip; the routed kernel through
+    each entry point, and twice, bit for bit) and the level-1 shape in
+    fp32 (mma.sync only). Then, at every distinct conv shape of the
+    production forward, the time of each kernel with the prologue, of
+    cuDNN (``F.conv3d`` bf16 channels_last_3d, the conv alone) and the
+    bound, beside the kernel ``route`` picks and the split-K plan; the
     fp32 level-1 and the B = 2 shapes on their routed kernel; and at level
     0 each entry point through the routed kernel."""
     from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
@@ -283,9 +292,12 @@ def phase_conv(torch, F) -> dict:
         ref_v4 = tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip)
         # the entry points, on the kernel route() picks
         routed = tc.route(dtype, bsz, ci, co, *sp)
-        wp = tc.pack_wgmma_weights(w) if routed == "wgmma" else None
-        check("k4b", label, routed, tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp), ref,
-              x, w, gn, prologue=True)
+        wp = tc.pack_wgmma_weights(w) if routed in ("wgmma", "splitk") else None
+        y = tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp)
+        again = tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp)
+        check("k4b", label, routed, y, ref, x, w, gn, prologue=True,
+              bit_identical_twice=bool(torch.equal(y, again)))
+        del y, again
         if dtype == torch.float32:
             continue
         for fold in (True, False):
@@ -296,9 +308,10 @@ def phase_conv(torch, F) -> dict:
         check("k5", label, routed,
               tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip, w_packed=wp), ref_v4, x, w,
               gn, prologue=True, temb=True, skip=True)
-        # the other kernel, where it takes the shape
-        other = "mma_sync" if routed == "wgmma" else "wgmma"
-        if other == "mma_sync" or (ci % tc.WG_BK == 0 and co % tc.WG_BN == 0):
+        # the other kernels, where they take the shape
+        for other in takers(tc, torch, bsz, ci, co, sp):
+            if other == routed:
+                continue
             for entry, (g_, t_, s_, r_) in {"k4b": (gn, None, None, ref),
                                             "k4b_np": (None, None, None, ref_np),
                                             "k5": (gn, temb, skip, ref_v4)}.items():
@@ -308,9 +321,11 @@ def phase_conv(torch, F) -> dict:
         del x, w, gn, temb, skip, ref, ref_np, ref_v4
     torch.cuda.empty_cache()
 
-    # every distinct production conv shape: both kernels with the prologue,
-    # cuDNN's conv alone, the bound, the route
+    # every distinct production conv shape: the three kernels with the
+    # prologue (split-K where its halo fits), cuDNN's conv alone, the bound,
+    # the route and the split-K plan
     timings = []
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for (sp, ci, co), per_forward in PRODUCTION_CONVS.items():
         x, w, b, gn = conv_inputs(torch, g, 1, ci, sp, co, torch.bfloat16)
         wp = tc.pack_wgmma_weights(w)
@@ -318,15 +333,24 @@ def phase_conv(torch, F) -> dict:
         b_lib = b.to(torch.bfloat16)
         nb, fl = conv_cost(x, co)
         b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS)
+        plan = tc.splitk_plan(1, ci, co, *sp, n_sm)
+        ms = {k: (time_ms(torch, lambda: tc._launch("k4b", x, w, b, gn, None, None, wp, k), reps=10)
+                  if k in takers(tc, torch, 1, ci, co, sp) else None)
+              for k in ("wgmma", "splitk", "mma_sync")}
+        routed = tc.route(x.dtype, 1, ci, co, *sp)
+        if routed == "splitk":  # the prologue's share of the split-K kernel
+            ms["splitk_no_prologue"] = time_ms(
+                torch, lambda: tc._launch("k4b", x, w, b, None, None, None, wp, "splitk"), reps=10)
         timings.append(dict(
-            x=list(x.shape), co=co, per_forward=per_forward,
-            route=tc.route(x.dtype, 1, ci, co, *sp),
-            wgmma_ms=time_ms(torch, lambda: tc._launch("k4b", x, w, b, gn, None, None, wp,
-                                                       "wgmma"), reps=10),
-            mma_sync_ms=time_ms(torch, lambda: tc._launch("k4b", x, w, b, gn, None, None,
-                                                          kernel="mma_sync"), reps=10),
+            x=list(x.shape), co=co, per_forward=per_forward, route=routed,
+            wgmma_ms=ms["wgmma"], splitk_ms=ms["splitk"], mma_sync_ms=ms["mma_sync"],
+            splitk_no_prologue_ms=ms.get("splitk_no_prologue"),
             cudnn_ms=time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1), reps=10),
-            bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9, mbytes=nb / 1e6))
+            bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9, mbytes=nb / 1e6,
+            splitk_plan=dict(bm=plan["bm"], S=plan["S"], grid=plan["grid"],
+                             ctas=plan["ctas"],
+                             workspace_mb=plan["workspace_bytes"] / 1e6,
+                             smem_bytes=plan["smem_bytes"], fits=plan["fits"])))
         del x, w, wp, gn, w_lib
     # the fp32 level-1 conv and the B = 2 conv of CONV_SHAPES, with the
     # prologue, on the kernel route() picks
@@ -387,13 +411,36 @@ def phase_conv(torch, F) -> dict:
     out["level0_mma_sync_no_prologue_ms"] = time_ms(
         torch, lambda: tc._launch("no prologue", x, w, b, None, None, None, kernel="mma_sync"))
     out["checks"], out["timings"], out["other_timings"] = checks, timings, other_timings
-    bad = [c for c in checks if not c["tol_ratio"] <= 1.0]
+    # launch-weighted ms per forward of each kernel over the shapes route()
+    # gives it, beside cuDNN's and the bound's over the same shapes
+    out["by_route"] = {
+        k: {f"{key}_per_forward": sum(r[key] * r["per_forward"] for r in timings
+                                      if r["route"] == k)
+            for key in (f"{k}_ms", "cudnn_ms", "bound_ms")}
+        | {"launches_per_forward": sum(r["per_forward"] for r in timings if r["route"] == k)}
+        for k in ("wgmma", "splitk", "mma_sync")}
+    deep = next(r for r in timings if r["x"][2:] == [7, 7, 5] and r["x"][1] == 256)
+    out["deep_levels"] = dict(out["by_route"]["splitk"], shape_7x7x5_256to256={
+        key: deep[key] for key in ("splitk_ms", "splitk_no_prologue_ms", "wgmma_ms", "mma_sync_ms", "cudnn_ms",
+                                   "bound_ms", "bound_by", "splitk_plan")})
+    bad = [c for c in checks if not c["tol_ratio"] <= 1.0
+           or not c.get("bit_identical_twice", True)]
     if bad:
-        fail(f"the fused conv disagrees with its plain version: {bad}")
+        fail(f"the fused conv disagrees with its plain version or itself: {bad}")
     # the wgmma kernel's prologue divides by its own branch-free reciprocal
     out["wgmma_recip_mismatches_of_2_126_range"] = tc.recip_mismatches()
     if out["wgmma_recip_mismatches_of_2_126_range"]:
         fail("the wgmma kernel's reciprocal differs from IEEE 1/d on [1, 2^126)")
+    return out
+
+
+def takers(tc, torch, bsz, ci, co, sp) -> list:
+    """The conv kernels that take this bf16 shape."""
+    out = ["mma_sync"]
+    if ci % tc.WG_BK == 0 and co % tc.WG_BN == 0:
+        out.append("wgmma")
+        if tc.splitk_plan(bsz, ci, co, *sp, 1)["fits"]:
+            out.append("splitk")
     return out
 
 
@@ -430,6 +477,8 @@ def profile_forward(torch, model, x, t) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds = (("K3 affine_silu", ("affine_silu",)),
              ("K4b fused conv3d, wgmma", ("conv3d_wgmma",)),
+             ("K4b fused conv3d, split-K", ("conv3d_splitk_kernel",)),
+             ("K4b fused conv3d, split-K reduction", ("conv3d_splitk_reduce",)),
              ("K4b fused conv3d, mma.sync", ("conv3d_bf16", "conv3d_f32")),
              ("convolution", ("conv", "xmma", "cudnn", "fprop", "implicit", "gemm")),
              ("reduction (GroupNorm statistics)", ("reduce",)),
@@ -613,19 +662,22 @@ def phase_synthesis(torch, tmp: str) -> tuple[dict, dict]:
         "sample_shape": check_sample(np, os.path.join(conv_dir, "00001", "sample.nii.gz"), mask),
         "s_per_volume_cli_first_case": timings[0], "launches": conv_counts}
     # by kernel: what route() gives the 54 production convs, × 10
-    # evaluations; levels 0 and 1 (20 sites) must be among the wgmma ones
+    # evaluations; levels 0 and 1 (20 sites) must be among the wgmma ones,
+    # levels 3 and 4 (24 sites) on split-K, no bf16 conv on mma.sync
     from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
 
     routes = {shape: tc.route(torch.bfloat16, 1, shape[1], shape[2], *shape[0])
               for shape in PRODUCTION_CONVS}
-    want_wgmma = 10 * sum(n for shape, n in PRODUCTION_CONVS.items() if routes[shape] == "wgmma")
-    large = [shape for shape in PRODUCTION_CONVS if shape[0][0] >= 56]
-    res["fuse_conv_dpm"]["wgmma_launches_expected"] = want_wgmma
+    want = {k: 10 * sum(n for shape, n in PRODUCTION_CONVS.items() if routes[shape] == k)
+            for k in ("wgmma", "splitk", "mma_sync")}
+    res["fuse_conv_dpm"]["launches_expected_by_kernel"] = want
     if (conv_counts["conv3d_fused_k4b"] != 54 * 10 or conv_counts["conv3d_fused_k4a"]
             or conv_counts["conv3d_fused_v4"] or conv_counts["haar_dwt3"] < 3
-            or conv_counts["haar_idwt3"] != 1 or conv_counts["conv3d_wgmma"] != want_wgmma
-            or conv_counts["conv3d_mma_sync"] != 540 - want_wgmma
-            or any(routes[shape] != "wgmma" for shape in large)):
+            or conv_counts["haar_idwt3"] != 1
+            or any(conv_counts[f"conv3d_{k}"] != n for k, n in want.items())
+            or want["mma_sync"]
+            or any(routes[shape] != "wgmma" for shape in PRODUCTION_CONVS if shape[0][0] >= 56)
+            or any(routes[shape] != "splitk" for shape in PRODUCTION_CONVS if shape[0][0] <= 14)):
         fail(f"the fused-conv path did not run through its kernels as expected: {conv_counts}")
 
     # the same case through make_synthesis_fn, four variants on one
@@ -720,8 +772,10 @@ def phase_reference(torch) -> dict:
     return res
 
 
-# the conv entries run on either hand-written kernel, by conv3d_cuda.route
-CONV_SOURCES = ("fast_cwdm_tpu_torch/ops/csrc/conv3d_wgmma.cu (bf16, wgmma) + "
+# the conv entries run on one of three hand-written kernels, by
+# conv3d_cuda.route
+CONV_SOURCES = ("fast_cwdm_tpu_torch/ops/csrc/conv3d_wgmma.cu (bf16, wgmma, levels 0-2) + "
+                "fast_cwdm_tpu_torch/ops/csrc/conv3d_splitk.cu (bf16, split-K, levels 3-4) + "
                 "fast_cwdm_tpu_torch/ops/csrc/conv3d.cu (mma.sync, fp32)")
 KERNELS = {  # name: (source, replaces, key of its kernels-phase record)
     "haar_dwt3": ("fast_cwdm_tpu_torch/ops/csrc/haar3d.cu",
@@ -806,6 +860,10 @@ def main(argv=None) -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+        if name.startswith("conv3d"):
+            line[-1]["launches_by_kernel"] = {
+                kn: conv_counts[f"conv3d_{kn}"] for kn in ("wgmma", "splitk", "mma_sync")}
+            line[-1]["deep_levels"] = kern["deep_levels"]
     emit({"kernels": line})
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -96,8 +96,8 @@ class FusableConv3d(Conv3d):
     package's fallback to an XLA conv (C > 128, X odd) is a TPU VMEM and
     tiling limit, and computes the same function. The conv is handed
     :meth:`packed_weight`, which it calls only where the card's route is
-    the wgmma kernel: the weight is repacked once and kept until the
-    parameter changes (its version, storage or device)."""
+    the wgmma or the split-K kernel: the weight is repacked once and kept
+    until the parameter changes (its version, storage or device)."""
 
     def __init__(self, in_ch: int, out_ch: int, *, dtype=None, zero_init: bool = False):
         super().__init__(in_ch, out_ch, 3, dtype=dtype, zero_init=zero_init, follow_input=True)
@@ -119,8 +119,8 @@ class FusableConv3d(Conv3d):
             return super().forward(x)
         dt = self.compute_dtype or x.dtype
         xx = x.to(dt, memory_format=torch.channels_last_3d)
-        # OIDHW → DHWIO; the conv casts it to dt (the wgmma route reads the
-        # packed copy instead)
+        # OIDHW → DHWIO; the conv casts it to dt (the wgmma and splitk
+        # routes read the packed copy instead)
         w = self.weight.permute(2, 3, 4, 1, 0)
         return conv3d_fused(xx, w, self.bias.to(dt), gn=gn, block_x=2,
                             w_packed=self.packed_weight)

@@ -14,10 +14,12 @@ the output (B, Co, X, Y, Z) in ``channels_last_3d`` memory, which is the
 JAX package's (B, X, Y, Z, C). ``w`` keeps the JAX layout (3, 3, 3, Ci,
 Co). ``gn`` is (mean, inv, scale, bias), each (Ci,) or (B, Ci).
 
-Two hand-written kernels compute the function on the card:
+Three hand-written kernels compute the function on the card:
 ``csrc/conv3d_wgmma.cu`` (bf16 on ``wgmma``, an 8×8×8-voxel by 64-channel
-block, a two-stage staging ring; it reads the weight repacked once by
-:func:`pack_wgmma_weights`) and ``csrc/conv3d.cu`` (``mma.sync`` bf16 or
+block, a two-stage staging ring; the large levels), ``csrc/conv3d_splitk.cu``
+(bf16, K split across CTAs by :func:`splitk_plan` and reduced in a fixed
+order; the small deep levels), both reading the weight repacked once by
+:func:`pack_wgmma_weights`, and ``csrc/conv3d.cu`` (``mma.sync`` bf16 or
 fp32 FMA, any Ci and Co multiple of 8). :func:`route` picks one from the
 dtype and shape alone, by a rule fixed from the card's per-shape timings.
 
@@ -31,6 +33,7 @@ no backward for these kernels either.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -133,9 +136,9 @@ def tol_ratio(ours: torch.Tensor, ref: torch.Tensor, x: torch.Tensor, w: torch.T
 WG_TILE = (8, 8, 8)
 WG_BN, WG_BK = 64, 16
 # Fewest blocks (of 132 SMs) at which the wgmma kernel is taken. Measured
-# on an H100 at every production conv shape (PERF.md, Findings): faster at 96
-# blocks and up (28×28×20 and larger, 1.7-2.1×), slower at 32 and fewer
-# (14×14×10 and 7×7×5), where conv3d.cu's 128-voxel blocks fill more SMs.
+# on an H100 at every production conv shape (PERF.md, Findings, PR 4 and
+# 5): it wins from 96 blocks up (28×28×20 and larger); at 32 and fewer
+# (14×14×10, 7×7×5) the split-K kernel is 2.5-10.5× faster than it.
 WG_MIN_BLOCKS = 64
 
 
@@ -158,18 +161,96 @@ def wgmma_layout() -> dict:
     )
 
 
+# The split-K kernel (csrc/conv3d_splitk.cu): M tiles of SK_BM consecutive
+# voxels ((x, y, z) order; 256 where the whole volume fits one), 64 output
+# channels, K units of 16 input channels × the 9 taps of one dx-plane.
+SK_BM = (128, 256)
+SK_UNIT_TAPS = 9
+SK_WORKSPACE_MAX = 16 * 10**6  # fp32 partials kept inside the 50 MB L2
+SK_SMEM_MAX = 232448  # dynamic shared memory of one block on the H100
+_SK_STAGE_W = 3 * SK_UNIT_TAPS * WG_BK * WG_BN * 2  # one chunk's weight, bytes
+
+
+def splitk_box(v0: int, v_end: int, Y: int, Z: int) -> tuple[int, ...]:
+    """The halo box of the tile of voxels [v0, v_end): (xl, yl, zl, nx, hy,
+    hz). Its rows lie on output x-planes [xl, xl + nx); the box starts at
+    input voxel (xl − 1, yl − 1, zl − 1) and spans (nx + 2) × hy × hz, with
+    whole y-lines where the tile spans x-planes and whole z-lines where it
+    spans y-lines. As ``tile_box`` in the kernel."""
+    v1 = v_end - 1
+    x0, x1 = v0 // (Y * Z), v1 // (Y * Z)
+    y0, y1 = v0 // Z % Y, v1 // Z % Y
+    if x1 > x0:
+        return x0, 0, 0, x1 - x0 + 1, Y + 2, Z + 2
+    if y1 > y0:
+        return x0, y0, 0, 1, y1 - y0 + 3, Z + 2
+    return x0, y0, v0 % Z, 1, 3, v1 % Z - v0 % Z + 3
+
+
+@functools.lru_cache(maxsize=None)
+def splitk_plan(B: int, Ci: int, Co: int, X: int, Y: int, Z: int, n_sm: int) -> dict:
+    """The split-K kernel's schedule of one conv, on a card of ``n_sm`` SMs.
+    Cached, since :func:`route` and :func:`_launch` ask for it on every
+    call: the dict is shared, and its callers only read it.
+
+    - M tiles (``tiles``, the voxels [v0, v_end) of each, flat (x, y, z)
+      indices): ``bm`` consecutive voxels, the last cut at the end of the
+      volume, as ``tile`` t in the kernel; ``bm`` = 256 where the volume
+      fits one tile, else 128; ``mpad`` = mtiles·bm rows;
+    - K units: unit u is input channels 16·(u // 3) … +15 at the 9 taps of
+      dx-plane u % 3; ``units`` = 3·Ci/16;
+    - ``S`` splits, split s taking units [units·s // S, units·(s+1) // S)
+      (``splits``): of the S that give at least one wave, (mtiles · Co/64
+      · B) · S ≥ n_sm CTAs, within ``units`` and a workspace of at most
+      SK_WORKSPACE_MAX, the one with the shortest schedule at one CTA per
+      SM (waves × units of the longest split), the fewest on a tie;
+    - ``grid``, ``ctas``, ``workspace_bytes`` (fp32 [S][B·mpad][Co]),
+      ``hv_cap`` (halo voxels per stage, the largest tile box) and
+      ``smem_bytes`` (two stages: halo [2][hv_cap][8] bf16 + one chunk's
+      weight, and the barriers); ``fits``: whether that shared memory is
+      available (the route sends nothing else to the kernel)."""
+    M = X * Y * Z
+    bm = SK_BM[1] if M <= SK_BM[1] else SK_BM[0]
+    tiles = tuple((v0, min(v0 + bm, M)) for v0 in range(0, M, bm))
+    mtiles = len(tiles)
+    mpad = mtiles * bm
+    units = 3 * (Ci // WG_BK)
+    base = mtiles * (Co // WG_BN) * B
+    ws_per_split = 4 * B * mpad * Co
+    s_max = max(1, min(units, SK_WORKSPACE_MAX // ws_per_split))
+    S = min(range(min(units, -(-n_sm // base), s_max), s_max + 1),
+            key=lambda s: (-(-base * s // n_sm) * -(-units // s), s))
+    hv = max((b[3] + 2) * b[4] * b[5] for b in (splitk_box(*t, Y, Z) for t in tiles))
+    hv_cap = -(-hv // 8) * 8
+    smem = 128 + 2 * (32 * hv_cap + _SK_STAGE_W)
+    return dict(bm=bm, tiles=tiles, mtiles=mtiles, mpad=mpad, units=units,
+                unit=(WG_BK, SK_UNIT_TAPS), S=S,
+                splits=tuple((units * s // S, units * (s + 1) // S) for s in range(S)),
+                grid=(mtiles * (Co // WG_BN), S, B), ctas=base * S,
+                workspace_bytes=ws_per_split * S, hv_cap=hv_cap, smem_bytes=smem,
+                fits=smem <= SK_SMEM_MAX)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def route(dtype, B: int, Ci: int, Co: int, X: int, Y: int, Z: int) -> str:
-    """Which kernel a CUDA tensor of this dtype and shape goes to:
-    ``"wgmma"`` (``csrc/conv3d_wgmma.cu``) for bf16 with Ci % 16 == 0 and
-    Co % 64 == 0 where its grid has at least ``WG_MIN_BLOCKS`` blocks, else
-    ``"mma_sync"`` (``csrc/conv3d.cu``). Both are hand-written kernels; no
-    shape goes to the plain version on the card."""
+    """Which kernel a CUDA tensor of this dtype and shape goes to. bf16
+    with Ci % 16 == 0 and Co % 64 == 0: ``"wgmma"`` (``csrc/conv3d_wgmma.cu``)
+    where its grid has at least ``WG_MIN_BLOCKS`` blocks, else
+    ``"splitk"`` (``csrc/conv3d_splitk.cu``) where its halo box fits the
+    shared memory; everything else ``"mma_sync"`` (``csrc/conv3d.cu``).
+    All three are hand-written kernels; no shape goes to the plain
+    version on the card."""
+    if dtype != torch.bfloat16 or Ci % WG_BK or Co % WG_BN:
+        return "mma_sync"
     tx, ty, tz = WG_TILE
     blocks = B * -(-X // tx) * -(-Y // ty) * -(-Z // tz) * (Co // WG_BN)
-    if (dtype == torch.bfloat16 and Ci % WG_BK == 0 and Co % WG_BN == 0
-            and blocks >= WG_MIN_BLOCKS):
+    if blocks >= WG_MIN_BLOCKS:
         return "wgmma"
-    return "mma_sync"
+    return "splitk" if splitk_plan(B, Ci, Co, X, Y, Z, 1)["fits"] else "mma_sync"
 
 
 def pack_wgmma_weights(w: torch.Tensor) -> torch.Tensor:
@@ -185,20 +266,23 @@ def pack_wgmma_weights(w: torch.Tensor) -> torch.Tensor:
     return t.permute(4, 1, 0, 2, 5, 3).contiguous()
 
 
-kernel_launches = {"conv3d_wgmma": 0, "conv3d_mma_sync": 0}
+kernel_launches = {"conv3d_wgmma": 0, "conv3d_splitk": 0, "conv3d_mma_sync": 0}
 
 
-# kernel → (source in csrc/, its C entry point, its int arguments: B, X, Y,
-# Z, Ci, Co, and for conv3d.cu the dtype code)
-_ENTRY = {"wgmma": ("conv3d_wgmma", "conv3d_wgmma", 6),
-          "mma_sync": ("conv3d", "conv3d_fused", 7)}
+# kernel → (source in csrc/, its C entry point, its pointer arguments, its
+# int arguments: B, X, Y, Z, Ci, Co, then conv3d.cu's dtype code or the
+# split-K kernel's bm and S)
+_ENTRY = {"wgmma": ("conv3d_wgmma", "conv3d_wgmma", 10, 6),
+          "splitk": ("conv3d_splitk", "conv3d_splitk", 11, 8),
+          "mma_sync": ("conv3d", "conv3d_fused", 10, 7)}
+_PACKED = ("wgmma", "splitk")  # the kernels that read pack_wgmma_weights(w)
 
 
 def _entry(kernel: str):
-    source, symbol, n_int = _ENTRY[kernel]
+    source, symbol, n_ptr, n_int = _ENTRY[kernel]
     fn = getattr(_build.load(source), symbol)
     p = ctypes.c_void_p
-    fn.argtypes = [p] * 10 + [ctypes.c_int] * n_int + [p]
+    fn.argtypes = [p] * n_ptr + [ctypes.c_int] * n_int + [p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -219,10 +303,12 @@ def recip_mismatches() -> int:
 def _launch(name, x, w, b, gn, temb, skip, w_packed=None, kernel=None) -> torch.Tensor:
     """Check what the kernel takes, allocate the output, launch the kernel
     that :func:`route` picks. ``w_packed`` is ``pack_wgmma_weights(w)`` or a
-    zero-argument function returning it, used only on the wgmma route
-    (packed here when None). ``kernel`` ("wgmma" or "mma_sync") overrides
-    the route, for measurements that compare the two kernels on one
-    shape."""
+    zero-argument function returning it, used only on the wgmma and splitk
+    routes (packed here when None). ``kernel`` ("wgmma", "splitk" or
+    "mma_sync") overrides the route, for measurements that compare the
+    kernels on one shape. One call counts once in ``kernel_launches``,
+    whatever the number of CUDA launches (the split-K kernel's reduction
+    is a second one)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODE:
@@ -239,13 +325,19 @@ def _launch(name, x, w, b, gn, temb, skip, w_packed=None, kernel=None) -> torch.
     if ci % 8 or co % 8:
         raise ValueError(f"{name}: the CUDA kernel needs Ci and Co multiples of 8, got {ci}, {co}")
     kernel = kernel or route(x.dtype, bsz, ci, co, X, Y, Z)
-    if kernel not in ("wgmma", "mma_sync"):
-        raise ValueError(f"{name}: kernel must be 'wgmma' or 'mma_sync', got {kernel!r}")
-    if kernel == "wgmma" and (x.dtype != torch.bfloat16 or ci % WG_BK or co % WG_BN):
-        raise ValueError(f"{name}: the wgmma kernel takes bfloat16 with Ci % {WG_BK} == 0 and "
+    if kernel not in _ENTRY:
+        raise ValueError(f"{name}: kernel must be one of {tuple(_ENTRY)}, got {kernel!r}")
+    if kernel in _PACKED and (x.dtype != torch.bfloat16 or ci % WG_BK or co % WG_BN):
+        raise ValueError(f"{name}: the {kernel} kernel takes bfloat16 with Ci % {WG_BK} == 0 and "
                          f"Co % {WG_BN} == 0, got {x.dtype}, {ci}, {co}")
     dev = x.device
-    if kernel == "wgmma":
+    plan = None
+    if kernel == "splitk":
+        plan = splitk_plan(bsz, ci, co, X, Y, Z, _n_sm(dev.index or 0))
+        if not plan["fits"]:
+            raise ValueError(f"{name}: the split-K kernel's halo needs {plan['smem_bytes']} B "
+                             f"of shared memory at {(X, Y, Z)}, more than {SK_SMEM_MAX}")
+    if kernel in _PACKED:
         if w_packed is None:
             w = pack_wgmma_weights(w.to(dev))
         else:
@@ -278,11 +370,16 @@ def _launch(name, x, w, b, gn, temb, skip, w_packed=None, kernel=None) -> torch.
             f"on {dev}, got {skip.dtype} {tuple(skip.shape)} strides {skip.stride()}"
         )
     out = torch.empty((bsz, co, X, Y, Z), dtype=x.dtype, device=dev, memory_format=_CL)
-    ints = (bsz, X, Y, Z, ci, co) + (() if kernel == "wgmma" else (_DTYPE_CODE[x.dtype],))
+    ints, extra = (bsz, X, Y, Z, ci, co), []
+    if kernel == "mma_sync":
+        ints += (_DTYPE_CODE[x.dtype],)
+    elif kernel == "splitk":
+        ints += (plan["bm"], plan["S"])
+        extra = [torch.empty(plan["workspace_bytes"] // 4, dtype=torch.float32, device=dev)]
     with torch.cuda.device(dev):
         status = _entry(kernel)(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), *(ptr(a) for a in params),
-            ptr(temb), ptr(skip), out.data_ptr(), *ints,
+            ptr(temb), ptr(skip), out.data_ptr(), *(t.data_ptr() for t in extra), *ints,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, f"{name} ({_ENTRY[kernel][0]}.cu)")
@@ -296,8 +393,8 @@ def conv3d_fused(x, w, b, *, gn=None, fold_taps=True, block_x=None,
     SiLU] + 3³ SAME conv + b. ``x`` (B, Ci, X, Y, Z); ``w`` (3,3,3,Ci,Co);
     ``b`` (Co,); ``gn`` None for a plain conv. On the card, ``w_packed``
     (``pack_wgmma_weights(w)`` kept by the caller, or a zero-argument
-    function returning it) spares the wgmma route a repack per call; the
-    other routes never read it."""
+    function returning it) spares the wgmma and splitk routes a repack per
+    call; the mma_sync route never reads it."""
     if x.device.type == "cpu":
         return conv3d_fused_plain(x, w, b, gn=gn)
     y = _launch("conv3d_fused", x, w, b, gn, None, None, w_packed)

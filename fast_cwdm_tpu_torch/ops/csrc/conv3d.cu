@@ -42,10 +42,9 @@
 // register tile per thread. Both use about 80 KB of shared memory, so two
 // CTAs share an SM and one stages while the other computes.
 //
-// In bf16 the large levels of the UNet go to conv3d_wgmma.cu instead
-// (conv3d_cuda.route); this kernel keeps fp32, Ci or Co not multiples of
-// 16 and 64, and the small deep levels, where its 128-voxel blocks fill
-// more SMs.
+// In bf16 the UNet's convs go to conv3d_wgmma.cu (large levels) and
+// conv3d_splitk.cu (small deep levels) instead (conv3d_cuda.route); this
+// kernel keeps fp32 and Ci or Co not multiples of 16 and 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,7 +1,7 @@
 """CPU checks of the wgmma conv kernel's host side (``ops/csrc/conv3d_wgmma.cu``
 runs only on the card): the weight repacking and its cache on the module, a
 model of the kernel's shared-memory descriptor addressing driven by the
-wrapper's own tile constants, and the routing rule between the two conv
+wrapper's own tile constants, and the routing rule between the three conv
 kernels."""
 
 import numpy as np
@@ -172,16 +172,20 @@ def test_descriptor_addressing_model_matches_plain(bsz, ci, co, spatial, with_gn
 
 @pytest.mark.parametrize("shape", PRODUCTION_CONVS, ids=lambda s: f"{s[0][0]}-{s[1]}to{s[2]}")
 def test_route_production_shapes(shape):
-    """bf16 at levels 0-1 goes to the wgmma kernel; fp32 and Ci = 8 (mod 16)
-    go to the mma.sync kernel; the route never names the plain version."""
+    """bf16 at levels 0-1 goes to the wgmma kernel and at levels 3-4 to the
+    split-K kernel; fp32 and Ci or Co off the 16/64 grid go to the mma.sync
+    kernel; the route never names the plain version."""
     sp, ci, co = shape
     bf = tc.route(torch.bfloat16, 1, ci, co, *sp)
-    assert bf in ("wgmma", "mma_sync")
+    assert bf in ("wgmma", "splitk")
     if sp[0] >= 56:
         assert bf == "wgmma"
+    if sp[0] <= 14:
+        assert bf == "splitk"
     assert tc.route(torch.float32, 1, ci, co, *sp) == "mma_sync"
     assert tc.route(torch.bfloat16, 1, ci + 8, co, *sp) == "mma_sync"
     assert tc.route(torch.bfloat16, 1, ci, co + 8, *sp) == "mma_sync"
-    # the rule is a function of the number of blocks the wgmma kernel gets
+    # the rule between the bf16 kernels is a function of the number of
+    # blocks the wgmma kernel gets
     blocks = np.prod([-(-n // t) for n, t in zip(sp, tc.WG_TILE)]) * (co // tc.WG_BN)
     assert (bf == "wgmma") == (blocks >= tc.WG_MIN_BLOCKS)

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels on the card: K1/K2/K3 and the two fused
-conv kernels behind K4a/K4b/K5 (mma.sync and wgmma), each against its
-plain torch version, their wrappers' refusals, the autograd pair, and
+"""The hand-written CUDA kernels on the card: K1/K2/K3 and the three fused
+conv kernels behind K4a/K4b/K5 (mma.sync, wgmma and split-K), each against
+its plain torch version, their wrappers' refusals, the autograd pair, and
 fuse_conv UNets that reach K4b on each conv kernel.
 
 Marked ``cuda``: skipped where no GPU is present. This file imports no JAX,
@@ -236,9 +236,10 @@ def test_wgmma_reciprocal_is_the_ieee_quotient(gen):
 def test_fuse_conv_unet_launches_wgmma(gen, monkeypatch):
     """A bf16 fuse_conv UNet whose convs all route to the wgmma kernel
     (WG_MIN_BLOCKS lowered for its small grid) launches it at every fused
-    conv, never the plain version, and agrees with the same model on the
-    mma.sync kernel to within twice that model's own bf16 error against
-    fp32 on the CPU."""
+    conv, never the plain version; with WG_MIN_BLOCKS out of reach every
+    conv goes to the split-K kernel instead; both agree with the same model
+    on the mma.sync kernel (the route forced there) to within twice that
+    model's own bf16 error against fp32 on the CPU."""
     cfg = dict(image_size=16, in_channels=16, model_channels=64, out_channels=8,
                num_res_blocks=1, attention_resolutions=(), channel_mult=(1, 2),
                num_groups=8, resblock_updown=True, bottleneck_attention=False,
@@ -253,20 +254,78 @@ def test_fuse_conv_unet_launches_wgmma(gen, monkeypatch):
     n_fused = sum(getattr(m, "fuse", False) for m in card.modules())
     x = torch.randn((1, 16, 16, 16, 16), generator=gen, device="cuda").permute(0, 4, 1, 2, 3)
     t = torch.tensor([3], device="cuda")
+    outs = {}
     with torch.no_grad():
         ref32 = cpu(x.cpu(), t.cpu())
         monkeypatch.setattr(tc, "conv3d_fused_plain", None)  # a call would raise
-        monkeypatch.setattr(tc, "WG_MIN_BLOCKS", 1)
-        before = dict(tc.kernel_launches)
-        y = card(x, t)
-        torch.cuda.synchronize()
-        assert tc.kernel_launches["conv3d_wgmma"] == before["conv3d_wgmma"] + 2 * n_fused
-        assert tc.kernel_launches["conv3d_mma_sync"] == before["conv3d_mma_sync"]
-        monkeypatch.setattr(tc, "WG_MIN_BLOCKS", 10**9)  # every conv on mma.sync
-        y_mma = card(x, t)
-    assert torch.isfinite(y).all()
-    bf16_err = float((y_mma.cpu() - ref32).abs().max())
-    assert float((y - y_mma).abs().max()) <= 2 * bf16_err
+        for kernel, patch in (("wgmma", ("WG_MIN_BLOCKS", 1)),
+                              ("splitk", ("WG_MIN_BLOCKS", 10**9)),
+                              ("mma_sync", ("route", lambda *shape: "mma_sync"))):
+            monkeypatch.setattr(tc, *patch)
+            before = dict(tc.kernel_launches)
+            outs[kernel] = card(x, t)
+            torch.cuda.synchronize()
+            for k, n in tc.kernel_launches.items():
+                assert n == before[k] + (2 * n_fused if k == f"conv3d_{kernel}" else 0), k
+    assert torch.isfinite(outs["wgmma"]).all() and torch.isfinite(outs["splitk"]).all()
+    bf16_err = float((outs["mma_sync"].cpu() - ref32).abs().max())
+    for kernel in ("wgmma", "splitk"):
+        assert float((outs[kernel] - outs["mma_sync"]).abs().max()) <= 2 * bf16_err
+
+
+# (B, Ci, Co, spatial, gn, epilogue): the deep levels' most-launched shapes,
+# 14×14×10 384→256, a ragged shape, tiles on one z-line and on two
+# y-lines (1×2×130), B = 2 with per-(B, C) statistics, K4b without the
+# prologue, K5 with temb + skip
+SPLITK_CASES = [
+    (1, 256, 256, (7, 7, 5), "channel", False),
+    (1, 512, 256, (7, 7, 5), "channel", False),
+    (1, 384, 256, (14, 14, 10), "channel", False),
+    (1, 32, 64, (5, 7, 9), "channel", False),
+    (1, 16, 64, (1, 2, 130), "channel", False),
+    (2, 128, 128, (7, 6, 9), "batch", False),
+    (1, 256, 256, (14, 14, 10), None, False),
+    (2, 256, 256, (7, 7, 5), "batch", True),
+]
+
+
+@pytest.mark.parametrize("case", SPLITK_CASES)
+def test_conv3d_splitk_matches_plain(gen, case):
+    """The split-K kernel (conv3d_splitk.cu), where route() sends these
+    shapes, against the plain version within tc.tol_ratio; two launches
+    bit-identical; each call counted once; a w_packed getter called and
+    its weight read; the entry point on the same kernel."""
+    bsz, ci, co, sp, gn_kind, epilogue = case
+    x, w, b, gn = _conv_case(gen, torch.bfloat16, bsz, ci, co, sp, gn_kind)
+    temb = skip = None
+    if epilogue:
+        temb = torch.randn((bsz, co), generator=gen, device="cuda")
+        skip = torch.randn((bsz, *sp, co), generator=gen, device="cuda").bfloat16()
+        skip = skip.permute(0, 4, 1, 2, 3)
+    assert tc.route(torch.bfloat16, bsz, ci, co, *sp) == "splitk"
+    ref = tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip)
+    wp = tc.pack_wgmma_weights(w)
+    calls = []
+
+    def getter():
+        calls.append(1)
+        return wp
+
+    before = tc.kernel_launches["conv3d_splitk"]
+    ys = [tc._launch("k4b", x, w, b, gn, temb, skip, getter) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tc.kernel_launches["conv3d_splitk"] == before + 2 and len(calls) == 2
+    assert ys[0].dtype == torch.bfloat16 and ys[0].is_contiguous(memory_format=torch.channels_last_3d)
+    assert torch.equal(ys[0], ys[1])  # no atomics: the same bits every launch
+    assert tc.tol_ratio(ys[0], ref, x, w, gn) <= 1.0
+    negated = tc._launch("k4b", x, w, b, gn, temb, skip, lambda: tc.pack_wgmma_weights(-w))
+    assert not torch.equal(negated, ys[0])
+    if epilogue:
+        y = tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip, w_packed=wp)
+    else:
+        y = tc.conv3d_fused(x, w, b, gn=gn, block_x=2)  # packed by the wrapper
+    assert torch.equal(y, ys[0])
+    assert tc.kernel_launches["conv3d_splitk"] == before + 4
 
 
 def test_conv3d_wrappers_refuse_what_the_kernel_does_not_take(gen):
@@ -285,3 +344,7 @@ def test_conv3d_wrappers_refuse_what_the_kernel_does_not_take(gen):
         tc._launch("k4b", x, w, b, None, None, None, kernel="wgmma")  # Co = 16, not 64
     with pytest.raises(ValueError):
         tc._launch("k4b", x, w, b, None, None, None, kernel="plain")
+    with pytest.raises(ValueError):
+        tc._launch("k4b", x.float(), w, b, None, None, None, kernel="splitk")  # bf16 only
+    with pytest.raises(ValueError):
+        tc._launch("k4b", x, w, b, None, None, None, kernel="splitk")  # Co = 16, not 64
