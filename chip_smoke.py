@@ -29,7 +29,18 @@ Phases, each printing one JSON object per line:
               run, by entry point and by kernel (levels 0-2 on wgmma,
               3-4 on split-K, by ``conv3d_cuda.route``); then
               ``make_synthesis_fn`` of four variants in turns;
-6. reference— the whole synthesis at a tiny fp32 config on the card
+6. completion— the production weights written as a JAX-layout ``.ckpt``
+              (with one EMA shadow and a sidecar as the JAX package writes
+              it) and read back bit for bit, its size and seconds; then
+              ``fast_cwdm_tpu_torch.cli.complete_dataset`` on two
+              240×240×155 cases without t1c and one complete case: (a) the
+              sidecar as written (unfused ddpm: 3 K1 + 1 K2 per case), (b)
+              ``fuse_conv`` added to the sidecar with ``--sampler dpm++
+              --sampling_steps 10`` (540 K4b per case: 300 wgmma, 240
+              split-K); then ``cli.sample_auto`` on the same tree; every
+              output checked (geometry, affine, [0,1], brain mask, border,
+              pass-through) and the seconds per case;
+7. reference— the whole synthesis at a tiny fp32 config on the card
               against the same on the CPU (plain versions), same noise:
               fuse_gn_silu under ddpm, and fuse_conv under ddpm, ddim and
               dpm++.
@@ -714,6 +725,158 @@ def phase_synthesis(torch, tmp: str) -> tuple[dict, dict]:
     return res, counts, conv_counts
 
 
+def same_tree(np, a, b) -> bool:
+    """Two nested dicts of numpy arrays equal key for key, bit for bit."""
+    if isinstance(b, dict):
+        return isinstance(a, dict) and a.keys() == b.keys() and all(
+            same_tree(np, a[k], b[k]) for k in b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def check_synthesized(np, src: str, out_path: str, case: str) -> dict:
+    """A synthesized volume at the source's shape and affine, finite, in
+    [0,1], zero outside the brain mask and in the 8-voxel X/Y border."""
+    from fast_cwdm_tpu_torch.data import brats, nifti
+
+    t1n = os.path.join(src, f"BraTS-GLI-{case}-000-t1n.nii.gz")
+    head = nifti.load_header(t1n)
+    img = nifti.load(out_path)
+    vol = img.get_fdata()
+    mask = brats.unprocess_volume(brats.load_preprocessed(t1n)[..., 0][:, :, :155],
+                                  raw_shape=head.shape)
+    if vol.shape != (240, 240, 155) or head.shape != vol.shape or not np.array_equal(img.affine, head.affine):
+        fail(f"{case}: synthesized {vol.shape} with affine {img.affine.tolist()}, source {head.shape}")
+    if not np.isfinite(vol).all() or vol.min() < 0.0 or vol.max() > 1.0:
+        fail(f"{case}: the synthesized volume is not finite in [0, 1]")
+    if np.any(vol[mask == 0] != 0.0) or vol[:8].any() or vol[-8:].any() or vol[:, :8].any() \
+            or vol[:, -8:].any():
+        fail(f"{case}: the synthesized volume is nonzero outside the brain mask or in the border")
+    return {"shape": list(vol.shape), "max": float(vol.max()), "nonzero": int((vol > 0).sum())}
+
+
+def check_completed(np, in_dir: str, out_dir: str, case: str, missing: str | None) -> dict:
+    """One output case of complete_dataset: all four modalities, every
+    present file byte-identical to its input, the synthesized one checked by
+    check_synthesized; a complete case passed through as it was."""
+    import filecmp
+
+    from fast_cwdm_tpu_torch.data import brats
+
+    src, out = os.path.join(in_dir, case), os.path.join(out_dir, case)
+    names = sorted(os.listdir(out))
+    if any(not any(f"-{m}." in n for n in names) for m in brats.MODALITIES):
+        fail(f"{out} lacks a modality: {names}")
+    for n in os.listdir(src):
+        if not filecmp.cmp(os.path.join(src, n), os.path.join(out, n), shallow=False):
+            fail(f"{out}/{n} differs from its input")
+    if missing is None:
+        if names != sorted(os.listdir(src)):
+            fail(f"the complete case {case} was not passed through as it was: {names}")
+        return {"passed_through": names}
+    return check_synthesized(np, src, os.path.join(out, f"{case}-{missing}.nii.gz"), case)
+
+
+def phase_completion(torch, tmp: str) -> dict:
+    """The production weights as a JAX-layout ``.ckpt`` (one EMA shadow equal
+    to the params, a sidecar as the JAX package writes it), written and read
+    back bit for bit; then ``cli.complete_dataset`` on the card over two
+    240×240×155 cases without t1c and one complete case, (a) with the
+    sidecar as written (unfused ddpm: 3 K1 + 1 K2 per case), (b) with
+    ``fuse_conv: true`` added and ``--sampler dpm++ --sampling_steps 10``
+    (540 K4b per case: 300 wgmma, 240 split-K); then ``cli.sample_auto`` on
+    the same tree with the sidecar as written."""
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.cli import common, complete_dataset, sample_auto
+    from fast_cwdm_tpu_torch.data import nifti
+    from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
+    from fast_cwdm_tpu_torch.training import checkpoints
+
+    cfg, sd = seeded_production(torch)
+    model, _ = common.build_model_and_diffusion(cfg)
+    params = jax_params_from_state_dict(sd, model)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    path = os.path.join(ckpt_dir, "brats_t1c_BEST_sampled_10.ckpt")
+    sidecar = {k: v for k, v in cfg.items() if k not in ("fuse_gn_silu", "fuse_conv")}
+    sidecar.update(contr="t1c")
+    t0 = time.perf_counter()
+    checkpoints.save_checkpoint(path, {"params": params, "ema_params": (params,), "step": 0}, sidecar)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = checkpoints.load_with_ema_probe(path)
+    read_s = time.perf_counter() - t0
+    if not (same_tree(np, loaded["params"], params) and len(loaded["ema_params"]) == 1
+            and same_tree(np, loaded["ema_params"][0], params)):
+        fail("the production .ckpt did not read back bit for bit")
+    common.load_params(path, model, use_ema=True)
+    if any(not torch.equal(model.state_dict()[k], v) for k, v in sd.items()):
+        fail("the production .ckpt did not load into the model bit for bit")
+    del model, loaded, params
+    res = {"ckpt": {"bytes": os.path.getsize(path), "write_s": write_s, "read_s": read_s,
+                    "n_params": sum(v.numel() for v in sd.values())}}
+
+    in_dir = os.path.join(tmp, "complete_in")
+    cases = {"00001": "t1c", "00002": "t1c", "00003": None}
+    for k, (case, missing) in enumerate(cases.items()):
+        write_case(os.path.join(in_dir, case), seed=k)
+        if missing:
+            os.remove(os.path.join(in_dir, case, f"BraTS-GLI-{case}-000-{missing}.nii.gz"))
+    n_synth = sum(m is not None for m in cases.values())
+
+    def run(name, main, argv, want):
+        out_dir = os.path.join(tmp, name)
+        reset_counts()
+        got = main(argv + [f"--output_dir={out_dir}"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+        if bad:
+            fail(f"{name}: launches (got, expected) {bad}; all counts {counts}")
+        return out_dir, got, counts
+
+    flags = [f"--input_dir={in_dir}", f"--checkpoint_dir={ckpt_dir}", "--seed=0"]
+    idle = {"affine_silu": 0, "conv3d_fused_k4a": 0, "conv3d_fused_k4b": 0, "conv3d_fused_v4": 0,
+            "conv3d_wgmma": 0, "conv3d_splitk": 0, "conv3d_mma_sync": 0}
+    haar = {"haar_dwt3": 3 * n_synth, "haar_idwt3": n_synth}
+    runs = {
+        "complete_a": ([], dict(idle, **haar)),
+        "complete_b": (["--sampler=dpm++", "--sampling_steps=10"],
+                       dict(idle, **haar, conv3d_fused_k4b=540 * n_synth,
+                            conv3d_wgmma=300 * n_synth, conv3d_splitk=240 * n_synth)),
+    }
+    vols = {}
+    for name, (extra, want) in runs.items():
+        if name == "complete_b":  # a sidecar that routes every ResBlock conv through K4b
+            with open(path + ".json", "w") as f:
+                json.dump(dict(sidecar, fuse_conv=True), f, indent=2)
+        out_dir, got, counts = run(name, complete_dataset.main, flags + extra, want)
+        if got["failed"] or sorted(got["seconds"]) != sorted(c for c, m in cases.items() if m):
+            fail(f"{name}: {got}")
+        checked = {case: check_completed(np, in_dir, out_dir, case, m) for case, m in cases.items()}
+        res[name] = {"s_per_case": got["seconds"], "failed": got["failed"], "launches": counts,
+                     "launches_expected": want, "outputs": checked}
+        vols[name] = {case: nifti.load(os.path.join(out_dir, case, f"{case}-{m}.nii.gz")).dataobj
+                      for case, m in cases.items() if m}
+    res["max_abs_diff_a_vs_b"] = max(float(np.abs(vols["complete_a"][c] - vols["complete_b"][c]).max())
+                                     for c in vols["complete_a"])
+    res["volumes_differ_a_vs_b"] = res["max_abs_diff_a_vs_b"] > 0.0
+
+    # sample_auto: the sidecar as written, bf16, ddpm
+    with open(path + ".json", "w") as f:
+        json.dump(sidecar, f, indent=2)
+    out_dir, got, counts = run("sample_auto", sample_auto.main,
+                               [f"--data_dir={in_dir}", f"--checkpoint_dir={ckpt_dir}",
+                                "--dtype=bfloat16"], dict(idle, **haar))
+    if (got["done"], got["skipped"], got["failed"]) != (n_synth, len(cases) - n_synth, 0) \
+            or sorted(os.listdir(out_dir)) != sorted(c for c, m in cases.items() if m):
+        fail(f"sample_auto: {got}, wrote {sorted(os.listdir(out_dir))}")
+    res["sample_auto"] = {"s_per_case": got["seconds"], "launches": counts, "outputs": {
+        case: check_synthesized(np, os.path.join(in_dir, case),
+                                os.path.join(out_dir, case, f"{case}-{m}.nii.gz"), case)
+        for case, m in cases.items() if m}}
+    return res
+
+
 REFERENCE_RUNS = {  # name: (model flags, sampler)
     "fuse_gn_silu_ddpm": (dict(fuse_gn_silu=True), "ddpm"),
     "fuse_conv_ddpm": (dict(fuse_gn_silu=True, fuse_conv=True), "ddpm"),
@@ -842,6 +1005,10 @@ def main(argv=None) -> int:
         res, counts, conv_counts = phase_synthesis(torch, tmp)
     emit({"phase": "synthesis", "gpu": smi, "seconds": time.perf_counter() - t0, **res})
     t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        comp = phase_completion(torch, tmp)
+    emit({"phase": "completion", "gpu": smi, "seconds": time.perf_counter() - t0, **comp})
+    t0 = time.perf_counter()
     ref = phase_reference(torch)
     emit({"phase": "reference", "seconds": time.perf_counter() - t0, **ref})
 
@@ -860,6 +1027,12 @@ def main(argv=None) -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+        # per volume of every main-path run: the two CLI syntheses and the
+        # completion runs (per case)
+        line[-1]["launches_by_path"] = {
+            "sample_ddpm_fuse_gn_silu": counts[name], "sample_fuse_conv_dpm": conv_counts[name],
+            **{run: comp[run]["launches"][name] // len(comp[run]["s_per_case"])
+               for run in ("complete_a", "complete_b", "sample_auto")}}
         if name.startswith("conv3d"):
             line[-1]["launches_by_kernel"] = {
                 kn: conv_counts[f"conv3d_{kn}"] for kn in ("wgmma", "splitk", "mma_sync")}

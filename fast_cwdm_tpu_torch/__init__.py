@@ -10,8 +10,12 @@ reference this port is held against; nothing here imports it.
 - ``models``    3D ``UNetModel`` with the reference torch parameter layout
 - ``diffusion`` beta schedules, respacing, ancestral, DDIM and
                 DPM-Solver++ sampling loops
-- ``data``      NIfTI IO and BraTS eval preprocessing (numpy only)
-- ``cli``       synthesis plumbing and the ``sample`` entry point
+- ``data``      NIfTI IO, BraTS preprocessing and un-crop, a prefetch
+                loader (numpy only)
+- ``training``  the JAX package's ``.ckpt`` format (numpy msgpack codec),
+                BEST discovery
+- ``cli``       synthesis plumbing and the ``sample``, ``complete_dataset``,
+                ``sample_auto`` and ``convert_checkpoint`` entry points
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,4 +1,5 @@
-"""Synthesis plumbing: config → model/diffusion, weights, the wavelet
+"""Synthesis plumbing: config → model/diffusion, weights (``.ckpt`` of the
+JAX package or reference ``.pt``), BEST-checkpoint discovery, the wavelet
 condition, and the reverse chain + postprocess as one callable.
 
 Port of ``fast_cwdm_tpu/cli/common.py`` (ddpm, ddim and dpm++ samplers).
@@ -17,8 +18,10 @@ import torch
 
 from fast_cwdm_tpu_torch import resolve_device
 from fast_cwdm_tpu_torch.diffusion.gaussian import condition_order
-from fast_cwdm_tpu_torch.models.factory import create_model_and_diffusion
+from fast_cwdm_tpu_torch.models.convert import state_dict_from_jax
+from fast_cwdm_tpu_torch.models.factory import create_model_and_diffusion, model_and_diffusion_defaults
 from fast_cwdm_tpu_torch.ops import wavelet as wv
+from fast_cwdm_tpu_torch.training import checkpoints as ckpt
 
 PRODUCTION_OVERRIDES = dict(
     image_size=112,
@@ -55,32 +58,44 @@ def build_model_and_diffusion(cfg: dict):
     return create_model_and_diffusion(**cfg)
 
 
-def load_checkpoint_config(path: str) -> dict | None:
-    """The config stored beside a checkpoint (``<path>.json``), if any."""
-    import json
-
-    side = path + ".json"
-    if os.path.exists(side):
-        with open(side) as f:
-            return json.load(f)
-    return None
+def str2bool(s) -> bool:
+    """Shared falsy convention: ``0/false/no/off/none/""`` (any case) are
+    False, everything else True."""
+    if isinstance(s, bool):
+        return s
+    return str(s).lower() not in ("0", "false", "no", "off", "none", "")
 
 
 def load_params(path: str, model: torch.nn.Module, *, use_ema: bool = False) -> torch.nn.Module:
-    """Load reference-format torch ``.pt`` weights into ``model``
-    (``strict=True``) and return it."""
-    if not path.endswith(".pt"):
-        raise NotImplementedError(
-            f"{path}: the port reads reference-format .pt state_dicts only; "
-            ".ckpt/.orbax checkpoints of the JAX package need the converter "
-            "planned as ROADMAP item M7"
-        )
+    """Load a JAX package ``.ckpt`` or reference-format torch ``.pt`` into
+    ``model`` (``strict=True``) and return it. ``use_ema`` that cannot be
+    honoured (no EMA shadows in the file) is reported, never silently
+    ignored."""
+    return load_params_ex(path, model, use_ema=use_ema)[0]
+
+
+def load_params_ex(path: str, model: torch.nn.Module, *, use_ema: bool = False):
+    """Like :func:`load_params` but returns ``(model, ema_applied)``, so a
+    caller can tell raw weights from the first EMA shadow. A ``.ckpt`` may
+    carry any number of shadows; ``.orbax`` raises ``NotImplementedError``.
+    Parameters the port does not implement (attention, class embedding)
+    raise instead of loading partially."""
+    if path.endswith(".pt"):
+        if use_ema:
+            print(f"[load_params] WARNING: {path} is a torch state_dict with no "
+                  "EMA shadows; using the raw parameters")
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        model.load_state_dict(state, strict=True)
+        return model, False
+    loaded = ckpt.load_with_ema_probe(path)
+    params, applied = loaded["params"], False
     if use_ema:
-        print(f"[load_params] WARNING: {path} is a torch state_dict with no "
-              "EMA shadows; using the raw parameters")
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(state, strict=True)
-    return model
+        if loaded["ema_params"]:
+            params, applied = loaded["ema_params"][0], True
+        else:
+            print(f"[load_params] WARNING: {path} has no EMA shadows; using the raw parameters")
+    model.load_state_dict(state_dict_from_jax(params, model), strict=True)
+    return model, applied
 
 
 def prepare_condition(batch: dict, contr: str, wavelet: str = "haar",
@@ -93,6 +108,45 @@ def prepare_condition(batch: dict, contr: str, wavelet: str = "haar",
         for m in condition_order(contr)
     ]
     return torch.cat([wv.dwt_normalized(c, wavelet) for c in conds], dim=-1)
+
+
+def load_best_synthesis(checkpoint_dir: str, contr: str, *, dataset: str = "brats",
+                        base_cfg: dict | None = None, dtype: str | None = None,
+                        use_ema: bool = True, tag: str = "synth", clip_denoised: bool = True,
+                        sampler: str = "ddpm", sampler_steps: int | None = None,
+                        device: str | torch.device | None = None):
+    """Find the BEST checkpoint for ``contr``, merge its stored config,
+    build the model and diffusion, load the weights and return
+    :func:`make_synthesis_fn`'s ``run``.
+
+    ``base_cfg`` is the starting flag bundle (None: the production preset).
+    The stored config wins over it for every key of
+    ``model_and_diffusion_defaults()`` except ``dtype``, a runtime choice
+    that only ``dtype`` overrides; other stored keys (``contr``, training
+    flags) are ignored. A stored ``fuse_gn_silu``/``fuse_conv`` routes the
+    UNet through K3/K4b. ``sampler="ddim"`` with ``sampler_steps`` respaces
+    the process to ``ddim{N}``."""
+    found = ckpt.find_best_checkpoint(checkpoint_dir, contr, dataset)
+    if found is None:
+        raise FileNotFoundError(f"no BEST checkpoint for {contr} in {checkpoint_dir}")
+    path, schedule, steps = found
+    stored = ckpt.load_checkpoint_config(path) or {}
+    cfg = (dict(base_cfg) if base_cfg is not None
+           else production_config(sample_schedule=schedule, diffusion_steps=steps))
+    schema = set(model_and_diffusion_defaults())
+    cfg.update({k: v for k, v in stored.items() if k in schema and k != "dtype"})
+    if dtype:
+        cfg["dtype"] = dtype
+    cfg.update(mode="i2i", sample_schedule=schedule, diffusion_steps=steps)
+    if sampler == "ddim" and sampler_steps:
+        cfg["timestep_respacing"] = f"ddim{sampler_steps}"
+    model, diffusion = build_model_and_diffusion(cfg)
+    load_params(path, model, use_ema=use_ema)
+    fn = make_synthesis_fn(model, diffusion, clip_denoised=clip_denoised, sampler=sampler,
+                           sampler_steps=sampler_steps, device=device)
+    print(f"[{tag}] {contr}: {os.path.basename(path)} ({schedule}, {steps} steps, "
+          f"sampler={sampler})")
+    return fn
 
 
 def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, chunk=None,
@@ -155,7 +209,8 @@ def subject_id_from_path(path: str) -> str:
 class AsyncWriter:
     """Small write-behind pool: NIfTI gzip encodes overlap the next case's
     sampling. The backlog is bounded (``max_pending``); ``drain()`` waits
-    for the rest and returns the number of failed jobs."""
+    for the rest and returns the number of failed jobs, ``drain_failed()``
+    their tags."""
 
     def __init__(self, max_workers: int = 2, max_pending: int = 8, label: str = "write"):
         self._pool = ThreadPoolExecutor(max_workers=max_workers)
@@ -177,9 +232,14 @@ class AsyncWriter:
         self._pending.append((tag, self._pool.submit(fn, *args, **kwargs)))
 
     def drain(self) -> int:
+        return len(self.drain_failed())
+
+    def drain_failed(self) -> list[str]:
+        """Wait for all jobs; the tags of the failed ones (so a caller counts
+        a case whose write and copy both fail once)."""
         for tag, fut in self._pending:
             self._resolve(tag, fut)
         self._pending.clear()
         self._pool.shutdown(wait=True)
         failed, self._failed = self._failed, []
-        return len(failed)
+        return failed

@@ -5,7 +5,7 @@ reverse chain, IDWT with ×3 LLL, clamp [0,1], zero non-brain voxels via
 the first condition modality, crop Z to 155, and write ``sample.nii.gz``
 and ``target.nii.gz`` with an identity affine.
 
-    python -m fast_cwdm_tpu_torch.cli.sample --data_dir DIR --model_path W.pt \\
+    python -m fast_cwdm_tpu_torch.cli.sample --data_dir DIR --model_path W.ckpt \\
         --contr t1c --sample_schedule sampled --diffusion_steps 10 [--device cpu]
 
 Runs on CUDA unless ``--device cpu`` is given.
@@ -73,6 +73,7 @@ def main(argv=None) -> list[float]:
     from fast_cwdm_tpu_torch.data.brats import BRATSVolumes
     from fast_cwdm_tpu_torch.data.nifti import Nifti1Image, save
     from fast_cwdm_tpu_torch.diffusion.gaussian import condition_order
+    from fast_cwdm_tpu_torch.training.checkpoints import load_checkpoint_config
 
     args = create_argparser().parse_args(argv)
     device = resolve_device(args.device)
@@ -83,7 +84,7 @@ def main(argv=None) -> list[float]:
     cfg = args_to_dict(args, model_and_diffusion_defaults().keys())
     # a config stored beside the checkpoint wins for model/diffusion keys;
     # dtype stays a runtime choice
-    stored = common.load_checkpoint_config(args.model_path) or {}
+    stored = load_checkpoint_config(args.model_path) or {}
     cfg.update({k: v for k, v in stored.items() if k in cfg and k != "dtype"})
     cfg["mode"] = "i2i"
     sampler = args.sampler or ("ddim" if args.use_ddim else "ddpm")

@@ -1,5 +1,5 @@
-"""BraTS evaluation dataset (port of the eval path of
-``fast_cwdm_tpu/data/brats.py``), numpy only.
+"""BraTS evaluation dataset and the un-crop back to the raw geometry
+(port of the eval path of ``fast_cwdm_tpu/data/brats.py``), numpy only.
 
 Preprocessing: quantile clip (0.001/0.999) → min-max to [0,1] → zero-pad Z
 155→160 → crop X,Y 240→224 (``[8:-8, 8:-8]``); output channels-last
@@ -44,6 +44,21 @@ def preprocess_volume(vol: np.ndarray) -> np.ndarray:
 
 def load_preprocessed(path: str) -> np.ndarray:
     return preprocess_volume(nifti.load(path).get_fdata())
+
+
+def unprocess_volume(vol: np.ndarray, raw_shape=None) -> np.ndarray:
+    """Invert pad/crop: (224, 224, Z[, 1]) → (240, 240, 155) with zeros in
+    the cropped border. ``raw_shape`` defaults to (X+16, Y+16, min(Z, 155));
+    pass the source NIfTI's shape where there is one."""
+    vol = np.asarray(vol)
+    if vol.ndim == 4:
+        vol = vol[..., 0]
+    if raw_shape is None:
+        raw_shape = (vol.shape[0] + 2 * CROP, vol.shape[1] + 2 * CROP,
+                     min(vol.shape[2], RAW_SHAPE[2]))
+    out = np.zeros(raw_shape, dtype=vol.dtype)
+    out[CROP:-CROP, CROP:-CROP, :] = vol[:, :, : raw_shape[2]]
+    return out
 
 
 def parse_seqtype(filename: str) -> str | None:

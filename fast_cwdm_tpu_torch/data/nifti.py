@@ -159,6 +159,25 @@ def _read_bytes(path: str) -> bytes:
         return f.read()
 
 
+class NiftiHeaderImage:
+    """Header-only view: ``.header`` / ``.affine`` / ``.shape`` without
+    decoding the voxels."""
+
+    def __init__(self, header: Nifti1Header):
+        self.header = header
+        self.affine = np.asarray(_affine_from_header(header), np.float64)
+        self.shape = tuple(header.get_data_shape())
+
+
+def load_header(path: str) -> NiftiHeaderImage:
+    """Parse only the 348-byte header (a gzip stream decompresses just its
+    first block), for callers that need the geometry and not the voxels."""
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "rb") as f:
+        hdr = f.read(HDR_SIZE)
+    return NiftiHeaderImage(_parse_header(hdr))
+
+
 def load(path: str) -> Nifti1Image:
     blob = _read_bytes(path)
     h = _parse_header(blob[:HDR_SIZE])

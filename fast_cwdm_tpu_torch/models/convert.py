@@ -1,15 +1,17 @@
-"""JAX parameter tree → the port's ``state_dict``.
+"""JAX parameter tree ↔ the port's ``state_dict``.
 
 The port's own copy of the layout walk of the JAX package's
-``training/bridge.py`` (``unet_layout``, ``_f2t_leaf``, ``flax_to_torch``),
-for the UNet the port implements (no attention blocks):
+``training/bridge.py`` (``unet_layout``, ``_f2t_leaf``/``_t2f_leaf``,
+``flax_to_torch``/``torch_to_flax``), for the UNet the port implements (no
+attention blocks):
 
 * flax Conv ``kernel`` (D, H, W, I, O) → torch ``weight`` (O, I, D, H, W);
 * Dense ``kernel`` (I, O) → ``weight`` (O, I);
 * GroupNorm ``scale``/``bias`` → ``weight``/``bias``.
 
-The parameter tree arrives as nested dicts of numpy arrays (e.g.
-``jax.tree.map(np.asarray, params)``); nothing of JAX is imported here.
+The parameter tree is nested dicts of numpy arrays (e.g.
+``jax.tree.map(np.asarray, params)``, or a ``.ckpt`` read by
+``training/checkpoints.py``); nothing of JAX is imported here.
 """
 
 from __future__ import annotations
@@ -86,6 +88,28 @@ def _f2t_leaf(kind: str, name: str, w: np.ndarray) -> tuple[str, np.ndarray]:
     raise ValueError(kind)
 
 
+def _t2f_leaf(kind: str, name: str, w: np.ndarray) -> tuple[str, np.ndarray]:
+    """torch leaf → (flax leaf name, array)."""
+    if kind == "norm":
+        return ("scale" if name == "weight" else "bias"), w
+    if name == "bias":
+        return "bias", w
+    if kind == "conv":
+        k = w.ndim - 2
+        return "kernel", np.transpose(w, (*range(2, 2 + k), 1, 0))
+    if kind == "linear":
+        return "kernel", w.T
+    raise ValueError(kind)
+
+
+def _as_array(v) -> np.ndarray:
+    """A leaf as numpy; a torch.bfloat16 leaf (no numpy dtype) widened to
+    float32, which is exact."""
+    if isinstance(v, torch.Tensor):
+        return (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
+    return np.asarray(v)
+
+
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
@@ -93,8 +117,16 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
         if isinstance(v, dict):
             out.update(_flatten(v, path))
         else:
-            out[path] = np.asarray(v)
+            out[path] = _as_array(v)
     return out
+
+
+def _leaves(model: UNetModel):
+    """(torch key prefix, flax path, leaf kind) of every parameterised leaf."""
+    for tpath, fpath, kind in unet_layout(model):
+        for tsuf, fsuf, leaf_kind in _KIND_LEAVES[kind]:
+            yield (f"{tpath}.{tsuf}" if tsuf else tpath,
+                   f"{fpath}/{fsuf}" if fsuf else fpath, leaf_kind)
 
 
 def state_dict_from_jax(params: dict, model: UNetModel) -> dict[str, torch.Tensor]:
@@ -103,17 +135,41 @@ def state_dict_from_jax(params: dict, model: UNetModel) -> dict[str, torch.Tenso
     flat = _flatten(params)
     out: dict[str, torch.Tensor] = {}
     consumed = set()
-    for tpath, fpath, kind in unet_layout(model):
-        for tsuf, fsuf, leaf_kind in _KIND_LEAVES[kind]:
-            tfull = f"{tpath}.{tsuf}" if tsuf else tpath
-            ffull = f"{fpath}/{fsuf}" if fsuf else fpath
-            for fname in ("kernel", "bias", "scale"):
-                fk = f"{ffull}/{fname}"
-                if fk in flat:
-                    tname, arr = _f2t_leaf(leaf_kind, fname, flat[fk])
-                    out[f"{tfull}.{tname}"] = torch.from_numpy(np.array(arr))
-                    consumed.add(fk)
+    for tfull, ffull, leaf_kind in _leaves(model):
+        for fname in ("kernel", "bias", "scale"):
+            fk = f"{ffull}/{fname}"
+            if fk in flat:
+                tname, arr = _f2t_leaf(leaf_kind, fname, flat[fk])
+                out[f"{tfull}.{tname}"] = torch.from_numpy(np.array(arr))
+                consumed.add(fk)
     leftovers = set(flat) - consumed
     if leftovers:
         raise KeyError(f"unconsumed JAX parameters: {sorted(leftovers)[:8]} ...")
     return out
+
+
+def jax_params_from_state_dict(state_dict: dict, model: UNetModel) -> dict:
+    """The inverse of :func:`state_dict_from_jax`: ``model``'s state_dict
+    (tensors or arrays) as the JAX package's params tree of float32 numpy
+    arrays, as ``bridge.torch_to_flax`` builds it. Raises on a missing key
+    (the skip 1×1 conv is optional) and on leftover keys."""
+    sd = {k: _as_array(v) for k, v in state_dict.items()}
+    tree: dict = {}
+    consumed = set()
+    for tfull, ffull, leaf_kind in _leaves(model):
+        for tname in ("weight", "bias"):
+            tk = f"{tfull}.{tname}"
+            if tk not in sd:
+                if tfull.endswith("skip_connection"):
+                    continue
+                raise KeyError(f"missing torch key {tk}")
+            fname, arr = _t2f_leaf(leaf_kind, tname, sd[tk])
+            node = tree
+            for part in ffull.split("/"):
+                node = node.setdefault(part, {})
+            node[fname] = np.ascontiguousarray(arr, dtype=np.float32)
+            consumed.add(tk)
+    leftovers = set(sd) - consumed
+    if leftovers:
+        raise KeyError(f"unconsumed torch keys: {sorted(leftovers)[:8]} ...")
+    return tree

@@ -27,7 +27,8 @@ A CPU tensor takes the plain torch version; a CUDA tensor launches the
 routed kernel or raises. ``conv3d_fused.launches_k4a`` / ``launches_k4b``
 (by ``block_x``) and ``conv3d_fused_v4.launches`` count launches by entry
 point, ``kernel_launches`` by kernel. Inference only: the JAX package has
-no backward for these kernels either.
+no backward for these kernels either, and on the card a call that autograd
+would have to differentiate raises.
 """
 
 from __future__ import annotations
@@ -313,6 +314,15 @@ def _launch(name, x, w, b, gn, temb, skip, w_packed=None, kernel=None) -> torch.
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16, got {x.dtype}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b, temb, skip, *(gn or ()))):
+        # the freshly allocated output has no grad_fn: gradients would be
+        # dropped without an error
+        raise RuntimeError(
+            f"{name}: the fused conv kernels have no backward (inference only, as "
+            "fuse_conv in the JAX package); call it under torch.no_grad() or "
+            "torch.inference_mode(), or on CPU tensors"
+        )
     if x.dim() != 5 or not x.is_contiguous(memory_format=_CL):
         raise ValueError(
             f"{name}: x must be (B, C, X, Y, Z) in channels_last_3d memory, got "

@@ -9,7 +9,9 @@ Tensors are logical NCDHW ``(B, C, *spatial)``, as inside the UNet, stored
 contiguous or ``channels_last_3d``. The math is fp32 and the result is
 rounded once to ``x``'s dtype. A CPU tensor takes the plain torch version;
 a CUDA tensor launches the kernel or raises. ``affine_silu.launches``
-counts kernel launches. No backward kernel yet (inference path).
+counts kernel launches. The kernel has no backward yet: on the card a call
+that autograd would have to differentiate raises instead of returning a
+result with no gradient.
 """
 
 from __future__ import annotations
@@ -51,6 +53,14 @@ def affine_silu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
         raise ValueError(f"affine_silu: expected a CPU or CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"affine_silu: the CUDA kernel takes float32 or bfloat16, got {x.dtype}")
+    if torch.is_grad_enabled() and (x.requires_grad or a.requires_grad or b.requires_grad):
+        # the output of the ctypes launch has no grad_fn: the gradient to x,
+        # a and b would be dropped without an error
+        raise RuntimeError(
+            "affine_silu: the CUDA kernel K3 has no backward yet (its VJP kernel is "
+            "ROADMAP §2.1, to come with training); call it under torch.no_grad() or "
+            "torch.inference_mode(), or on CPU tensors"
+        )
     bsz, c = x.shape[:2]
     for name, p in (("a", a), ("b", b)):
         if p.shape != (bsz, c) or p.dtype != torch.float32 or p.device != x.device:

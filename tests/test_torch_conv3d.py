@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from fast_cwdm_tpu.ops import conv3d_pallas as jc
 from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
@@ -142,3 +143,19 @@ def test_plain_version_zero_pads_after_the_prologue():
     act = 0.5 * torch.sigmoid(torch.tensor(0.5))
     torch.testing.assert_close(y[0, 0, 0, 0, 0], 8 * 8 * act)
     torch.testing.assert_close(y[0, 0, 1, 1, 1], 27 * 8 * act)
+
+
+def test_cpu_path_stays_differentiable():
+    """On the CPU the fused conv is the plain version, differentiable: with
+    no prologue its gradients equal F.conv3d's (the card refuses backward:
+    tests/test_torch_cuda.py)."""
+    _, x, w, b = _inputs(4, (1, 4, 5, 6, 8), 8)
+    grads = []
+    for conv in (lambda x, w, b: tc.conv3d_fused(x, w, b, block_x=2),
+                 lambda x, w, b: F.conv3d(x, w.permute(4, 3, 0, 1, 2), b, padding=1)):
+        tx, tw, tb = _ncdhw(x).requires_grad_(), torch.from_numpy(w).requires_grad_(), \
+            torch.from_numpy(b).requires_grad_()
+        conv(tx, tw, tb).square().sum().backward()
+        grads.append([t.grad for t in (tx, tw, tb)])
+    for ours, ref in zip(*grads):
+        torch.testing.assert_close(ours, ref, atol=1e-4, rtol=1e-5)

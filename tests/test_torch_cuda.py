@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels on the card: K1/K2/K3 and the three fused
 conv kernels behind K4a/K4b/K5 (mma.sync, wgmma and split-K), each against
-its plain torch version, their wrappers' refusals, the autograd pair, and
-fuse_conv UNets that reach K4b on each conv kernel.
+its plain torch version, their wrappers' refusals (backward included), the
+autograd pair, fuse_conv UNets that reach K4b on each conv kernel, a .ckpt
+round trip of a model on the card, and complete_dataset on the card.
 
 Marked ``cuda``: skipped where no GPU is present. This file imports no JAX,
 so it also runs where JAX is not installed:
@@ -9,10 +10,18 @@ so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
+import numpy as np
 import pytest
 import torch
 
+from fast_cwdm_tpu_torch.cli import common, complete_dataset
+from fast_cwdm_tpu_torch.data import nifti
+from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
 from fast_cwdm_tpu_torch.models.unet import UNetModel
+from fast_cwdm_tpu_torch.training import checkpoints
+from fast_cwdm_tpu_torch.utils.testing import seeded_state_dict
 from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
 from fast_cwdm_tpu_torch.ops import elementwise_cuda as ec
 from fast_cwdm_tpu_torch.ops import wavelet as wv
@@ -348,3 +357,102 @@ def test_conv3d_wrappers_refuse_what_the_kernel_does_not_take(gen):
         tc._launch("k4b", x.float(), w, b, None, None, None, kernel="splitk")  # bf16 only
     with pytest.raises(ValueError):
         tc._launch("k4b", x, w, b, None, None, None, kernel="splitk")  # Co = 16, not 64
+
+
+def test_affine_silu_refuses_backward(gen):
+    """K3 has no backward kernel yet: backward() through it raises (x, or a
+    scale that requires grad as GroupNorm32's does); under inference_mode
+    the same call runs and matches the plain version."""
+    x = torch.randn((1, 16, 4, 5, 6), generator=gen, device="cuda", requires_grad=True)
+    a = torch.randn((1, 16), generator=gen, device="cuda")
+    b = torch.randn((1, 16), generator=gen, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ec.affine_silu(x, a, b).sum().backward()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ec.affine_silu(x.detach(), a.clone().requires_grad_(), b)
+    with torch.inference_mode():
+        y = ec.affine_silu(x, a, b)
+    torch.testing.assert_close(y, ec.affine_silu_plain(x.detach(), a, b), atol=0, rtol=0)
+
+
+def test_fused_conv_refuses_backward(gen):
+    """The fused conv kernels have no backward (nor has the JAX package):
+    backward() through conv3d_fused or conv3d_fused_v4 raises; under
+    inference_mode the same calls run within tolerance."""
+    x, w, b, gn = _conv_case(gen, torch.bfloat16, 1, 16, 64, (4, 5, 6), "channel")
+    w = w.requires_grad_()
+    calls = {"k4b": lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2),
+             "k5": lambda: tc.conv3d_fused_v4(x, w, b, gn=gn)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call().float().sum().backward()
+        with torch.inference_mode():
+            y = call()
+        ref = tc.conv3d_fused_plain(x, w.detach(), b, gn=gn)
+        assert tc.tol_ratio(y, ref, x, w.detach(), gn) <= 1.0, name
+
+
+def _tiny_cfg(**kw):
+    return common.production_config(
+        num_channels=16, num_res_blocks=1, channel_mult="1,2", num_groups=8, image_size=8,
+        diffusion_steps=4, sample_schedule="sampled", dtype="float32", **kw)
+
+
+def test_ckpt_round_trip_of_a_model_on_the_card(gen, tmp_path):
+    """A model on the card → its JAX-layout params → .ckpt → load_params
+    into a fresh model on the card: every tensor bit for bit, the EMA shadow
+    picked by use_ema, and the same output."""
+    cfg = _tiny_cfg()
+    model, _ = common.build_model_and_diffusion(cfg)
+    sd = seeded_state_dict({k: tuple(v.shape) for k, v in model.state_dict().items()})
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    model.cuda().eval()
+    params = jax_params_from_state_dict(model.state_dict(), model)
+    ema = jax_params_from_state_dict({k: 0.5 * v for k, v in model.state_dict().items()}, model)
+    path = str(tmp_path / "brats_t1c_BEST_sampled_4.ckpt")
+    checkpoints.save_checkpoint(path, {"params": params, "ema_params": (ema,), "step": 1}, cfg)
+    for use_ema, scale in ((False, 1.0), (True, 0.5)):
+        fresh, _ = common.build_model_and_diffusion(cfg)
+        _, applied = common.load_params_ex(path, fresh, use_ema=use_ema)
+        fresh.cuda().eval()
+        assert applied == use_ema
+        for k, v in model.state_dict().items():
+            assert torch.equal(fresh.state_dict()[k], scale * v), k
+    x = torch.randn((1, 32, 8, 8, 8), generator=gen, device="cuda")
+    t = torch.tensor([2], device="cuda")
+    fresh, _ = common.build_model_and_diffusion(cfg)
+    common.load_params(path, fresh)
+    with torch.inference_mode():  # the same weights; cuDNN may pick another algorithm
+        torch.testing.assert_close(fresh.cuda().eval()(x, t), model(x, t), atol=1e-5, rtol=0)
+
+
+def test_complete_dataset_on_the_card(gen, tmp_path):
+    """complete_dataset with --device cuda on a tiny tree and a port-written
+    .ckpt: the missing modality written at the source geometry with a zero
+    border, the present files passed through, none failed; the Haar kernels
+    launched."""
+    cfg = _tiny_cfg()
+    model, _ = common.build_model_and_diffusion(cfg)
+    sd = seeded_state_dict({k: tuple(v.shape) for k, v in model.state_dict().items()})
+    params = jax_params_from_state_dict(sd, model)
+    ckpt_dir = str(tmp_path / "ckpt")
+    checkpoints.save_checkpoint(os.path.join(ckpt_dir, "brats_t1c_BEST_sampled_4.ckpt"),
+                                {"params": params, "ema_params": (), "step": 0}, cfg)
+    rng = np.random.default_rng(0)
+    case = tmp_path / "in" / "00001"
+    os.makedirs(case)
+    for m in ("t1n", "t2w", "t2f"):
+        vol = (rng.random((24, 24, 15)) * 900 + 100).astype(np.float32)
+        nifti.save(nifti.Nifti1Image(vol, np.eye(4)), str(case / f"BraTS-GLI-00001-000-{m}.nii.gz"))
+    before = wc.haar_dwt3.launches, wc.haar_idwt3.launches
+    res = complete_dataset.main([f"--input_dir={tmp_path / 'in'}", f"--output_dir={tmp_path / 'out'}",
+                                 f"--checkpoint_dir={ckpt_dir}", "--device=cuda"])
+    assert res["failed"] == [] and list(res["seconds"]) == ["00001"]
+    assert (wc.haar_dwt3.launches - before[0], wc.haar_idwt3.launches - before[1]) == (3, 1)
+    out = tmp_path / "out" / "00001"
+    assert sorted(os.listdir(out)) == sorted(os.listdir(case) + ["00001-t1c.nii.gz"])
+    for f in os.listdir(case):
+        assert (out / f).read_bytes() == (case / f).read_bytes()
+    vol = nifti.load(str(out / "00001-t1c.nii.gz")).get_fdata()
+    assert vol.shape == (24, 24, 15) and np.isfinite(vol).all()
+    assert vol.min() >= 0.0 and vol.max() <= 1.0 and not vol[:8].any() and not vol[:, -8:].any()

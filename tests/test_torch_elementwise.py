@@ -122,3 +122,21 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError):
         ec.affine_silu(torch.zeros(8), torch.ones(1, 8), torch.zeros(1, 8))
     assert jax.default_backend() == "cpu"
+
+
+def test_cpu_path_stays_differentiable():
+    """On the CPU affine_silu is the plain version, differentiable, with the
+    gradients of the JAX package's custom VJP (the card refuses backward:
+    tests/test_torch_cuda.py)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((1, 4, 4, 4, 64)).astype(np.float32)
+    a = rng.standard_normal((1, 64)).astype(np.float32)
+    b = rng.standard_normal((1, 64)).astype(np.float32)
+    ref = jax.grad(lambda *v: jnp.sum(jnp.sin(ep.affine_silu(*v))), argnums=(0, 1, 2))(
+        *(jnp.asarray(v) for v in (x, a, b)))
+    tx = _ncdhw(x).requires_grad_()
+    ta, tb = (torch.from_numpy(v).requires_grad_() for v in (a, b))
+    torch.sin(ec.affine_silu(tx, ta, tb)).sum().backward()
+    np.testing.assert_allclose(_last(tx.grad), np.asarray(ref[0]), atol=1e-5)
+    np.testing.assert_allclose(ta.grad.numpy(), np.asarray(ref[1]), atol=1e-4)
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(ref[2]), atol=1e-4)
