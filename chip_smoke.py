@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase (what a release check runs)
-    python3 chip_smoke.py --profile  # also trace one forward of each kind
+    python3 chip_smoke.py --profile  # also trace one forward and one train step of each kind
 
 Phases, each printing one JSON object per line:
 
@@ -40,7 +40,21 @@ Phases, each printing one JSON object per line:
               split-K); then ``cli.sample_auto`` on the same tree; every
               output checked (geometry, affine, [0,1], brain mask, border,
               pass-through) and the seconds per case;
-7. reference— the whole synthesis at a tiny fp32 config on the card
+7. training — the K3 VJP kernel against its plain version at every
+              distinct GN+SiLU shape of the production UNet (bf16
+              channels_last_3d and fp32 contiguous; gx bit for bit, ga and
+              gb within 1e-5 of the sum of the terms' magnitudes, two
+              launches bit for bit), its time per shape and per train step;
+              then ``fast_cwdm_tpu_torch.cli.train`` with ``run.sh``'s TRAIN
+              flags (batch 1, lr 1e-5, use_checkpoint) on two synthetic
+              240×240×155 cases at the production config, a few steps each
+              and a BEST: (a) unfused, (b) ``--fuse_gn_silu=True`` (K3 and
+              its VJP); warm s/step, peak memory, the loss of every step,
+              parameters moved, launches per step; (a) again without
+              use_checkpoint for its peak memory; a fuse_conv model under
+              backward still raises; then ``cli.complete_dataset`` from (a)'s
+              BEST on a case without t1c, output checked;
+8. reference— the whole synthesis at a tiny fp32 config on the card
               against the same on the CPU (plain versions), same noise:
               fuse_gn_silu under ddpm, and fuse_conv under ddpm, ddim and
               dpm++.
@@ -471,27 +485,28 @@ def seeded_production(torch, **overrides) -> tuple[dict, dict]:
     return cfg, sd
 
 
-def profile_forward(torch, model, x, t) -> dict:
-    """Device time of one forward by kernel (``torch.profiler``): the total,
-    the busy share of the host-clock wall time, sums by kind, and the top
-    kernels."""
+def profile_device(torch, fn) -> dict:
+    """Device time of one call of ``fn`` by kernel (``torch.profiler``):
+    the total, the busy share of the host-clock wall time, sums by kind,
+    and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model(x, t)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = (("K3 affine_silu", ("affine_silu",)),
+    kinds = (("K3 VJP affine_silu_bwd", ("affine_silu_bwd",)),
+             ("K3 affine_silu", ("affine_silu",)),
              ("K4b fused conv3d, wgmma", ("conv3d_wgmma",)),
              ("K4b fused conv3d, split-K", ("conv3d_splitk_kernel",)),
              ("K4b fused conv3d, split-K reduction", ("conv3d_splitk_reduce",)),
              ("K4b fused conv3d, mma.sync", ("conv3d_bf16", "conv3d_f32")),
+             ("convolution backward (cuDNN dgrad, wgrad)", ("dgrad", "wgrad")),
              ("convolution", ("conv", "xmma", "cudnn", "fprop", "implicit", "gemm")),
+             ("optimizer and EMA (foreach)", ("foreach", "multi_tensor")),
              ("reduction (GroupNorm statistics)", ("reduce",)),
              ("elementwise and copies", ("elementwise", "copy", "cat", "upsample",
                                          "avg_pool", "index")))
@@ -547,7 +562,9 @@ def phase_forward(torch, profile: bool = False) -> dict:
         res[f"{name}_ms"] = statistics.median(times[name])
         res[f"{name}_ms_all"] = times[name]
     if profile:
-        res["profile"] = {name: profile_forward(torch, m, x, t) for name, m in models.items()}
+        with torch.inference_mode():
+            res["profile"] = {name: profile_device(torch, lambda: m(x, t))
+                              for name, m in models.items()}
     del models
     m32, _ = common.build_model_and_diffusion(dict(cfg, dtype="float32"))
     m32.load_state_dict(sd)
@@ -599,6 +616,7 @@ def reset_counts():
     from fast_cwdm_tpu_torch.ops import wavelet_cuda as wc
 
     wc.haar_dwt3.launches = wc.haar_idwt3.launches = ec.affine_silu.launches = 0
+    ec.affine_silu_bwd.launches = 0
     tc.conv3d_fused.launches_k4a = tc.conv3d_fused.launches_k4b = 0
     tc.conv3d_fused_v4.launches = 0
     for k in tc.kernel_launches:
@@ -612,6 +630,7 @@ def read_counts() -> dict:
 
     return {"haar_dwt3": wc.haar_dwt3.launches, "haar_idwt3": wc.haar_idwt3.launches,
             "affine_silu": ec.affine_silu.launches,
+            "affine_silu_bwd": ec.affine_silu_bwd.launches,
             "conv3d_fused_k4a": tc.conv3d_fused.launches_k4a,
             "conv3d_fused_k4b": tc.conv3d_fused.launches_k4b,
             "conv3d_fused_v4": tc.conv3d_fused_v4.launches, **tc.kernel_launches}
@@ -877,6 +896,281 @@ def phase_completion(torch, tmp: str) -> dict:
     return res
 
 
+# (channels, spatial) of every GN+SiLU site of the production UNet, with
+# its count per forward (71 in all; models/unet.py on the meta device)
+GN_SITES = {
+    (64, (112, 112, 80)): 9, (128, (112, 112, 80)): 3, (192, (112, 112, 80)): 1,
+    (64, (56, 56, 40)): 2, (128, (56, 56, 40)): 9, (192, (56, 56, 40)): 1,
+    (256, (56, 56, 40)): 2, (128, (28, 28, 20)): 10, (256, (28, 28, 20)): 3,
+    (384, (28, 28, 20)): 1, (128, (14, 14, 10)): 2, (256, (14, 14, 10)): 9,
+    (384, (14, 14, 10)): 1, (512, (14, 14, 10)): 2, (256, (7, 7, 5)): 13,
+    (512, (7, 7, 5)): 3,
+}
+VJP_TOL = ("gx: 0 (bit for bit, the same fp32 operations each rounded once); ga, gb: "
+           "1e-5 of the sum of the terms' magnitudes (summation order)")
+TRAIN_STEPS = 4  # optimizer steps of each cli.train run
+# the ResBlocks use_checkpoint recomputes at ds <= 1 (remat_max_ds's
+# default): level 0's two ResBlocks and its down block, and the decoder's
+# three level-0 ResBlocks; two GN+SiLU sites each
+REMAT_GN_SITES = 12
+
+
+def vjp_ratio(torch, ec, got, ref, x, g, a, b) -> float:
+    """The VJP kernel's worst tolerance ratio (≤ 1 passes): gx must equal
+    the plain version's; ga and gb within 1e-5 of Σ|du·x| and Σ|du|."""
+    gx, ga, gb = got
+    rx, ra, rb = ref
+    if not torch.equal(gx, rx):
+        return float("inf")
+    _, ta, tb = ec.affine_silu_bwd_plain(x.abs(), g.abs(), a.abs(), b.abs())
+    return max(float(((ga - ra).abs() / (1e-5 * ta + 1e-30)).max()),
+               float(((gb - rb).abs() / (1e-5 * tb + 1e-30)).max()))
+
+
+def phase_vjp_kernel(torch) -> dict:
+    """The K3 VJP kernel at every distinct GN+SiLU shape of the production
+    UNet, bf16 channels_last_3d (the training path) and fp32 contiguous:
+    against affine_silu_bwd_plain, and a second launch bit for bit; then its
+    time per shape (bf16 channels_last_3d, median, L2 flushed) and per train
+    step (71 sites), the bound, and the plain version's time at level 0."""
+    from fast_cwdm_tpu_torch.ops import elementwise_cuda as ec
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    checks, worst_err, worst_ratio, per_shape = [], 0.0, 0.0, []
+    step_ms = step_bound = 0.0
+    for (c, sp), n in GN_SITES.items():
+        for dtype, fmt in ((torch.bfloat16, "channels_last_3d"), (torch.float32, "contiguous")):
+            x = torch.randn((1, *sp, c), generator=g, device="cuda").to(dtype).permute(0, 4, 1, 2, 3)
+            gr = torch.randn((1, *sp, c), generator=g, device="cuda").to(dtype).permute(0, 4, 1, 2, 3)
+            if fmt == "contiguous":
+                x, gr = x.contiguous(), gr.contiguous()
+            a = torch.randn((1, c), generator=g, device="cuda")
+            b = torch.randn((1, c), generator=g, device="cuda")
+            got = ec.affine_silu_bwd(x, gr, a, b)
+            again = ec.affine_silu_bwd(x, gr, a, b)
+            ref = ec.affine_silu_bwd_plain(x, gr, a, b)
+            ratio = vjp_ratio(torch, ec, got, ref, x, gr, a, b)
+            err = max(float((o.float() - r.float()).abs().max()) for o, r in zip(got, ref))
+            twice = all(torch.equal(o, p) for o, p in zip(got, again))
+            checks.append(dict(c=c, spatial=list(sp), dtype=str(dtype).split(".")[-1], format=fmt,
+                               plan=list(ec.bwd_plan(x, gr, got[0])), max_abs_err=err,
+                               tol_ratio=ratio, gx_n_differ=int((got[0] != ref[0]).sum()),
+                               bit_identical_twice=twice))
+            worst_err, worst_ratio = max(worst_err, err), max(worst_ratio, ratio)
+            if dtype == torch.bfloat16:
+                nb = 3 * x.numel() * 2 + 4 * a.numel() * 4
+                b_ms, b_by = bound_ms(nb, 12 * x.numel())
+                ms = time_ms(torch, lambda: ec.affine_silu_bwd(x, gr, a, b), reps=10)
+                per_shape.append(dict(c=c, spatial=list(sp), sites_per_forward=n, ms=ms,
+                                      bound_ms=b_ms, bound_by=b_by))
+                step_ms += n * ms
+                step_bound += n * b_ms
+            del x, gr, got, again, ref
+    bad = [c for c in checks if not (c["tol_ratio"] <= 1.0 and c["bit_identical_twice"])]
+    if bad:
+        fail(f"the K3 VJP kernel disagrees with its plain version or itself: {bad}")
+    # level 0, 64 channels: the record of the kernels line
+    c, sp = 64, (112, 112, 80)
+    x = torch.randn((1, *sp, c), generator=g, device="cuda").to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+    gr = torch.randn((1, *sp, c), generator=g, device="cuda").to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+    a = torch.randn((1, c), generator=g, device="cuda")
+    b = torch.randn((1, c), generator=g, device="cuda")
+    nb = 3 * x.numel() * 2 + 4 * a.numel() * 4
+    b_ms, b_by = bound_ms(nb, 12 * x.numel())
+    torch.cuda.empty_cache()
+    return dict(
+        shape=list(x.shape), dtype="bfloat16", format="channels_last_3d",
+        max_abs_err=worst_err, tol_ratio=worst_ratio, tol=VJP_TOL,
+        ms=time_ms(torch, lambda: ec.affine_silu_bwd(x, gr, a, b)),
+        plain_ms=time_ms(torch, lambda: ec.affine_silu_bwd_plain(x, gr, a, b), reps=5),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nb,
+        per_step_ms=step_ms, per_step_bound_ms=step_bound, per_shape=per_shape,
+        checks=checks,
+    )
+
+
+def train_flags(data_dir: str, ckpt_dir: str, steps: int, **extra) -> list:
+    """``run.sh``'s COMMON and TRAIN flags for ``cli.train`` (contr t1c),
+    cut to ``steps`` optimizer steps with a BEST save at the last, a log
+    line every step, the 10-step sampled schedule and the cached dataset."""
+    flags = dict(
+        # COMMON
+        dims=3, num_groups=32, num_channels=64, num_res_blocks=2, channel_mult="1,2,2,4,4",
+        attention_resolutions="", bottleneck_attention=False, image_size=112, in_channels=32,
+        out_channels=8, resample_2d=False, use_scale_shift_norm=False, additive_skips=False,
+        diffusion_steps=10, sample_schedule="sampled", noise_schedule="linear",
+        predict_xstart=True, mode="i2i", dataset="brats", dtype="bfloat16",
+        # TRAIN
+        data_dir=data_dir, lr=1e-5, batch_size=1, log_interval=1, save_interval=steps,
+        lr_anneal_steps=steps, use_checkpoint=True, num_workers=12, checkpoint_dir=ckpt_dir,
+        contr="t1c", cache_dataset=True, seed=0,
+    )
+    flags.update(extra)
+    return [f"--{k}={v}" for k, v in flags.items()]
+
+
+def run_train(torch, tmp: str, name: str, argv: list, steps: int) -> dict:
+    """One ``cli.train`` run on the card: its launches per step, warm
+    s/step, peak memory, losses, and how far the parameters moved from the
+    run's own init (the same seed builds the same init)."""
+    import contextlib
+
+    from fast_cwdm_tpu_torch.cli import train
+    from fast_cwdm_tpu_torch.models.factory import create_model_and_diffusion
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, f"{name}.stdout"), "w") as out, contextlib.redirect_stdout(out):
+        loop = train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in loop.step_log]
+    if loop.preempted or loop.state.step != steps or len(losses) != steps \
+            or not all(math.isfinite(v) for v in losses):
+        fail(f"{name}: cli.train did not run {steps} finite steps: {loop.step_log}")
+    torch.manual_seed(0)
+    init, _ = create_model_and_diffusion(**loop.config)
+    with torch.no_grad():
+        moved = {k: float((p.float().cpu() - init.state_dict()[k]).abs().max())
+                 for k, p in loop.state.params.items()}
+    res = {
+        "seconds": seconds, "steps": steps,
+        "s_per_step_warm": statistics.median(r["seconds_per_step"] for r in loop.step_log[1:]),
+        "s_per_step_all": [r["seconds_per_step"] for r in loop.step_log],
+        "max_memory_allocated_bytes": peak, "losses": losses,
+        "params_changed": sum(v > 0 for v in moved.values()), "params_total": len(moved),
+        "params_unchanged": [k for k, v in moved.items() if v == 0],
+        "max_abs_param_change": max(moved.values()),
+        "launches": counts, "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "n_params": sum(p.numel() for p in loop.state.params.values()),
+    }
+    del loop, init
+    return res
+
+
+def profile_train_step(torch, flags: dict) -> dict:
+    """One production train step (batch 1, bf16, use_checkpoint) traced by
+    ``profile_device`` after two warm steps, on seeded weights and a random
+    batch."""
+    from fast_cwdm_tpu_torch.cli import common
+    from fast_cwdm_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from fast_cwdm_tpu_torch.training import state, train
+
+    cfg, sd = seeded_production(torch, use_checkpoint=True, **flags)
+    model, _ = common.build_model_and_diffusion(cfg)
+    model.load_state_dict(sd)
+    model.cuda()
+    diffusion = GaussianDiffusion.named("linear", 10, "sampled", mode="i2i")
+    opt = train.make_optimizer(1e-5, lr_anneal_steps=1000)
+    step = train.make_train_step(model, diffusion, opt, contr="t1c")
+    st = state.TrainState.create(model, opt, ema_rates=(0.9999,))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = {m: torch.rand((1, *VOLUME, 1), generator=g, device="cuda")
+             for m in ("t1n", "t1c", "t2w", "t2f")}
+    rng = train.StepRNG.seeded(0, "cuda")
+    for _ in range(2):
+        step(st, batch, rng)
+    out = profile_device(torch, lambda: step(st, batch, rng))
+    del model, st, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_training(torch, tmp: str, profile: bool = False) -> dict:
+    """The K3 VJP kernel, then production training through ``cli.train``
+    unfused and with fuse_gn_silu, and synthesis from the BEST it wrote;
+    with ``profile`` a traced train step of each."""
+    import shutil
+
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.cli import complete_dataset
+    from fast_cwdm_tpu_torch.training import checkpoints
+
+    res = {"vjp_kernel": phase_vjp_kernel(torch)}
+    data = os.path.join(tmp, "data")
+    for k in range(2):
+        write_case(os.path.join(data, f"0000{k + 1}"), seed=10 + k)
+    os.environ["OPENAI_LOGDIR"] = os.path.join(tmp, "log")
+    os.environ["OPENAI_LOG_FORMAT"] = "log,csv"
+    n = TRAIN_STEPS
+    runs = {"unfused": (os.path.join(tmp, "ckpt_a"), {}),
+            "fuse_gn_silu": (os.path.join(tmp, "ckpt_b"), {"fuse_gn_silu": True})}
+    for name, (ckpt_dir, extra) in runs.items():
+        r = run_train(torch, tmp, name, train_flags(data, ckpt_dir, n, **extra), n)
+        k3 = (71 + REMAT_GN_SITES) * n if extra else 0
+        want = {"haar_dwt3": 5 * n, "haar_idwt3": n, "affine_silu": k3,
+                "affine_silu_bwd": 71 * n if extra else 0, "conv3d_fused_k4b": 0,
+                "conv3d_fused_k4a": 0, "conv3d_fused_v4": 0}
+        r["launches_expected"] = want
+        bad = {k: (r["launches"][k], v) for k, v in want.items() if r["launches"][k] != v}
+        # a tensor whose gradient is exactly 0 for these few steps (a GN
+        # scale over constant groups) does not move; most must
+        if bad or r["n_params"] != 81_511_048 or r["params_changed"] < 0.9 * r["params_total"]:
+            fail(f"training run {name}: launches (got, expected) {bad}, {r}")
+        found = checkpoints.find_best_checkpoint(ckpt_dir, "t1c")
+        cfg = checkpoints.load_checkpoint_config(found[0]) if found else {}
+        if not found or cfg.get("step") != n or bool(cfg.get("fuse_gn_silu")) != bool(extra):
+            fail(f"training run {name} wrote no BEST at step {n}: {found} {cfg}")
+        r["best"] = os.path.basename(found[0])
+        res[name] = r
+    # (a) without use_checkpoint: its peak memory, two steps
+    try:
+        r = run_train(torch, tmp, "unfused_no_remat",
+                      train_flags(data, os.path.join(tmp, "ckpt_c"), 2, use_checkpoint=False), 2)
+        res["unfused_no_remat"] = {k: r[k] for k in ("max_memory_allocated_bytes",
+                                                     "s_per_step_warm", "losses")}
+    except torch.cuda.OutOfMemoryError as e:
+        res["unfused_no_remat"] = {"did_not_fit": str(e).splitlines()[0]}
+    torch.cuda.empty_cache()
+    res["fuse_conv_backward_raises"] = fuse_conv_backward_raises(torch)
+    if profile:
+        res["profile"] = {name: profile_train_step(torch, flags)
+                          for name, flags in (("unfused", {}), ("fuse_gn_silu", {"fuse_gn_silu": True}))}
+
+    # train → checkpoint → synthesis: (a)'s BEST through complete_dataset
+    in_dir = os.path.join(tmp, "complete_in")
+    shutil.copytree(os.path.join(data, "00001"), os.path.join(in_dir, "00001"))
+    os.remove(os.path.join(in_dir, "00001", "BraTS-GLI-00001-000-t1c.nii.gz"))
+    out_dir = os.path.join(tmp, "complete_out")
+    reset_counts()
+    got = complete_dataset.main([f"--input_dir={in_dir}", f"--output_dir={out_dir}",
+                                 f"--checkpoint_dir={runs['unfused'][0]}", "--seed=0"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if got["failed"] or list(got["seconds"]) != ["00001"] or counts["haar_dwt3"] != 3 \
+            or counts["haar_idwt3"] != 1:
+        fail(f"synthesis from the trained BEST: {got}, launches {counts}")
+    res["synthesis_from_trained_best"] = {
+        "s_per_case": got["seconds"], "launches": counts,
+        "output": check_completed(np, in_dir, out_dir, "00001", "t1c")}
+    return res
+
+
+def fuse_conv_backward_raises(torch) -> str:
+    """Fault 3.2 stays guarded: backward through a fuse_conv UNet on the
+    card raises (the fused conv has no VJP, nor has the JAX package's)."""
+    from fast_cwdm_tpu_torch.cli import common
+
+    cfg = common.production_config(num_channels=16, num_res_blocks=1, channel_mult="1,2",
+                                   num_groups=8, image_size=8, dtype="bfloat16", fuse_conv=True)
+    model, _ = common.build_model_and_diffusion(cfg)
+    model.cuda()
+    x = torch.randn((1, 8, 8, 8, 32), device="cuda").permute(0, 4, 1, 2, 3)
+    try:
+        model(x, torch.tensor([1], device="cuda")).sum().backward()
+    except RuntimeError as e:
+        if "no backward" in str(e):
+            return str(e).splitlines()[0]
+        raise
+    fail("backward through a fuse_conv UNet on the card did not raise")
+    return ""
+
+
 REFERENCE_RUNS = {  # name: (model flags, sampler)
     "fuse_gn_silu_ddpm": (dict(fuse_gn_silu=True), "ddpm"),
     "fuse_conv_ddpm": (dict(fuse_gn_silu=True, fuse_conv=True), "ddpm"),
@@ -953,13 +1247,18 @@ KERNELS = {  # name: (source, replaces, key of its kernels-phase record)
                          "k4b"),
     "conv3d_fused_v4": (CONV_SOURCES, "fast_cwdm_tpu/ops/conv3d_pallas.py:341 (_v4_make_kernel)",
                         "k5"),
+    # the K3 VJP replaces plain XLA (a custom VJP with no pallas_call)
+    "affine_silu_bwd": ("fast_cwdm_tpu_torch/ops/csrc/affine_silu.cu",
+                        "fast_cwdm_tpu/ops/elementwise_pallas.py:155 (_affine_silu_bwd, the VJP of "
+                        "the pallas_call at :90)", "vjp_kernel"),
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one forward of each kind with torch.profiler")
+                    help="also trace one forward and one train step of each kind with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
 
     import torch
@@ -1009,6 +1308,11 @@ def main(argv=None) -> int:
         comp = phase_completion(torch, tmp)
     emit({"phase": "completion", "gpu": smi, "seconds": time.perf_counter() - t0, **comp})
     t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        train = phase_training(torch, tmp, args.profile)
+    emit({"phase": "training", "gpu": smi, "seconds": time.perf_counter() - t0, **train})
+    kern["vjp_kernel"] = train["vjp_kernel"]
+    t0 = time.perf_counter()
     ref = phase_reference(torch)
     emit({"phase": "reference", "seconds": time.perf_counter() - t0, **ref})
 
@@ -1016,10 +1320,13 @@ def main(argv=None) -> int:
     for name, (source, replaces, key) in KERNELS.items():
         k = kern[key]
         # launches: from the main path that runs the kernel (K1-K3: the
-        # K3 CLI run; the conv entries: the fused-conv CLI run)
+        # K3 CLI run; the conv entries: the fused-conv CLI run; the K3 VJP:
+        # the fuse_gn_silu training run)
+        launches = (train["fuse_gn_silu"]["launches"] if name == "affine_silu_bwd" else
+                    conv_counts if name.startswith("conv3d") else counts)[name]
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": (conv_counts if name.startswith("conv3d") else counts)[name],
+            "launches": launches,
             "max_abs_err": k["max_abs_err"], "tol": k["tol"],
             "tol_ratio": k.get("tol_ratio"),
             "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -1032,7 +1339,9 @@ def main(argv=None) -> int:
         line[-1]["launches_by_path"] = {
             "sample_ddpm_fuse_gn_silu": counts[name], "sample_fuse_conv_dpm": conv_counts[name],
             **{run: comp[run]["launches"][name] // len(comp[run]["s_per_case"])
-               for run in ("complete_a", "complete_b", "sample_auto")}}
+               for run in ("complete_a", "complete_b", "sample_auto")},
+            **{f"train_{run}_per_step": train[run]["launches_per_step"][name]
+               for run in ("unfused", "fuse_gn_silu")}}
         if name.startswith("conv3d"):
             line[-1]["launches_by_kernel"] = {
                 kn: conv_counts[f"conv3d_{kn}"] for kn in ("wgmma", "splitk", "mma_sync")}

@@ -5,17 +5,23 @@ running on an NVIDIA H100 (sm_90a). The JAX package beside it is the
 reference this port is held against; nothing here imports it.
 
 - ``ops``       Haar DWT/IDWT (plain torch + CUDA kernels K1/K2), fused
-                GroupNorm-apply+SiLU (plain torch + CUDA kernel K3), fused
-                GN→SiLU→3³ conv (plain torch + one CUDA kernel for K4a/K4b/K5)
-- ``models``    3D ``UNetModel`` with the reference torch parameter layout
+                GroupNorm-apply+SiLU and its VJP (plain torch + CUDA kernel
+                K3 and its VJP kernel), fused GN→SiLU→3³ conv (plain torch +
+                three CUDA kernels for K4a/K4b/K5)
+- ``models``    3D ``UNetModel`` with the reference torch parameter layout,
+                gradient checkpointing
 - ``diffusion`` beta schedules, respacing, ancestral, DDIM and
-                DPM-Solver++ sampling loops
-- ``data``      NIfTI IO, BraTS preprocessing and un-crop, a prefetch
-                loader (numpy only)
-- ``training``  the JAX package's ``.ckpt`` format (numpy msgpack codec),
-                BEST discovery
+                DPM-Solver++ sampling loops, the training loss, timestep
+                samplers
+- ``data``      NIfTI IO, BraTS preprocessing and un-crop, training
+                batches, prefetch loaders
+- ``training``  the train step (AdamW as optax's, EMA), the training loop,
+                the JAX package's ``.ckpt`` format (numpy msgpack codec),
+                BEST discovery and saving
 - ``cli``       synthesis plumbing and the ``sample``, ``complete_dataset``,
-                ``sample_auto`` and ``convert_checkpoint`` entry points
+                ``sample_auto``, ``convert_checkpoint`` and ``train`` entry
+                points
+- ``utils``     the kv logger, seeded test weights
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,1 +1,2 @@
-"""Synthesis plumbing and the sampling entry point."""
+"""Synthesis plumbing and the entry points: sample, complete_dataset,
+sample_auto, convert_checkpoint, train."""

@@ -1,0 +1,193 @@
+"""Training CLI (port of ``fast_cwdm_tpu/cli/train.py``).
+
+    python -m fast_cwdm_tpu_torch.cli.train --data_dir=DATA --lr=1e-5 \\
+        --batch_size=1 --log_interval=100 --save_interval=50 \\
+        --lr_anneal_steps=5000 --use_checkpoint=True --num_workers=12 \\
+        --checkpoint_dir=CKPTS --contr=t1n <run.sh's COMMON flags> [--device cpu]
+
+The flags and defaults are the JAX package's (``run.sh``'s TRAIN and
+COMMON bundles run unchanged), plus ``--device`` (default ``cuda``; without
+a GPU it raises unless ``--device cpu``). Checkpoints are the JAX package's
+``.ckpt`` files, so a run resumes in either package. The process exits 143
+when SIGTERM preempted the run (a step-stamped checkpoint was written;
+resume with ``--resume_checkpoint``), 0 when it ran to its end.
+
+``--device_cache`` keeps every case in device memory after its first
+epoch; ``--dataset lidc-idri`` trains unconditionally (``--mode default``)
+on LIDC CT volumes. One device: ``--data_mesh`` and ``--spatial_mesh`` are
+accepted, and a value that needs more than one device raises (ROADMAP
+M8).
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import random
+import sys
+
+import numpy as np
+import torch
+
+from fast_cwdm_tpu_torch.models.factory import (
+    add_dict_to_argparser,
+    args_to_dict,
+    model_and_diffusion_defaults,
+)
+
+
+def create_argparser() -> argparse.ArgumentParser:
+    defaults = dict(
+        seed=0,
+        data_dir="",
+        schedule_sampler="uniform",
+        lr=1e-4,
+        weight_decay=0.0,
+        lr_anneal_steps=0,
+        batch_size=1,
+        microbatch=-1,  # real gradient accumulation (dead in the reference)
+        ema_rate="0.9999",
+        log_interval=100,
+        save_interval=5000,
+        resume_checkpoint="",
+        resume_step=0,
+        use_fp16=False,
+        fp16_scale_growth=1e-3,
+        dataset="brats",
+        use_tensorboard=True,
+        tensorboard_path="",
+        num_workers=0,
+        cache_dataset=False,  # keep preprocessed volumes in host memory
+        device_cache=False,
+        # -1: the factory's default (ds <= 1); 0 recomputes every ResBlock
+        remat_max_ds=-1,
+        mode="default",
+        renormalize=True,
+        contr="t1n",
+        lesion_weight=0.0,
+        lesion_core_weight=0.0,
+        lesion_t_power=0.0,
+        checkpoint_dir="",
+        data_mesh=0,  # 0 = every device on the data axis
+        spatial_mesh=1,
+        device="cuda",
+    )
+    md = model_and_diffusion_defaults()
+    defaults.update({k: v for k, v in md.items() if k not in defaults})
+    # the reference train.py's overrides of the shared schema
+    defaults.update(
+        dims=3,
+        num_groups=32,
+        channel_mult="1,2,2,4,4",
+        in_channels=8,
+        out_channels=8,
+        bottleneck_attention=False,
+        sample_schedule="direct",
+        # the objective is x0-prediction; sampling needs START_X
+        predict_xstart=True,
+    )
+    parser = argparse.ArgumentParser()
+    add_dict_to_argparser(parser, defaults)
+    return parser
+
+
+def main(argv=None):
+    """Train; returns the finished ``TrainLoop`` (``.preempted``,
+    ``.state``, ``.step_log``)."""
+    from fast_cwdm_tpu_torch import resolve_device
+    from fast_cwdm_tpu_torch.data.brats import MODALITIES, BRATSVolumes, LIDCVolumes, iterate_batches
+    from fast_cwdm_tpu_torch.data.loader import device_resident_batches, iter_items
+    from fast_cwdm_tpu_torch.diffusion.resample import create_named_schedule_sampler
+    from fast_cwdm_tpu_torch.models.factory import create_model_and_diffusion
+    from fast_cwdm_tpu_torch.training.loop import TrainLoop
+    from fast_cwdm_tpu_torch.utils import logger
+
+    args = create_argparser().parse_args(argv)
+    device = resolve_device(args.device)
+    if args.data_mesh > 1 or args.spatial_mesh > 1:
+        raise NotImplementedError(
+            f"--data_mesh={args.data_mesh} --spatial_mesh={args.spatial_mesh} need more than "
+            "one device; the port trains on one (multi-device training is ROADMAP M8)")
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+
+    logger.configure()
+    logger.log("creating model and diffusion...")
+    cfg = args_to_dict(args, model_and_diffusion_defaults().keys())
+    if args.mode == "i2i":
+        cfg["in_channels"] = 32  # 8 target + 3×8 condition subbands
+    if args.remat_max_ds >= 0:
+        cfg["remat_max_ds"] = args.remat_max_ds
+    model, diffusion = create_model_and_diffusion(**cfg)
+
+    lesion_on = bool(args.lesion_weight) or bool(args.lesion_core_weight)
+    if lesion_on and (args.dataset == "lidc-idri" or args.mode != "i2i"):
+        raise ValueError(
+            "--lesion_weight/--lesion_core_weight need BraTS seg labels and i2i mode "
+            f"(got dataset={args.dataset!r}, mode={args.mode!r})")
+    if args.dataset == "lidc-idri":
+        dataset = LIDCVolumes(args.data_dir, mode="train")
+    else:
+        dataset = BRATSVolumes(args.data_dir, mode="train", cache=args.cache_dataset,
+                               with_seg=lesion_on)
+    keys = tuple(MODALITIES) + (("seg",) if lesion_on else ())
+    logger.log(f"dataset: {len(dataset)} cases from {args.data_dir}")
+    epoch_counter = itertools.count()  # a new shuffle every epoch
+    device_cache: dict = {}
+
+    if args.dataset == "lidc-idri":  # unconditional: batches are plain arrays
+        def data():
+            order = np.random.default_rng(args.seed + next(epoch_counter)).permutation(len(dataset))
+            buf = []
+            for item in iter_items(dataset, order, args.num_workers):
+                buf.append(item)
+                if len(buf) == args.batch_size:
+                    yield np.stack(buf)
+                    buf = []
+    elif args.device_cache:
+        def data():
+            return device_resident_batches(dataset, args.batch_size, device=device, shuffle=True,
+                                           seed=args.seed + next(epoch_counter), keys=keys,
+                                           cache=device_cache)
+    else:
+        def data():
+            return iterate_batches(dataset, args.batch_size, shuffle=True,
+                                   seed=args.seed + next(epoch_counter),
+                                   num_workers=args.num_workers, keys=keys)
+
+    loop = TrainLoop(
+        model=model,
+        diffusion=diffusion,
+        data=data,
+        batch_size=args.batch_size,
+        lr=args.lr,
+        ema_rate=args.ema_rate,
+        log_interval=args.log_interval,
+        save_interval=args.save_interval,
+        resume_checkpoint=args.resume_checkpoint,
+        resume_step=args.resume_step,
+        weight_decay=args.weight_decay,
+        lr_anneal_steps=args.lr_anneal_steps,
+        mode=args.mode,
+        contr=args.contr,
+        sample_schedule=args.sample_schedule,
+        diffusion_steps=args.diffusion_steps,
+        dataset=args.dataset,
+        schedule_sampler=create_named_schedule_sampler(args.schedule_sampler,
+                                                       diffusion.num_timesteps),
+        seed=args.seed,
+        checkpoint_dir=args.checkpoint_dir or None,
+        config=cfg,
+        microbatch=args.microbatch,
+        lesion_weight=args.lesion_weight,
+        lesion_core_weight=args.lesion_core_weight,
+        lesion_t_power=args.lesion_t_power,
+        device=device,
+    )
+    loop.run_loop()
+    return loop
+
+
+if __name__ == "__main__":
+    sys.exit(143 if main().preempted else 0)

@@ -1,1 +1,2 @@
-"""NIfTI IO and BraTS preprocessing (numpy only)."""
+"""NIfTI IO, BraTS preprocessing, datasets and batches (numpy), and the
+prefetch to the device."""

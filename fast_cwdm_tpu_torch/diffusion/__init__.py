@@ -1,1 +1,2 @@
-"""Beta schedules, respacing and the ancestral sampling loop."""
+"""Beta schedules, respacing, the sampling loops, the training loss, the
+timestep samplers and the likelihood helpers."""

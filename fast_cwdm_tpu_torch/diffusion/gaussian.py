@@ -1,7 +1,8 @@
-"""Gaussian diffusion: schedule tables and the sampling loops (ancestral,
-DDIM, and DPM-Solver++ through ``diffusion/dpm.py``).
+"""Gaussian diffusion: schedule tables, the sampling loops (ancestral,
+DDIM, and DPM-Solver++ through ``diffusion/dpm.py``) and the training loss.
 
-Port of the sampling part of ``fast_cwdm_tpu/diffusion/gaussian.py``.
+Port of the sampling and training parts of
+``fast_cwdm_tpu/diffusion/gaussian.py``.
 Tables are computed in float64 on the host and kept as float32 numpy
 arrays, exactly as in the JAX package; each is copied to a device once and
 gathered there, so a sampling step never waits on the host.
@@ -12,7 +13,8 @@ channels-last tensors.
 
 Noise: ``jax.random``'s key stream cannot be reproduced in torch, so the
 loops take their initial noise (``noise=``) and per-step noise
-(``step_noise=``) as tensors, or draw both from a ``torch.Generator``.
+(``step_noise=``) as tensors, or draw both from a ``torch.Generator``;
+``training_losses`` likewise takes ``noise_img`` or a generator.
 """
 
 from __future__ import annotations
@@ -379,3 +381,68 @@ class GaussianDiffusion:
     def dpm_solver_pp_loop(self, model_fn, shape, **kwargs) -> torch.Tensor:
         """DPM-Solver++ multistep sampling (:mod:`.dpm`)."""
         return dpm.dpm_solver_pp_loop(self, model_fn, shape, **kwargs)
+
+    # -- training loss ---------------------------------------------------
+
+    def training_losses(
+        self,
+        model_fn,
+        batch: dict[str, torch.Tensor] | torch.Tensor,
+        t: torch.Tensor,
+        generator: torch.Generator | None = None,
+        *,
+        contr: str = "t1n",
+        mode: str | None = None,
+        model_kwargs: dict | None = None,
+        noise_img: torch.Tensor | None = None,
+    ):
+        """x0-prediction MSE in wavelet space (the JAX package's
+        ``training_losses``).
+
+        ``batch``: image-space volumes ``(B, X, Y, Z, 1)`` per modality in
+        i2i mode, or one tensor otherwise. The noise is drawn in image space
+        (``noise_img``, or from ``generator``) and DWT'd without the LLL/3
+        scaling, as the reference does; the conditions and the target are
+        DWT'd with it. ``model_fn(x, t)`` takes and returns channels-last
+        tensors.
+
+        Returns ``(terms, model_output, model_output_idwt)``:
+        ``terms["mse_wav"]`` is the per-subband (8,) MSE (mean over the
+        voxels, then the batch) and ``terms["loss_per_sample"]`` the (B,)
+        mean over everything else. The objective is always x0-prediction,
+        so the diffusion must be built with ``MeanType.START_X``.
+        """
+        if self.mean_type != MeanType.START_X:
+            raise ValueError(
+                "training_losses trains an x0-predictor (wavelet-space MSE)"
+                f" but this diffusion has mean_type={self.mean_type}; build"
+                " it with predict_xstart=True / MeanType.START_X so sampling"
+                " interprets the model output correctly"
+            )
+        mode = mode or self.mode
+        model_kwargs = model_kwargs or {}
+        if mode == "i2i":
+            target = batch[contr]
+            cond_dwt = torch.cat(
+                [wv.dwt_normalized(batch[m], self.wavelet) for m in condition_order(contr)],
+                dim=-1,
+            )
+        else:
+            target, cond_dwt = batch, None
+        x_start_dwt = wv.dwt_normalized(target, self.wavelet)
+        if noise_img is None:
+            noise_img = torch.randn(target.shape, generator=generator,
+                                    dtype=target.dtype, device=target.device)
+        noise_dwt = wv.dwt3_flat(noise_img, self.wavelet)  # no LLL scaling
+        x_t = self.q_sample(x_start_dwt, t, noise_dwt)
+        if cond_dwt is not None:
+            x_t = torch.cat([x_t, cond_dwt], dim=-1)
+        model_output = model_fn(x_t, self.scale_timesteps(t), **model_kwargs)
+        model_output_idwt = wv.idwt_normalized(model_output, 1, self.wavelet)
+        sq = (x_start_dwt - model_output) ** 2
+        mse_wav = sq.mean(dim=tuple(range(1, sq.dim() - 1))).mean(dim=0)
+        terms = {
+            "mse_wav": mse_wav,
+            "loss_per_sample": sq.mean(dim=tuple(range(1, sq.dim()))),
+        }
+        return terms, model_output, model_output_idwt

@@ -147,8 +147,11 @@ def create_model(
     dtype=None,
     fuse_gn_silu=False,
     fuse_conv=False,
+    remat_max_ds=None,
 ) -> UNetModel:
-    """Flag-compatible UNetModel constructor."""
+    """Flag-compatible UNetModel constructor. ``remat_max_ds`` (None: 1, the
+    JAX package's default) bounds the downsample factor of the ResBlocks
+    that ``use_checkpoint`` recomputes; 0 recomputes every one."""
     if use_freq:
         raise NotImplementedError("WavUNetModel (use_freq=True) is not ported yet")
     if out_channels == 0:
@@ -182,6 +185,7 @@ def create_model(
         fuse_gn_silu=fuse_gn_silu,
         fuse_conv=fuse_conv,
         dtype=parse_dtype(dtype, use_fp16),
+        remat_max_ds=1 if remat_max_ds is None else int(remat_max_ds),
     )
 
 
@@ -240,7 +244,7 @@ def create_model_and_diffusion(**cfg):
     merged = {**model_and_diffusion_defaults(), **cfg}
     model = create_model(
         merged["image_size"], merged["num_channels"], merged["num_res_blocks"],
-        **{k: merged[k] for k in _MODEL_KEYS},
+        **{k: merged[k] for k in _MODEL_KEYS}, remat_max_ds=merged.get("remat_max_ds"),
     )
     diffusion = create_gaussian_diffusion(
         steps=merged["diffusion_steps"],

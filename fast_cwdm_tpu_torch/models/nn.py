@@ -35,6 +35,11 @@ def timestep_embedding(
     return emb
 
 
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch dims."""
+    return x.mean(dim=tuple(range(1, x.dim())))
+
+
 class GroupNorm32(nn.Module):
     """GroupNorm with float32 statistics, output in the input dtype.
 

@@ -12,11 +12,13 @@ JAX package's ``training/bridge.py::flax_to_torch`` emits
 load with ``load_state_dict(strict=True)``.
 
 Ported: ResBlocks (with resblock_updown, scale-shift norm, additive skips),
-conv/avg-pool resampling, the fused GN-apply+SiLU route (kernel K3,
-``fuse_gn_silu``) and the fused GN→SiLU→conv route (kernel K4b,
-``fuse_conv``). Not yet ported, and refused with ``NotImplementedError``:
-attention blocks (the production config has none), class conditioning and
-gradient checkpointing.
+conv/avg-pool resampling, the fused GN-apply+SiLU route (kernel K3 and its
+VJP, ``fuse_gn_silu``), the fused GN→SiLU→conv route (kernel K4b,
+``fuse_conv``, inference only, as in the JAX package) and gradient
+checkpointing (``use_checkpoint`` with ``remat_max_ds``). Dropout follows
+``model.train()``/``model.eval()`` (the JAX package's ``train=``). Not yet
+ported, and refused with ``NotImplementedError``: attention blocks (the
+production config has none) and class conditioning.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fast_cwdm_tpu_torch.models.nn import (
     Conv3d,
@@ -148,6 +151,9 @@ class ResBlock(nn.Module):
         # both GN→SiLU→conv chains through K4b (`unet.py:257-264`)
         self.fuse = fuse_conv and not (up or down) and not use_scale_shift_norm and dropout == 0
         self.num_groups = num_groups
+        # set by UNetModel: recompute this block's activations in the
+        # backward pass instead of keeping them (use_checkpoint)
+        self.remat = False
         self.in_layers = nn.Sequential(
             GroupNorm32(num_groups, channels),
             nn.SiLU(),
@@ -183,6 +189,11 @@ class ResBlock(nn.Module):
         return self.skip_connection(x) + h
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, emb, use_reentrant=False)
+        return self._forward(x, emb)
+
+    def _forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         if self.fuse:
             return self._forward_fused(x, emb)
         norm_in, _, conv_in = self.in_layers
@@ -215,6 +226,11 @@ class UNetModel(nn.Module):
     ``forward(x, timesteps)`` takes logical NCDHW ``x`` and returns NCDHW.
     ``dtype`` (None, torch.float32 or torch.bfloat16) is the compute dtype;
     params stay fp32 and GroupNorm statistics are fp32 regardless.
+
+    ``use_checkpoint`` recomputes, in the backward pass, the ResBlocks at
+    downsample factor ds <= ``remat_max_ds`` (0: every ResBlock) instead of
+    keeping their activations (``torch.utils.checkpoint``), as the JAX
+    package's selective ``nn.remat``; it acts only while autograd records.
     """
 
     def __init__(
@@ -244,6 +260,7 @@ class UNetModel(nn.Module):
         fuse_conv: bool = False,
         fuse_gn_silu: bool = False,
         dtype: torch.dtype | None = None,
+        remat_max_ds: int = 0,
     ):
         super().__init__()
         if dims != 3:
@@ -256,8 +273,6 @@ class UNetModel(nn.Module):
             )
         if num_classes is not None:
             raise NotImplementedError("class conditioning is not ported yet")
-        if use_checkpoint:
-            raise NotImplementedError("gradient checkpointing comes with the training port")
         self.in_channels = in_channels
         self.model_channels = model_channels
         self.out_channels = out_channels
@@ -274,34 +289,39 @@ class UNetModel(nn.Module):
             Linear(model_channels, ted), nn.SiLU(), Linear(ted, ted)
         )
 
-        def resblock(ch_in, ch_out, **kw):
-            return ResBlock(
+        def resblock(ch_in, ch_out, ds, **kw):
+            block = ResBlock(
                 ch_in, ted, dropout, ch_out,
                 use_scale_shift_norm=use_scale_shift_norm,
                 num_groups=num_groups, resample_2d=resample_2d,
                 fuse_conv=fuse_conv, fuse_gn_silu=fuse_gn_silu, dtype=dtype, **kw,
             )
+            block.remat = use_checkpoint and (not remat_max_ds or ds <= remat_max_ds)
+            return block
 
         self.input_blocks = nn.ModuleList(
             [nn.ModuleList([conv_nd(in_channels, model_channels, 3, dtype=dtype)])]
         )
         skip_chans = [model_channels]
         ch = model_channels
+        ds = 1
         for level, mult in enumerate(self.channel_mult):
             for _ in range(num_res_blocks):
-                self.input_blocks.append(nn.ModuleList([resblock(ch, mult * model_channels)]))
+                self.input_blocks.append(
+                    nn.ModuleList([resblock(ch, mult * model_channels, ds)]))
                 ch = mult * model_channels
                 skip_chans.append(ch)
             if level != len(self.channel_mult) - 1:
                 down = (
-                    resblock(ch, ch, down=True)
+                    resblock(ch, ch, ds, down=True)
                     if resblock_updown
                     else Downsample(ch, conv_resample, ch, resample_2d, dtype)
                 )
                 self.input_blocks.append(nn.ModuleList([down]))
                 skip_chans.append(ch)
+                ds *= 2
 
-        self.middle_block = nn.ModuleList([resblock(ch, ch), resblock(ch, ch)])
+        self.middle_block = nn.ModuleList([resblock(ch, ch, ds), resblock(ch, ch, ds)])
 
         self.output_blocks = nn.ModuleList()
         for level, mult in list(enumerate(self.channel_mult))[::-1]:
@@ -313,14 +333,15 @@ class UNetModel(nn.Module):
                 else:
                     mid_ch = model_channels * mult
                     in_ch = ch + ich
-                layers = nn.ModuleList([resblock(in_ch, mid_ch)])
+                layers = nn.ModuleList([resblock(in_ch, mid_ch, ds)])
                 ch = mid_ch
                 if level and i == num_res_blocks:
                     layers.append(
-                        resblock(ch, ch, up=True)
+                        resblock(ch, ch, ds, up=True)
                         if resblock_updown
                         else Upsample(ch, conv_resample, ch, resample_2d, dtype)
                     )
+                    ds //= 2
                 self.output_blocks.append(layers)
 
         self.out = nn.Sequential(

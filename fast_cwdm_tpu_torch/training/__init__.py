@@ -1,1 +1,2 @@
-"""Checkpoints: the JAX package's ``.ckpt`` format, read and written."""
+"""Training: the step (AdamW, EMA, metrics), the loop, and the JAX
+package's ``.ckpt`` format, read and written."""

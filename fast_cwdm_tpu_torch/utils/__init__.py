@@ -1,1 +1,1 @@
-"""Deterministic test utilities."""
+"""The kv logger and deterministic test utilities."""

@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels on the card: K1/K2/K3 and the three fused
 conv kernels behind K4a/K4b/K5 (mma.sync, wgmma and split-K), each against
-its plain torch version, their wrappers' refusals (backward included), the
-autograd pair, fuse_conv UNets that reach K4b on each conv kernel, a .ckpt
-round trip of a model on the card, and complete_dataset on the card.
+its plain torch version, their wrappers' refusals (the fused conv's
+backward included), the autograd pairs (K1/K2, K3 and its VJP), fuse_conv
+UNets that reach K4b on each conv kernel, a .ckpt round trip of a model on
+the card, complete_dataset on the card, and a train step on the card
+against the same step on the CPU.
 
 Marked ``cuda``: skipped where no GPU is present. This file imports no JAX,
 so it also runs where JAX is not installed:
@@ -359,20 +361,85 @@ def test_conv3d_wrappers_refuse_what_the_kernel_does_not_take(gen):
         tc._launch("k4b", x, w, b, None, None, None, kernel="splitk")  # Co = 16, not 64
 
 
-def test_affine_silu_refuses_backward(gen):
-    """K3 has no backward kernel yet: backward() through it raises (x, or a
-    scale that requires grad as GroupNorm32's does); under inference_mode
-    the same call runs and matches the plain version."""
+def _vjp_sum_tol(x, g, a, b):
+    """The tolerance of ga and gb: 1e-5 of the sum of the terms' magnitudes
+    (the kernel sums in another order than torch)."""
+    _, ga_abs, gb_abs = ec.affine_silu_bwd_plain(x.abs(), g.abs(), a.abs(), b.abs())
+    return 1e-5 * ga_abs + 1e-30, 1e-5 * gb_abs + 1e-30
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("shape", [(2, 64, 6, 6, 4), (1, 3, 5, 3, 3), (1, 192, 4, 5, 4),
+                                   (1, 512, 7, 7, 5)])
+def test_affine_silu_vjp_kernel_matches_plain(gen, dtype, channels_last, shape):
+    """The VJP kernel against affine_silu_bwd_plain: gx bit for bit (the same
+    fp32 operations, each rounded once), ga and gb within 1e-5 of the sum of
+    the terms' magnitudes (summation order), two launches bit for bit."""
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+    a = torch.randn(shape[:2], generator=gen, device="cuda")
+    b = torch.randn(shape[:2], generator=gen, device="cuda")
+    before = ec.affine_silu_bwd.launches
+    gx, ga, gb = ec.affine_silu_bwd(x, g, a, b)
+    again = ec.affine_silu_bwd(x, g, a, b)
+    torch.cuda.synchronize()
+    assert ec.affine_silu_bwd.launches == before + 2
+    assert gx.dtype == dtype and gx.stride() == x.stride()
+    rx, ra, rb = ec.affine_silu_bwd_plain(x, g, a, b)
+    torch.testing.assert_close(gx, rx, atol=0, rtol=0)
+    ta, tb = _vjp_sum_tol(x, g, a, b)
+    assert bool(((ga - ra).abs() <= ta).all()), float(((ga - ra).abs() / ta).max())
+    assert bool(((gb - rb).abs() <= tb).all()), float(((gb - rb).abs() / tb).max())
+    for ours, other in zip((gx, ga, gb), again):
+        assert torch.equal(ours, other)
+
+
+def test_affine_silu_backward_runs_the_vjp_kernel(gen):
+    """backward() through affine_silu (x, and a scale that requires grad as
+    GroupNorm32's does) launches the VJP kernel once and gives the plain
+    VJP's gradients; under inference_mode the forward runs alone."""
     x = torch.randn((1, 16, 4, 5, 6), generator=gen, device="cuda", requires_grad=True)
-    a = torch.randn((1, 16), generator=gen, device="cuda")
+    scale = torch.randn(16, generator=gen, device="cuda", requires_grad=True)
+    rstd = torch.rand((1, 16), generator=gen, device="cuda") + 0.5
     b = torch.randn((1, 16), generator=gen, device="cuda")
-    with pytest.raises(RuntimeError, match="no backward"):
-        ec.affine_silu(x, a, b).sum().backward()
-    with pytest.raises(RuntimeError, match="no backward"):
-        ec.affine_silu(x.detach(), a.clone().requires_grad_(), b)
+    w = torch.randn((1, 16, 4, 5, 6), generator=gen, device="cuda")
+    before = (ec.affine_silu.launches, ec.affine_silu_bwd.launches)
+    a = rstd * scale[None]
+    (ec.affine_silu(x, a, b) * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (ec.affine_silu.launches, ec.affine_silu_bwd.launches) == (before[0] + 1, before[1] + 1)
+    gx, ga, _ = ec.affine_silu_bwd_plain(x.detach(), w, a.detach(), b)
+    torch.testing.assert_close(x.grad, gx, atol=0, rtol=0)
+    torch.testing.assert_close(scale.grad, (ga * rstd)[0], atol=1e-5, rtol=1e-5)
     with torch.inference_mode():
         y = ec.affine_silu(x, a, b)
-    torch.testing.assert_close(y, ec.affine_silu_plain(x.detach(), a, b), atol=0, rtol=0)
+    torch.testing.assert_close(y, ec.affine_silu_plain(x.detach(), a.detach(), b), atol=0, rtol=0)
+
+
+def test_groupnorm_silu_grads_on_the_card_match_the_cpu(gen):
+    """GroupNorm32(act="silu") under backward: K3 and its VJP on the card,
+    the plain versions on the CPU, fp32; gradients to x, scale and bias."""
+    from fast_cwdm_tpu_torch.models.nn import GroupNorm32
+
+    x = torch.randn((2, 32, 6, 5, 4), generator=gen, device="cuda")
+    x = x.contiguous(memory_format=torch.channels_last_3d)
+    w = torch.randn(x.shape, generator=gen, device="cuda")
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        gn = GroupNorm32(8, 32).to(dev)
+        with torch.no_grad():
+            gn.weight.add_(0.1 * torch.arange(32.0, device=dev) / 32)
+            gn.bias.add_(0.05)
+        xx = x.detach().to(dev).requires_grad_()
+        before = ec.affine_silu_bwd.launches
+        (gn(xx, act="silu") * w.to(dev)).sum().backward()
+        assert ec.affine_silu_bwd.launches == before + (dev == "cuda")
+        grads[dev] = [t.detach().cpu() for t in (xx.grad, gn.weight.grad, gn.bias.grad)]
+    for ours, ref in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(ours, ref, atol=1e-4, rtol=1e-4)
 
 
 def test_fused_conv_refuses_backward(gen):
@@ -456,3 +523,76 @@ def test_complete_dataset_on_the_card(gen, tmp_path):
     vol = nifti.load(str(out / "00001-t1c.nii.gz")).get_fdata()
     assert vol.shape == (24, 24, 15) and np.isfinite(vol).all()
     assert vol.min() >= 0.0 and vol.max() <= 1.0 and not vol[:8].any() and not vol[:, -8:].any()
+
+
+@pytest.mark.parametrize("fuse_gn_silu", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(gen, fuse_gn_silu):
+    """One train step of the tiny fp32 UNet with use_checkpoint (every
+    ResBlock recomputed) on the card and on the CPU (plain versions): same
+    weights, batch, t and noise, TF32 off. Loss and subband MSE atol 1e-5;
+    parameters after AdamW (eps 1e-3, as the CPU parity tests against JAX)
+    within 5e-3·lr plus two ulps. On the card: K1 5 launches (4 modalities
+    and the noise), K2 1, and with fuse_gn_silu K3 at 21 sites plus 20 more
+    in the recomputation, its VJP 21 times."""
+    from fast_cwdm_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from fast_cwdm_tpu_torch.training import state as tstate
+    from fast_cwdm_tpu_torch.training import train
+
+    cfg = _tiny_cfg(fuse_gn_silu=fuse_gn_silu, use_checkpoint=True, remat_max_ds=0)
+    rng = np.random.default_rng(0)
+    batch = {m: torch.from_numpy(rng.random((2, 8, 8, 8, 1)).astype(np.float32))
+             for m in ("t1n", "t1c", "t2w", "t2f")}
+    noise = torch.from_numpy(rng.standard_normal((2, 8, 8, 8, 1)).astype(np.float32))
+    t = torch.tensor([3, 1])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model, _ = common.build_model_and_diffusion(cfg)
+        sd = seeded_state_dict({k: tuple(v.shape) for k, v in model.state_dict().items()})
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+        model.to(dev)
+        diffusion = GaussianDiffusion.named("linear", 4, "sampled", mode="i2i")
+        opt = train.make_optimizer(1e-4, eps=1e-3)
+        step = train.make_train_step(model, diffusion, opt, contr="t1n", mode="i2i")
+        state = tstate.TrainState.create(model, opt, ema_rates=(0.99,))
+        before = (wc.haar_dwt3.launches, wc.haar_idwt3.launches, ec.affine_silu.launches,
+                  ec.affine_silu_bwd.launches)
+        state, m = step(state, {k: v.to(dev) for k, v in batch.items()}, t=t.to(dev),
+                        noise_img=noise.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            got = tuple(after - b for after, b in zip(
+                (wc.haar_dwt3.launches, wc.haar_idwt3.launches, ec.affine_silu.launches,
+                 ec.affine_silu_bwd.launches), before))
+            assert got == ((5, 1, 41, 21) if fuse_gn_silu else (5, 1, 0, 0)), got
+        out[dev] = ({k: v.detach().cpu() for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in state.params.items()})
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    for k in ("loss", "mse_wav"):
+        torch.testing.assert_close(mg[k], mc[k], atol=1e-5, rtol=0)
+    for k, v in pc.items():
+        tol = 5e-3 * 1e-4 + 2.0**-22 * v.abs()
+        assert bool(((pg[k] - v).abs() <= tol).all()), k
+
+
+def test_batches_reach_the_card(gen):
+    """prefetch_to_device (pinned host copies on a side stream, the
+    consumer's stream waiting on each) and device_resident_batches (each
+    case copied once, then served from the card) give the host batches'
+    values on the card, in order."""
+    from fast_cwdm_tpu_torch.data import loader
+
+    rng = np.random.default_rng(0)
+    items = [{m: rng.random((6, 6, 4, 1)).astype(np.float32) for m in ("t1n", "t1c", "t2w", "t2f")}
+             for _ in range(3)]
+    for it in items:
+        it["missing"] = "none"
+    batches = [{k: v[None] for k, v in it.items() if k != "missing"} for it in items]
+    got = list(loader.prefetch_to_device(iter(batches), size=2, device="cuda"))
+    cache: dict = {}
+    resident = list(loader.device_resident_batches(items, 1, device="cuda", cache=cache))
+    again = list(loader.device_resident_batches(items, 1, device="cuda", cache=cache))
+    for b, g, r, a in zip(batches, got, resident, again):
+        for k, v in b.items():
+            assert g[k].is_cuda and np.array_equal(g[k].cpu().numpy(), v)
+            assert r[k].is_cuda and np.array_equal(r[k].cpu().numpy(), v)
+            assert a[k] is r[k]  # served from the cache

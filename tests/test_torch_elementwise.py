@@ -1,10 +1,14 @@
 """The port's GN-apply+SiLU (plain path of kernel K3, taken for CPU tensors)
-against the JAX package's Pallas kernel in interpret mode, and the port's
-GroupNorm32 against the JAX module.
+against the JAX package's Pallas kernel in interpret mode, its VJP (the
+plain version of the K3 VJP kernel, and backward() through the port's
+autograd Function) against ``jax.vjp`` of the JAX package's custom VJP,
+and the port's GroupNorm32 against the JAX module.
 
-Tolerances: fp32 1e-5 (same formula, summation order differs); bf16 one
-bf16 ulp of the output (both compute in fp32 and round once, so at most a
-rounding-boundary flip apart).
+Tolerances: fp32 1e-5 (same formula, summation order differs), 1e-6 for
+the VJP's gx (elementwise, the same operations); bf16 one bf16 ulp of the
+output (both compute in fp32 and round once, so at most a rounding-boundary
+flip apart); the VJP's ga and gb 1e-5 of the sum of the terms' magnitudes
+(summation order).
 """
 
 import jax
@@ -126,8 +130,8 @@ def test_wrapper_rejects_bad_shapes():
 
 def test_cpu_path_stays_differentiable():
     """On the CPU affine_silu is the plain version, differentiable, with the
-    gradients of the JAX package's custom VJP (the card refuses backward:
-    tests/test_torch_cuda.py)."""
+    gradients of the JAX package's custom VJP (on the card its backward is
+    the VJP kernel: tests/test_torch_cuda.py)."""
     rng = np.random.default_rng(3)
     x = rng.standard_normal((1, 4, 4, 4, 64)).astype(np.float32)
     a = rng.standard_normal((1, 64)).astype(np.float32)
@@ -140,3 +144,97 @@ def test_cpu_path_stays_differentiable():
     np.testing.assert_allclose(_last(tx.grad), np.asarray(ref[0]), atol=1e-5)
     np.testing.assert_allclose(ta.grad.numpy(), np.asarray(ref[1]), atol=1e-4)
     np.testing.assert_allclose(tb.grad.numpy(), np.asarray(ref[2]), atol=1e-4)
+
+
+def _vjp_case(seed, shape, dtype):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    a = rng.standard_normal((shape[0], shape[-1])).astype(np.float32)
+    b = rng.standard_normal((shape[0], shape[-1])).astype(np.float32)
+    jx, jg = (jnp.asarray(v, dtype=getattr(jnp, dtype)) for v in (x, g))
+    return jx, jg, jnp.asarray(a), jnp.asarray(b)
+
+
+def _sum_tol(x, g, a, b):
+    """1e-5 of Σ|du·x| and Σ|du| (the bound on a reordered fp32 sum)."""
+    _, ga_abs, gb_abs = ec.affine_silu_bwd_plain(x.abs(), g.abs(), a.abs(), b.abs())
+    return 1e-5 * ga_abs.numpy() + 1e-30, 1e-5 * gb_abs.numpy() + 1e-30
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("via", ["plain", "autograd"])
+def test_affine_silu_vjp_matches_jax(dtype, via):
+    """affine_silu_bwd_plain, and backward() through the autograd Function,
+    against jax.vjp of the JAX package's affine_silu (its custom VJP; the
+    Pallas forward in interpret mode), batch 1 channels-last as the JAX
+    kernel takes it: gx atol 1e-6 in fp32 and one bf16 ulp in bf16, ga and
+    gb within 1e-5 of the sum of the terms' magnitudes."""
+    jx, jg, ja, jb = _vjp_case(21, (1, 8, 8, 4, 64), dtype)
+    assert ep.supported(jx.shape)
+    _, vjp = jax.vjp(ep.affine_silu, jx, ja, jb)
+    rgx, rga, rgb = (np.asarray(v, np.float32) for v in vjp(jg))
+    tdt = getattr(torch, dtype)
+    x = _ncdhw(np.asarray(jx, np.float32), tdt)
+    g = _ncdhw(np.asarray(jg, np.float32), tdt)
+    a, b = torch.from_numpy(np.array(ja)), torch.from_numpy(np.array(jb))
+    if via == "plain":
+        gx, ga, gb = ec.affine_silu_bwd_plain(x, g, a, b)
+    else:
+        x, a, b = (v.clone().requires_grad_() for v in (x, a, b))
+        before = ec.affine_silu_bwd.launches
+        (ec.affine_silu(x, a, b).float() * g.float()).sum().backward()
+        assert ec.affine_silu_bwd.launches == before  # the CPU path launches nothing
+        gx, ga, gb = x.grad, a.grad, b.grad
+        x, a, b = x.detach(), a.detach(), b.detach()
+    assert gx.dtype == tdt and ga.dtype == gb.dtype == torch.float32
+    if dtype == "float32":
+        np.testing.assert_allclose(_last(gx), rgx, atol=1e-6)
+    else:
+        _assert_within_bf16_ulp(_last(gx), rgx)
+    ta, tb = _sum_tol(x, g, a, b)
+    assert np.all(np.abs(ga.numpy() - rga) <= ta)
+    assert np.all(np.abs(gb.numpy() - rgb) <= tb)
+
+
+def test_affine_silu_vjp_any_batch_and_both_memory_formats():
+    """B = 2 in contiguous and channels_last_3d memory against the JAX
+    package's VJP formula on its reference path (B > 1 takes XLA there)."""
+    jx, jg, ja, jb = _vjp_case(22, (2, 4, 6, 4, 24), "float32")
+    ref = [np.asarray(v) for v in ep._affine_silu_bwd((jx, ja, jb), jg)]
+    for t in (_ncdhw(np.asarray(jx)), _ncdhw(np.asarray(jx)).contiguous()):
+        gx, ga, gb = ec.affine_silu_bwd(t, _ncdhw(np.asarray(jg)), torch.from_numpy(np.array(ja)),
+                                        torch.from_numpy(np.array(jb)))
+        np.testing.assert_allclose(_last(gx), ref[0], atol=1e-6)
+        np.testing.assert_allclose(ga.numpy(), ref[1], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(gb.numpy(), ref[2], rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        ec.affine_silu_bwd(t, t[:, :, :2], torch.ones(2, 24), torch.zeros(2, 24))
+
+
+@pytest.mark.parametrize("c,spatial,channels_last,dtype,vec", [
+    (64, (112, 112, 80), True, torch.bfloat16, 8),
+    (192, (8, 8, 6), True, torch.bfloat16, 8),
+    (64, (112, 112, 80), False, torch.float32, 4),
+    (3, (5, 3, 3), True, torch.bfloat16, 1),
+    (512, (7, 7, 5), False, torch.float32, 1),
+])
+def test_vjp_kernel_plan(c, spatial, channels_last, dtype, vec):
+    """The VJP kernel's launch plan, computed on the host: 16-byte vectors
+    where the layout allows them (C or the spatial size a multiple of the
+    vector), and about 8 CTAs per SM without a CTA of no work."""
+    x = torch.empty((1, c, *spatial), dtype=dtype, device="meta")
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+    got_vec, chunks = ec.bwd_plan(x, x, x)
+    assert got_vec == vec
+    s = int(np.prod(spatial))
+    if channels_last:
+        bdx = min(c // vec, 256)
+        ctas = chunks * -(-(c // vec) // bdx)
+        upper = -(-s // (256 // bdx))  # every CTA row has a voxel
+    else:
+        ctas = chunks * c
+        upper = max(1, -(-(s // vec) // 256))  # every thread has a vector
+    assert 1 <= chunks <= upper
+    assert ctas >= 132 * 8 or chunks == upper
