@@ -27,8 +27,15 @@ Phases, each printing one JSON object per line:
               then every ResBlock conv through K4b (dpm++, 10 evaluations,
               as ``bench.py --fused --dpm 10``); the launch counts of each
               run, by entry point and by kernel (levels 0-2 on wgmma,
-              3-4 on split-K, by ``conv3d_cuda.route``); then
-              ``make_synthesis_fn`` of four variants in turns;
+              3-4 on split-K, by ``conv3d_cuda.route``), and that each
+              went through the captured CUDA graph chain (one capture,
+              eight replays); then ``make_synthesis_fn`` of four variants,
+              each eager (``cuda_graph=False``) and graphed, in turns: the
+              images of the two paths (bit for bit expected), launches per
+              volume, capture seconds and graph pool memory; a ``devtime``
+              trace of the fuse_conv dpm++ synthesis on each path (device
+              ms, wall ms, busy share); a 100-step fuse_conv ddpm chain,
+              graphed, with ``chunk`` None and 32, equal bit for bit;
 6. completion— the production weights written as a JAX-layout ``.ckpt``
               (with one EMA shadow and a sidecar as the JAX package writes
               it) and read back bit for bit, its size and seconds; then
@@ -39,7 +46,8 @@ Phases, each printing one JSON object per line:
               --sampling_steps 10`` (540 K4b per case: 300 wgmma, 240
               split-K); then ``cli.sample_auto`` on the same tree; every
               output checked (geometry, affine, [0,1], brain mask, border,
-              pass-through) and the seconds per case;
+              pass-through), each run through the captured chain, and the
+              seconds per case;
 7. training — the K3 VJP kernel against its plain version at every
               distinct GN+SiLU shape of the production UNet (bf16
               channels_last_3d and fp32 contiguous; gx bit for bit, ga and
@@ -54,10 +62,10 @@ Phases, each printing one JSON object per line:
               use_checkpoint for its peak memory; a fuse_conv model under
               backward still raises; then ``cli.complete_dataset`` from (a)'s
               BEST on a case without t1c, output checked;
-8. reference— the whole synthesis at a tiny fp32 config on the card
-              against the same on the CPU (plain versions), same noise:
-              fuse_gn_silu under ddpm, and fuse_conv under ddpm, ddim and
-              dpm++.
+8. reference— the whole synthesis at a tiny fp32 config on the card,
+              graphed and eager, against the same on the CPU (plain
+              versions), same noise: fuse_gn_silu under ddpm, and
+              fuse_conv under ddpm, ddim and dpm++.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits nonzero before
@@ -486,18 +494,12 @@ def seeded_production(torch, **overrides) -> tuple[dict, dict]:
 
 
 def profile_device(torch, fn) -> dict:
-    """Device time of one call of ``fn`` by kernel (``torch.profiler``):
-    the total, the busy share of the host-clock wall time, sums by kind,
-    and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call of ``fn`` by kernel (``utils.devtime``, after
+    one warm call): the total, the busy share of the host-clock wall time,
+    sums by kind, and the top kernels."""
+    from fast_cwdm_tpu_torch.utils.devtime import devtime
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    res = devtime(fn, iters=1, detail=True)
     kinds = (("K3 VJP affine_silu_bwd", ("affine_silu_bwd",)),
              ("K3 affine_silu", ("affine_silu",)),
              ("K4b fused conv3d, wgmma", ("conv3d_wgmma",)),
@@ -510,21 +512,14 @@ def profile_device(torch, fn) -> dict:
              ("reduction (GroupNorm statistics)", ("reduce",)),
              ("elementwise and copies", ("elementwise", "copy", "cat", "upsample",
                                          "avg_pool", "index")))
-    sums, rows = {}, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", 0) or getattr(e, "device_time_total", 0)
-        name = e.key.lower()
-        kind = next((k for k, keys in kinds if any(w in name for w in keys)), "other")
-        sums[kind] = sums.get(kind, 0.0) + us / 1e3
-        rows.append((us / 1e3, e.count, e.key[:90]))
-    device_ms = sum(sums.values())
-    rows.sort(reverse=True)
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "busy_share": device_ms / wall_ms if wall_ms else None,
+    sums = {}
+    for name, ms in res["ops"].items():
+        kind = next((k for k, keys in kinds if any(w in name.lower() for w in keys)), "other")
+        sums[kind] = sums.get(kind, 0.0) + ms
+    return {"wall_ms": res["wall_ms"], "device_ms": res["total_ms"],
+            "busy_share": res["busy_share"],
             "by_kind_ms": dict(sorted(sums.items(), key=lambda kv: -kv[1])),
-            "top_kernels": [dict(ms=ms, count=n, name=k) for ms, n, k in rows[:12]]}
+            "top_kernels": [dict(ms=ms, name=k[:90]) for k, ms in list(res["ops"].items())[:12]]}
 
 
 FORWARD_VARIANTS = {"unfused": {}, "fused": dict(fuse_gn_silu=True),
@@ -611,29 +606,17 @@ def write_case(case_dir: str, seed: int = 0) -> None:
 
 
 def reset_counts():
-    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
-    from fast_cwdm_tpu_torch.ops import elementwise_cuda as ec
-    from fast_cwdm_tpu_torch.ops import wavelet_cuda as wc
+    from fast_cwdm_tpu_torch import ops
+    from fast_cwdm_tpu_torch.diffusion import graph
 
-    wc.haar_dwt3.launches = wc.haar_idwt3.launches = ec.affine_silu.launches = 0
-    ec.affine_silu_bwd.launches = 0
-    tc.conv3d_fused.launches_k4a = tc.conv3d_fused.launches_k4b = 0
-    tc.conv3d_fused_v4.launches = 0
-    for k in tc.kernel_launches:
-        tc.kernel_launches[k] = 0
+    ops.set_launch_counts(dict.fromkeys(ops.launch_counts(), 0))
+    graph.counts.update(captures=0, replays=0)
 
 
 def read_counts() -> dict:
-    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
-    from fast_cwdm_tpu_torch.ops import elementwise_cuda as ec
-    from fast_cwdm_tpu_torch.ops import wavelet_cuda as wc
+    from fast_cwdm_tpu_torch import ops
 
-    return {"haar_dwt3": wc.haar_dwt3.launches, "haar_idwt3": wc.haar_idwt3.launches,
-            "affine_silu": ec.affine_silu.launches,
-            "affine_silu_bwd": ec.affine_silu_bwd.launches,
-            "conv3d_fused_k4a": tc.conv3d_fused.launches_k4a,
-            "conv3d_fused_k4b": tc.conv3d_fused.launches_k4b,
-            "conv3d_fused_v4": tc.conv3d_fused_v4.launches, **tc.kernel_launches}
+    return ops.launch_counts()
 
 
 def check_sample(np, path: str, mask) -> list:
@@ -675,7 +658,8 @@ def phase_synthesis(torch, tmp: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     counts = read_counts()
     res = {"sample_shape": check_sample(np, os.path.join(out_dir, "00001", "sample.nii.gz"), mask),
-           "s_per_volume_cli_first_case": timings[0], "launches": counts}
+           "s_per_volume_cli_first_case": timings[0], "launches": counts,
+           "graph": check_graph_counts(volumes=1)}
     if counts["haar_dwt3"] < 3 or counts["haar_idwt3"] < 1 or counts["affine_silu"] != 71 * 10:
         fail(f"the main path did not run through every kernel: {counts}")
 
@@ -710,38 +694,133 @@ def phase_synthesis(torch, tmp: str) -> tuple[dict, dict]:
             or any(routes[shape] != "splitk" for shape in PRODUCTION_CONVS if shape[0][0] <= 14)):
         fail(f"the fused-conv path did not run through its kernels as expected: {conv_counts}")
 
-    # the same case through make_synthesis_fn, four variants on one
-    # generator seed: one warm-up each, then in turns (u, f, cd, cp, cp,
-    # cd, f, u) twice; host clock, condition DWTs through the image on the
-    # host
+    res["fuse_conv_dpm"]["graph"] = check_graph_counts(volumes=1)
+    res.update(phase_synthesis_fn(torch, np, cfg, sd, case))
+    return res, counts, conv_counts
+
+
+def check_graph_counts(volumes: int, steps: int = 10) -> dict:
+    """Graphs captured and replayed since the last reset_counts: a CLI run
+    of one model over ``volumes`` volumes of a ``steps``-step chain captures
+    one step (after two eager warm-up steps) and replays it for every other
+    step."""
+    from fast_cwdm_tpu_torch.diffusion import graph
+
+    want = {"captures": 1, "replays": volumes * steps - 2}
+    if graph.counts != want:
+        fail(f"the run did not go through the captured chain: {graph.counts}, expected {want}")
+    return dict(graph.counts)
+
+
+SYNTH_VARIANTS = {"unfused": ({}, "ddpm"), "fused": (dict(fuse_gn_silu=True), "ddpm"),
+                  "fuse_conv_ddpm": (dict(fuse_conv=True), "ddpm"),
+                  "fuse_conv_dpm": (dict(fuse_conv=True), "dpm++")}
+# launches per volume of each variant on the graph path
+SYNTH_WANT = {"unfused": {"affine_silu": 0, "conv3d_fused_k4b": 0},
+              "fused": {"affine_silu": 710, "conv3d_fused_k4b": 0},
+              "fuse_conv_ddpm": {"affine_silu": 0, "conv3d_fused_k4b": 540, "conv3d_wgmma": 300,
+                                 "conv3d_splitk": 240, "conv3d_mma_sync": 0},
+              "fuse_conv_dpm": {"affine_silu": 0, "conv3d_fused_k4b": 540, "conv3d_wgmma": 300,
+                                "conv3d_splitk": 240, "conv3d_mma_sync": 0}}
+
+
+def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
+    """``make_synthesis_fn`` on the case, four variants, each eager
+    (``cuda_graph=False``) and graphed: one warm-up call each (the graph's
+    capture), then three timed calls each in turns, on one generator seed;
+    host clock from the condition DWTs to the image on the host. The graph
+    path's image against the eager one (expected bit for bit), its launches
+    per volume, its capture seconds and pool memory. Then one ``devtime``
+    trace of the fuse_conv dpm++ synthesis, eager and graphed (device ms,
+    wall ms, busy share); and a 100-step fuse_conv ddpm chain, graphed, with
+    ``chunk=None`` and ``chunk=32`` (a ragged last segment of 4)."""
+    from fast_cwdm_tpu_torch.cli import common
+    from fast_cwdm_tpu_torch.data import brats
+    from fast_cwdm_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from fast_cwdm_tpu_torch.utils.devtime import devtime
+
     item = brats.BRATSVolumes(os.path.dirname(case))[0]
     batch = {m: item[m][None] for m in brats.MODALITIES}
-    variants = {"unfused": ({}, "ddpm"), "fused": (dict(fuse_gn_silu=True), "ddpm"),
-                "fuse_conv_ddpm": (dict(fuse_conv=True), "ddpm"),
-                "fuse_conv_dpm": (dict(fuse_conv=True), "dpm++")}
-    runs = {}
-    for name, (flags_v, sampler) in variants.items():
+    runs, models = {}, {}
+    for name, (flags_v, sampler) in SYNTH_VARIANTS.items():
         m, diff = common.build_model_and_diffusion({**cfg, "fuse_gn_silu": False, **flags_v})
         m.load_state_dict(sd)
-        runs[name] = common.make_synthesis_fn(m, diff, sampler=sampler, sampler_steps=10,
-                                              device="cuda")
-    order = list(variants) + (list(variants) + list(variants)[::-1]) * 2
-    times, imgs = {name: [] for name in variants}, {}
+        models[name] = (m, diff)
+        for path in ("eager", "graph"):
+            runs[f"{name}_{path}"] = common.make_synthesis_fn(
+                m, diff, sampler=sampler, sampler_steps=10, device="cuda",
+                cuda_graph=path == "graph")
+    names = list(runs)
+    order = names + names + names[::-1] + names
+    times, imgs, launches = {name: [] for name in names}, {}, {}
     for k, name in enumerate(order):
         gen = torch.Generator(device="cuda").manual_seed(0)
+        reset_counts()
         t0 = time.perf_counter()
         cond = common.prepare_condition(batch, "t1c", device="cuda")
-        imgs[name] = runs[name](cond, batch["t1n"], gen)
-        if k >= len(variants):
-            times[name].append(time.perf_counter() - t0)
-    for name in variants:
+        img = runs[name](cond, batch["t1n"], gen)
+        seconds = time.perf_counter() - t0
+        launches[name] = read_counts()
+        if k < len(names):
+            imgs[name] = img
+        else:
+            times[name].append(seconds)
+            if not np.array_equal(img, imgs[name]):
+                fail(f"{name}: a second call on the same seed gave another image")
+    res = {}
+    for name in names:
         res[f"s_per_volume_{name}"] = statistics.median(times[name])
         res[f"s_per_volume_{name}_all"] = times[name]
-    a = imgs["unfused"]
+    bad = []
+    for name in SYNTH_VARIANTS:
+        e, g = imgs[f"{name}_eager"], imgs[f"{name}_graph"]
+        step = runs[f"{name}_graph"].chain.graph
+        res[f"graph_{name}"] = {
+            "max_abs_diff_image_graph_vs_eager": float(np.abs(g - e).max()),
+            "n_differ": int((g != e).sum()),
+            "launches_per_volume": launches[f"{name}_graph"],
+            "launches_per_volume_eager": launches[f"{name}_eager"],
+            "launches_per_replay": step.launches_per_replay,
+            "capture_s": step.capture_seconds, "pool_bytes_added": step.pool_bytes}
+        want = SYNTH_WANT[name]
+        if any(launches[f"{name}_graph"][k] != n for k, n in want.items()) \
+                or launches[f"{name}_graph"] != launches[f"{name}_eager"] \
+                or float(np.abs(g - e).max()) > 1e-4:
+            bad.append(name)
+    res["graph_pool_bytes_added_total"] = sum(
+        runs[f"{n}_graph"].chain.graph.pool_bytes for n in SYNTH_VARIANTS)
+    a = imgs["unfused_eager"]
     for name in ("fused", "fuse_conv_ddpm"):
-        res[f"max_abs_diff_image_{name}_vs_unfused"] = float(np.abs(imgs[name] - a).max())
-        res[f"mean_abs_diff_image_{name}_vs_unfused"] = float(np.abs(imgs[name] - a).mean())
-    return res, counts, conv_counts
+        res[f"max_abs_diff_image_{name}_vs_unfused"] = float(np.abs(imgs[f"{name}_eager"] - a).max())
+        res[f"mean_abs_diff_image_{name}_vs_unfused"] = float(np.abs(imgs[f"{name}_eager"] - a).mean())
+    if bad:
+        fail(f"the graphed synthesis disagrees with the eager one or with the expected "
+             f"launches: {bad}: { {k: v for k, v in res.items() if k.startswith('graph_')} }")
+
+    # one traced 10-evaluation fuse_conv dpm++ synthesis on each path
+    cond = common.prepare_condition(batch, "t1c", device="cuda")
+    res["devtime_fuse_conv_dpm"] = {
+        path: devtime(lambda: runs[f"fuse_conv_dpm_{path}"](
+            cond, batch["t1n"], torch.Generator(device="cuda").manual_seed(0)), iters=1)
+        for path in ("eager", "graph")}
+
+    # a 100-step ddpm chain, graphed, unchunked and in segments of 32
+    m, _ = models["fuse_conv_ddpm"]
+    d100 = GaussianDiffusion.named("linear", 100, "sampled", mode="i2i")
+    chunked = {}
+    for chunk in (None, 32):
+        run = common.make_synthesis_fn(m, d100, chunk=chunk, device="cuda")
+        t0 = time.perf_counter()
+        chunked[chunk] = run(cond, batch["t1n"], torch.Generator(device="cuda").manual_seed(0))
+        res[f"s_100_steps_chunk_{chunk}"] = time.perf_counter() - t0
+        res[f"s_100_steps_chunk_{chunk}_capture_s"] = run.chain.graph.capture_seconds
+        del run
+    res["max_abs_diff_100_steps_chunk_none_vs_32"] = float(np.abs(chunked[None] - chunked[32]).max())
+    if res["max_abs_diff_100_steps_chunk_none_vs_32"] != 0.0:
+        fail(f"the 100-step chain differs between chunk None and 32: {res}")
+    del runs, models
+    torch.cuda.empty_cache()
+    return res
 
 
 def same_tree(np, a, b) -> bool:
@@ -851,6 +930,7 @@ def phase_completion(torch, tmp: str) -> dict:
         bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
         if bad:
             fail(f"{name}: launches (got, expected) {bad}; all counts {counts}")
+        counts["graph"] = check_graph_counts(volumes=n_synth)
         return out_dir, got, counts
 
     flags = [f"--input_dir={in_dir}", f"--checkpoint_dir={ckpt_dir}", "--seed=0"]
@@ -1146,7 +1226,7 @@ def phase_training(torch, tmp: str, profile: bool = False) -> dict:
             or counts["haar_idwt3"] != 1:
         fail(f"synthesis from the trained BEST: {got}, launches {counts}")
     res["synthesis_from_trained_best"] = {
-        "s_per_case": got["seconds"], "launches": counts,
+        "s_per_case": got["seconds"], "launches": counts, "graph": check_graph_counts(volumes=1),
         "output": check_completed(np, in_dir, out_dir, "00001", "t1c")}
     return res
 
@@ -1180,12 +1260,13 @@ REFERENCE_RUNS = {  # name: (model flags, sampler)
 
 
 def phase_reference(torch) -> dict:
-    """The whole synthesis at a tiny fp32 config on the card against the
-    same synthesis on the CPU, where the wrappers take their plain
-    versions, which the CPU tests hold against the JAX package: every
-    GN→SiLU through K3 under ddpm, then also every ResBlock conv through
-    K4b under ddpm, ddim and dpm++. Same weights, same noise; TF32 off.
-    Tolerance 1e-4 on the [0,1] image, as the CPU tests against JAX."""
+    """The whole synthesis at a tiny fp32 config on the card, graphed and
+    eager, against the same synthesis on the CPU, where the wrappers take
+    their plain versions, which the CPU tests hold against the JAX package:
+    every GN→SiLU through K3 under ddpm, then also every ResBlock conv
+    through K4b under ddpm, ddim and dpm++. Same weights, same noise; TF32
+    off. Tolerance 1e-4 on the [0,1] image, as the CPU tests against JAX;
+    the graph against the eager chain on the card: expected bit for bit."""
     import numpy as np
 
     from fast_cwdm_tpu_torch.cli import common
@@ -1206,25 +1287,30 @@ def phase_reference(torch) -> dict:
             image_size=8, diffusion_steps=10, sample_schedule="sampled",
             dtype="float32", **flags,
         )
-        out = {}
-        for dev in ("cpu", "cuda"):
+        out, k4b = {}, {}
+        for path, dev, graphed in (("cpu", "cpu", False), ("eager", "cuda", False),
+                                   ("graph", "cuda", True)):
             model, diffusion = common.build_model_and_diffusion(cfg)
             shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
             model.load_state_dict({k: torch.from_numpy(v)
                                    for k, v in seeded_state_dict(shapes).items()})
             run = common.make_synthesis_fn(model, diffusion, crop_z=12, sampler=sampler,
-                                           device=dev)
+                                           device=dev, cuda_graph=graphed)
             cond = common.prepare_condition(vols, "t1c", device=dev)
-            k4b = tc.conv3d_fused.launches_k4b
-            out[dev] = run(cond, vols["t1n"], noise=noise, step_noise=step_noise)
-            k4b = tc.conv3d_fused.launches_k4b - k4b
-        err = float(np.abs(out["cuda"] - out["cpu"]).max())
-        res[name] = {"shape": list(out["cuda"].shape), "max_abs_err_cuda_vs_cpu": err,
-                     "tol": 1e-4, "max_image": float(out["cpu"].max()), "k4b_launches": k4b}
-        if not (err <= 1e-4 and np.isfinite(out["cuda"]).all()):
+            before = tc.conv3d_fused.launches_k4b
+            out[path] = run(cond, vols["t1n"], noise=noise, step_noise=step_noise)
+            k4b[path] = tc.conv3d_fused.launches_k4b - before
+        res[name] = {"shape": list(out["graph"].shape), "tol": 1e-4,
+                     "max_image": float(out["cpu"].max()), "k4b_launches": k4b}
+        for path in ("eager", "graph"):
+            res[name][f"max_abs_err_{path}_vs_cpu"] = float(np.abs(out[path] - out["cpu"]).max())
+        res[name]["max_abs_diff_graph_vs_eager"] = float(np.abs(out["graph"] - out["eager"]).max())
+        if not (max(res[name]["max_abs_err_eager_vs_cpu"], res[name]["max_abs_err_graph_vs_cpu"],
+                    res[name]["max_abs_diff_graph_vs_eager"]) <= 1e-4
+                and np.isfinite(out["graph"]).all() and np.isfinite(out["eager"]).all()):
             fail(f"the synthesis on the card disagrees with the CPU's: {name} {res[name]}")
-        if flags.get("fuse_conv") and k4b != 8 * 2 * 10:
-            fail(f"the tiny fuse_conv synthesis launched K4b {k4b} times, expected 160")
+        if flags.get("fuse_conv") and (k4b["eager"], k4b["graph"]) != (160, 160):
+            fail(f"the tiny fuse_conv synthesis launched K4b {k4b}, expected 160 on the card")
     torch.backends.cudnn.allow_tf32 = True
     return res
 

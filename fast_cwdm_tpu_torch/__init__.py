@@ -11,8 +11,9 @@ reference this port is held against; nothing here imports it.
 - ``models``    3D ``UNetModel`` with the reference torch parameter layout,
                 gradient checkpointing
 - ``diffusion`` beta schedules, respacing, ancestral, DDIM and
-                DPM-Solver++ sampling loops, the training loss, timestep
-                samplers
+                DPM-Solver++ sampling loops (with classifier guidance),
+                the chain as replays of one captured CUDA graph, the
+                training loss, timestep samplers
 - ``data``      NIfTI IO, BraTS preprocessing and un-crop, training
                 batches, prefetch loaders
 - ``training``  the train step (AdamW as optax's, EMA), the training loop,
@@ -21,7 +22,8 @@ reference this port is held against; nothing here imports it.
 - ``cli``       synthesis plumbing and the ``sample``, ``complete_dataset``,
                 ``sample_auto``, ``convert_checkpoint`` and ``train`` entry
                 points
-- ``utils``     the kv logger, seeded test weights
+- ``utils``     the kv logger, device time (``devtime``), traces and the
+                ``[PROFILE]`` step timer, seeded test weights
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -5,7 +5,8 @@ condition, and the reverse chain + postprocess as one callable.
 Port of ``fast_cwdm_tpu/cli/common.py`` (ddpm, ddim and dpm++ samplers).
 Public functions take and return the JAX package's channels-last
 ``(B, X, Y, Z, C)`` layout. Everything runs on ``cuda`` unless
-``device="cpu"`` is passed.
+``device="cpu"`` is passed; on ``cuda`` the chain's steps are replays of
+one captured CUDA graph (``diffusion/graph.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from fast_cwdm_tpu_torch import resolve_device
 from fast_cwdm_tpu_torch.diffusion.gaussian import condition_order
+from fast_cwdm_tpu_torch.diffusion.graph import CapturedChain
 from fast_cwdm_tpu_torch.models.convert import state_dict_from_jax
 from fast_cwdm_tpu_torch.models.factory import create_model_and_diffusion, model_and_diffusion_defaults
 from fast_cwdm_tpu_torch.ops import wavelet as wv
@@ -149,10 +151,11 @@ def load_best_synthesis(checkpoint_dir: str, contr: str, *, dataset: str = "brat
     return fn
 
 
-def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, chunk=None,
-                      sampler: str = "ddpm", sampler_steps: int | None = None,
-                      clip_denoised: bool = True,
-                      device: str | torch.device | None = None):
+def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, mesh=None,
+                      chunk: int | str | None = "auto", sampler: str = "ddpm",
+                      sampler_steps: int | None = None, clip_denoised: bool = True,
+                      device: str | torch.device | None = None,
+                      cuda_graph: bool | None = None):
     """Build ``run(cond, mask_vol, generator=None, *, noise=None,
     step_noise=None) -> np.ndarray``: the full reverse chain, IDWT with ×3
     LLL, clamp to [0,1], zero where ``mask_vol`` is 0, crop Z to
@@ -163,19 +166,42 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, chunk=None,
     ``ddim{N}``) or "dpm++" (DPM-Solver++(2M) with ``sampler_steps``
     evaluations, default min(50, T)).
 
+    ``cuda_graph`` (None: on a CUDA device) runs every step as a replay of
+    one captured CUDA graph (``diffusion/graph.py``), the counterpart of
+    the JAX package's one jitted program; False runs the eager loops, as
+    the CPU always does. Both give the same numbers. ``run.chain`` is the
+    :class:`CapturedChain` (None on the eager path).
+
+    ``chunk`` ("auto": 100 where T > 200, else None) runs a ddpm chain in
+    segments of ``chunk`` steps with identical numerics: on the graph path
+    it bounds how many steps' noise is drawn ahead. ``mesh`` (batched
+    multi-device serving) is not ported and must be None.
+
     ``noise``/``step_noise`` inject the initial and per-step noise (for
     parity with the JAX package's key stream); otherwise both are drawn
-    from ``generator``. ``chunk`` is accepted for signature parity and has
-    no effect (the chain is a Python loop of eager steps).
+    from ``generator``, in the same order on both paths.
     """
     if sampler not in ("ddpm", "ddim", "dpm++"):
         raise ValueError(f"sampler must be ddpm, ddim or dpm++, got {sampler!r}")
+    if mesh is not None:
+        raise NotImplementedError("make_synthesis_fn(mesh=...): multi-device serving is not "
+                                  "ported yet (ROADMAP M8); pass mesh=None")
+    if chunk == "auto":
+        chunk = 100 if diffusion.num_timesteps > 200 else None
     dev = resolve_device(device)
+    if cuda_graph is None:
+        cuda_graph = dev.type == "cuda"
+    elif cuda_graph and dev.type != "cuda":
+        raise ValueError(f"cuda_graph=True needs a CUDA device, got {dev}")
     model = model.to(dev).eval()
+    steps = sampler_steps or min(50, diffusion.num_timesteps)
 
     def model_fn(x, t):
         # channels-last → NCDHW view (channels_last_3d memory) and back
         return model(x.permute(0, 4, 1, 2, 3), t).permute(0, 2, 3, 4, 1)
+
+    chain = CapturedChain(diffusion, model_fn, sampler, steps=steps, clip_denoised=clip_denoised,
+                          parameters=model.parameters()) if cuda_graph else None
 
     @torch.inference_mode()
     def run(cond, mask_vol, generator: torch.Generator | None = None, *,
@@ -185,18 +211,21 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, chunk=None,
         as_dev = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
             a, dtype=torch.float32, device=dev)
         shape = (cond.shape[0], *cond.shape[1:-1], diffusion.target_channels)
-        kw = dict(cond=cond, noise=as_dev(noise), generator=generator, device=dev,
-                  clip_denoised=clip_denoised)
-        if sampler == "dpm++":
-            steps = sampler_steps or min(50, diffusion.num_timesteps)
-            sample = diffusion.dpm_solver_pp_loop(model_fn, shape, steps=steps, **kw)
+        kw = dict(cond=cond, noise=as_dev(noise), generator=generator)
+        if chain is not None:
+            sample = chain(shape, step_noise=as_dev(step_noise), chunk=chunk, **kw)
+        elif sampler == "dpm++":
+            sample = diffusion.dpm_solver_pp_loop(model_fn, shape, steps=steps, device=dev,
+                                                  clip_denoised=clip_denoised, **kw)
         else:
-            loop = diffusion.ddim_sample_loop if sampler == "ddim" else diffusion.p_sample_loop
-            sample = loop(model_fn, shape, step_noise=as_dev(step_noise), **kw)
+            kw.update(step_noise=as_dev(step_noise), device=dev, clip_denoised=clip_denoised)
+            sample = (diffusion.ddim_sample_loop(model_fn, shape, **kw) if sampler == "ddim"
+                      else diffusion.p_sample_loop(model_fn, shape, chunk_size=chunk, **kw))
         img = torch.clamp(wv.idwt_normalized(sample, 1, diffusion.wavelet), 0.0, 1.0)
         img = torch.where(mask == 0, 0.0, img)
         return img[..., 0].cpu().numpy()[:, :, :, :crop_z]
 
+    run.chain = chain
     return run
 
 

@@ -1,2 +1,2 @@
-"""Beta schedules, respacing, the sampling loops, the training loss, the
-timestep samplers and the likelihood helpers."""
+"""Beta schedules, respacing, the sampling loops and their captured CUDA
+graph, the training loss, the timestep samplers and the likelihood helpers."""

@@ -11,7 +11,8 @@ step over the same timestep subsequence.
 
 The coefficients are computed on the host in float64 from the diffusion's
 ``alphas_cumprod`` and cast to float32, exactly as in the JAX package; the
-chain is a Python loop of eager steps on the device.
+chain is a Python loop of eager steps on the device (``diffusion/graph.py``
+replays one captured :func:`dpm_step` instead).
 """
 
 from __future__ import annotations
@@ -71,28 +72,48 @@ def _solver_tables(alphas_cumprod: np.ndarray, idx: np.ndarray, order: int):
     return f32(sigma_ratio), f32(acoef), f32(mix)
 
 
+def dpm_step(diffusion, model_fn, x, prev_x0, t, s_ratio, a_c, c, *, cond=None,
+             clip_denoised: bool = True, denoised_fn=None, cond_fn=None, model_kwargs=None):
+    """One transition of the 2M chain from ``x`` at timesteps ``t`` with the
+    previous x0 prediction ``prev_x0`` and the transition's coefficients
+    (0-dim tensors of :func:`_solver_tables`); returns ``(x_next, x0)``.
+    ``cond_fn`` applies score-based guidance (``condition_score``)."""
+    out = diffusion.p_mean_variance(
+        model_fn, x, t, cond=cond, clip_denoised=clip_denoised,
+        denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+    )
+    if cond_fn is not None:
+        out = diffusion.condition_score(cond_fn, out, x, t, model_kwargs=model_kwargs)
+    x0 = out["pred_xstart"]
+    x0_tilde = (1.0 + c) * x0 - c * prev_x0
+    return s_ratio * x - a_c * x0_tilde, x0
+
+
+def solver_tables(diffusion, idx: np.ndarray, order: int, device) -> torch.Tensor:
+    """The coefficients of the chain over schedule indices ``idx`` as one
+    (3, steps) float32 tensor on ``device``: sigma ratio, alpha coefficient
+    and 2M mix of each transition."""
+    return torch.as_tensor(np.stack(_solver_tables(diffusion.alphas_cumprod, idx, order)),
+                           device=device)
+
+
 def dpm_solver_pp_loop(diffusion, model_fn, shape, *, cond=None, noise=None,
                        generator: torch.Generator | None = None, device=None,
                        steps: int = 50, order: int = 2, clip_denoised: bool = True,
-                       denoised_fn=None, model_kwargs=None) -> torch.Tensor:
+                       denoised_fn=None, cond_fn=None, model_kwargs=None) -> torch.Tensor:
     """Sample with DPM-Solver++ multistep: ``steps`` model evaluations.
     Deterministic given ``noise``; otherwise the initial latent is drawn
     from ``generator`` on ``device`` (default: the device of ``cond``, else
     CUDA). The JAX package draws it from its key without a split."""
     idx = dpm_timestep_indices(diffusion.num_timesteps, steps)
     x = diffusion._start(shape, cond, noise, None, generator, device, steps)
-    tables = torch.as_tensor(  # (3, steps) float32
-        np.stack(_solver_tables(diffusion.alphas_cumprod, idx, order)), device=x.device
-    )
+    tables = solver_tables(diffusion, idx, order, x.device)
     prev_x0 = torch.zeros_like(x)
     for j, t_index in enumerate(idx):
-        s_ratio, a_c, c = tables[:, j]
         t = torch.full((x.shape[0],), int(t_index), dtype=torch.long, device=x.device)
-        x0 = diffusion.p_mean_variance(
-            model_fn, x, t, cond=cond, clip_denoised=clip_denoised,
-            denoised_fn=denoised_fn, model_kwargs=model_kwargs,
-        )["pred_xstart"]
-        x0_tilde = (1.0 + c) * x0 - c * prev_x0
-        x = s_ratio * x - a_c * x0_tilde
-        prev_x0 = x0
+        x, prev_x0 = dpm_step(
+            diffusion, model_fn, x, prev_x0, t, *tables[:, j], cond=cond,
+            clip_denoised=clip_denoised, denoised_fn=denoised_fn, cond_fn=cond_fn,
+            model_kwargs=model_kwargs,
+        )
     return x

@@ -259,13 +259,16 @@ class GaussianDiffusion:
         }
 
     def p_sample(self, model_fn, x, t, noise, *, cond=None, clip_denoised=True,
-                 denoised_fn=None, model_kwargs=None):
+                 denoised_fn=None, cond_fn=None, model_kwargs=None):
         """Ancestral step x_t → x_{t-1} with the given standard-normal
-        ``noise`` (unused where t == 0)."""
+        ``noise`` (unused where t == 0); ``cond_fn`` applies classifier
+        guidance to the posterior mean (:meth:`condition_mean`)."""
         out = self.p_mean_variance(
             model_fn, x, t, cond=cond, clip_denoised=clip_denoised,
             denoised_fn=denoised_fn, model_kwargs=model_kwargs,
         )
+        if cond_fn is not None:
+            out["mean"] = self.condition_mean(cond_fn, out, x, t, model_kwargs=model_kwargs)
         nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
         sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
@@ -282,20 +285,52 @@ class GaussianDiffusion:
         device: torch.device | str | None = None,
         clip_denoised: bool = True,
         denoised_fn=None,
+        cond_fn=None,
         model_kwargs=None,
         time: int | None = None,
+        chunk_size: int | None = None,
+        params=None,
     ) -> torch.Tensor:
         """The full reverse chain from ``time`` (default: every step) to 0.
 
         ``noise`` is the initial x_T and ``step_noise[k]`` the noise of the
         k-th step taken; whatever is not given is drawn from ``generator``
         on ``device`` (default: the device of ``cond``, else ``noise``, else
-        CUDA, which raises where there is no GPU).
+        CUDA, which raises where there is no GPU), x_T first, then one draw
+        per step in the order of the steps.
+
+        ``chunk_size``: run the chain as ⌈T/chunk⌉ calls of
+        :meth:`scan_steps` (identical numerics). ``params``: when given,
+        ``model_fn`` is called as ``model_fn(params, x, t)``. The JAX
+        package's ``_run_p_segment`` keeps params as jit arguments of one
+        compiled segment; eager PyTorch compiles nothing, so it has no
+        counterpart here.
         """
         t_total = self.num_timesteps if time is None else time
         img = self._start(shape, cond, noise, step_noise, generator, device, t_total)
-        for k, i in enumerate(range(t_total - 1, -1, -1)):
-            t = torch.full((img.shape[0],), i, dtype=torch.long, device=img.device)
+        net = model_fn if params is None else (
+            lambda x, t, **kw: model_fn(params, x, t, **kw))
+        ts = range(t_total - 1, -1, -1)
+        chunk = chunk_size if chunk_size and chunk_size < t_total else max(t_total, 1)
+        for s in range(0, t_total, chunk):
+            img = self.scan_steps(
+                net, img, ts[s : s + chunk],
+                None if step_noise is None else step_noise[s : s + chunk],
+                cond=cond, generator=generator, clip_denoised=clip_denoised,
+                denoised_fn=denoised_fn, cond_fn=cond_fn, model_kwargs=model_kwargs,
+            )
+        return img
+
+    def scan_steps(self, model_fn, img, ts, step_noise=None, *, cond=None,
+                   generator: torch.Generator | None = None, clip_denoised=True,
+                   denoised_fn=None, cond_fn=None, model_kwargs=None) -> torch.Tensor:
+        """Ancestral steps over an arbitrary timestep segment ``ts``
+        (descending): the building block of :meth:`p_sample_loop` and of
+        caller-managed chunking. ``step_noise[k]`` is the noise of the k-th
+        step of the segment; where it is not given, each step draws its
+        noise from ``generator`` just before it runs."""
+        for k, i in enumerate(ts):
+            t = torch.full((img.shape[0],), int(i), dtype=torch.long, device=img.device)
             eps = (
                 step_noise[k]
                 if step_noise is not None
@@ -303,7 +338,7 @@ class GaussianDiffusion:
             )
             img = self.p_sample(
                 model_fn, img, t, eps, cond=cond, clip_denoised=clip_denoised,
-                denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+                denoised_fn=denoised_fn, cond_fn=cond_fn, model_kwargs=model_kwargs,
             )["sample"]
         return img
 
@@ -321,13 +356,17 @@ class GaussianDiffusion:
     # -- DDIM ------------------------------------------------------------
 
     def ddim_sample(self, model_fn, x, t, noise=None, *, cond=None, clip_denoised=True,
-                    denoised_fn=None, eta: float = 0.0, model_kwargs=None):
+                    denoised_fn=None, eta: float = 0.0, cond_fn=None, model_kwargs=None):
         """DDIM step x_t → x_{t-1} (eta-parameterised); ``noise`` is the
-        standard-normal draw, needed only when ``eta`` > 0."""
+        standard-normal draw, needed only when ``eta`` > 0. ``cond_fn``
+        applies score-based guidance (:meth:`condition_score`) after the
+        model evaluation."""
         out = self.p_mean_variance(
             model_fn, x, t, cond=cond, clip_denoised=clip_denoised,
             denoised_fn=denoised_fn, model_kwargs=model_kwargs,
         )
+        if cond_fn is not None:
+            out = self.condition_score(cond_fn, out, x, t, model_kwargs=model_kwargs)
         x_ref = x[..., : self.target_channels] if self.mode == "i2i" else x
         n = x_ref.dim()
         eps = self.predict_eps_from_xstart(x_ref, t, out["pred_xstart"])
@@ -347,7 +386,8 @@ class GaussianDiffusion:
     def ddim_sample_loop(self, model_fn, shape, *, cond=None, noise=None, step_noise=None,
                          generator: torch.Generator | None = None, device=None,
                          clip_denoised=True, denoised_fn=None, eta: float = 0.0,
-                         model_kwargs=None, time: int | None = None) -> torch.Tensor:
+                         cond_fn=None, model_kwargs=None,
+                         time: int | None = None) -> torch.Tensor:
         """The DDIM chain from ``time`` (default: every step) to 0; noise
         as in :meth:`p_sample_loop` (per-step noise is drawn only when
         ``eta`` > 0)."""
@@ -356,12 +396,13 @@ class GaussianDiffusion:
         return self.ddim_scan_steps(
             model_fn, img, range(t_total - 1, -1, -1), step_noise, cond=cond,
             generator=generator, clip_denoised=clip_denoised,
-            denoised_fn=denoised_fn, eta=eta, model_kwargs=model_kwargs,
+            denoised_fn=denoised_fn, eta=eta, cond_fn=cond_fn, model_kwargs=model_kwargs,
         )
 
     def ddim_scan_steps(self, model_fn, img, ts, step_noise=None, *, cond=None,
                         generator: torch.Generator | None = None, clip_denoised=True,
-                        denoised_fn=None, eta: float = 0.0, model_kwargs=None) -> torch.Tensor:
+                        denoised_fn=None, eta: float = 0.0, cond_fn=None,
+                        model_kwargs=None) -> torch.Tensor:
         """DDIM over an arbitrary timestep segment ``ts`` (descending);
         ``step_noise[k]`` is the noise of the k-th step of the segment."""
         for k, i in enumerate(ts):
@@ -374,13 +415,39 @@ class GaussianDiffusion:
                 )
             img = self.ddim_sample(
                 model_fn, img, t, eps, cond=cond, clip_denoised=clip_denoised,
-                denoised_fn=denoised_fn, eta=eta, model_kwargs=model_kwargs,
+                denoised_fn=denoised_fn, eta=eta, cond_fn=cond_fn, model_kwargs=model_kwargs,
             )["sample"]
         return img
 
     def dpm_solver_pp_loop(self, model_fn, shape, **kwargs) -> torch.Tensor:
         """DPM-Solver++ multistep sampling (:mod:`.dpm`)."""
         return dpm.dpm_solver_pp_loop(self, model_fn, shape, **kwargs)
+
+    # -- classifier guidance ---------------------------------------------
+
+    def _grad_log_p(self, cond_fn, x, t, model_kwargs):
+        """``cond_fn(x, scale_timesteps(t), **model_kwargs)``, the gradient
+        ∇ₓ log p(y|x), with autograd on so that it may differentiate a
+        classifier even where the loop runs under ``torch.no_grad()``."""
+        with torch.enable_grad():
+            return cond_fn(x, self.scale_timesteps(t), **(model_kwargs or {}))
+
+    def condition_mean(self, cond_fn, p_mean_var, x, t, model_kwargs=None):
+        """Shift the posterior mean by Σ·∇ₓ log p(y|x)."""
+        gradient = self._grad_log_p(cond_fn, x, t, model_kwargs)
+        return p_mean_var["mean"].float() + p_mean_var["variance"] * gradient.float()
+
+    def condition_score(self, cond_fn, p_mean_var, x, t, model_kwargs=None):
+        """Score-based conditioning: eps − √(1−ᾱ)·∇ₓ log p(y|x), then x0
+        and the posterior mean recomputed from it."""
+        x_ref = x[..., : self.target_channels] if self.mode == "i2i" else x
+        abar = self._extract("alphas_cumprod", t, x_ref.dim())
+        eps = self.predict_eps_from_xstart(x_ref, t, p_mean_var["pred_xstart"])
+        eps = eps - torch.sqrt(1.0 - abar) * self._grad_log_p(cond_fn, x, t, model_kwargs)
+        out = dict(p_mean_var)
+        out["pred_xstart"] = self.predict_xstart_from_eps(x_ref, t, eps)
+        out["mean"], _, _ = self.q_posterior_mean_variance(out["pred_xstart"], x_ref, t)
+        return out
 
     # -- training loss ---------------------------------------------------
 

@@ -224,6 +224,17 @@ def _haar_mixing_matrix() -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _clamp_constants(device: torch.device, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mixing matrix and the LLL scale vector of
+    :func:`haar_clamp_project`, built once per (device, dtype) and kept
+    there: a copy from host memory on every step would make the host wait
+    on the device, and a capturing CUDA stream refuses it. Never written."""
+    m = torch.as_tensor(_haar_mixing_matrix(), dtype=dtype, device=device)
+    s = torch.tensor([LLL_SCALE, 1, 1, 1, 1, 1, 1, 1], dtype=dtype, device=device)
+    return m, s
+
+
 def haar_clamp_project(x: torch.Tensor, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
     """Fused IDWT → clamp → DWT for Haar in the network LLL convention.
 
@@ -232,7 +243,6 @@ def haar_clamp_project(x: torch.Tensor, lo: float = 0.0, hi: float = 1.0) -> tor
     so the round trip is two 8×8 products around a clamp per latent voxel,
     with no spatial traffic. Computed in ``x``'s dtype (fp32 on the path).
     """
-    m = torch.as_tensor(_haar_mixing_matrix(), dtype=x.dtype, device=x.device)
-    s = torch.tensor([LLL_SCALE, 1, 1, 1, 1, 1, 1, 1], dtype=x.dtype, device=x.device)
+    m, s = _clamp_constants(x.device, x.dtype)
     block = torch.clamp((x * s) @ m, lo, hi)
     return (block @ m.T) / s

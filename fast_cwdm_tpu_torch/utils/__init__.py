@@ -1,1 +1,2 @@
-"""The kv logger and deterministic test utilities."""
+"""The kv logger, device time and profiling tools, and deterministic test
+utilities."""

@@ -3,8 +3,9 @@ conv kernels behind K4a/K4b/K5 (mma.sync, wgmma and split-K), each against
 its plain torch version, their wrappers' refusals (the fused conv's
 backward included), the autograd pairs (K1/K2, K3 and its VJP), fuse_conv
 UNets that reach K4b on each conv kernel, a .ckpt round trip of a model on
-the card, complete_dataset on the card, and a train step on the card
-against the same step on the CPU.
+the card, complete_dataset on the card, a train step on the card
+against the same step on the CPU, and the synthesis chain captured as a
+CUDA graph against the eager chain.
 
 Marked ``cuda``: skipped where no GPU is present. This file imports no JAX,
 so it also runs where JAX is not installed:
@@ -596,3 +597,76 @@ def test_batches_reach_the_card(gen):
             assert g[k].is_cuda and np.array_equal(g[k].cpu().numpy(), v)
             assert r[k].is_cuda and np.array_equal(r[k].cpu().numpy(), v)
             assert a[k] is r[k]  # served from the cache
+
+
+def _graph_case(flags):
+    """A bf16 UNet with the production widths at levels 0-1 (64 and 128
+    channels) on a 32³ latent, seeded weights, a 6-step sampled schedule:
+    with fuse_conv its level-0 convs take the wgmma kernel and its level-1
+    convs the split-K kernel; a condition from seeded 64³ volumes."""
+    cfg = common.production_config(num_res_blocks=1, channel_mult="1,2", image_size=32,
+                                   diffusion_steps=6, sample_schedule="sampled", **flags)
+    model, diffusion = common.build_model_and_diffusion(cfg)
+    sd = seeded_state_dict({k: tuple(v.shape) for k, v in model.state_dict().items()})
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    rng = np.random.default_rng(0)
+    vols = {m: rng.random((1, 64, 64, 64, 1)).astype(np.float32) for m in ("t1n", "t1c", "t2w", "t2f")}
+    vols["t1n"][:, :8] = 0.0
+    return model, diffusion, common.prepare_condition(vols, "t1c", device="cuda"), vols["t1n"]
+
+
+@pytest.mark.parametrize("sampler", ["ddpm", "ddim", "dpm++"])
+@pytest.mark.parametrize("flags", [dict(fuse_gn_silu=True), dict(fuse_conv=True)])
+def test_graphed_chain_equals_the_eager_chain(gen, flags, sampler):
+    """make_synthesis_fn on the card with cuda_graph=False and True, on one
+    generator seed: the same image bit for bit, on the first graphed call
+    (two warm-up steps, the capture, replays) and on the second (replays
+    only), and for ddpm with chunk 4 (a ragged last segment); the same
+    launches per volume on both paths, by wrapper and by kernel."""
+    from fast_cwdm_tpu_torch import ops
+
+    model, diffusion, cond, mask = _graph_case(flags)
+    runs = {"eager": common.make_synthesis_fn(model, diffusion, crop_z=32, sampler=sampler,
+                                              sampler_steps=4, device="cuda", cuda_graph=False),
+            "graph": common.make_synthesis_fn(model, diffusion, crop_z=32, sampler=sampler,
+                                              sampler_steps=4, device="cuda")}
+    if sampler == "ddpm":
+        runs["graph_chunk_4"] = common.make_synthesis_fn(model, diffusion, crop_z=32, chunk=4,
+                                                         device="cuda")
+    imgs, counts = {}, {}
+    for name, run in runs.items():
+        for k in range(2):
+            ops.set_launch_counts(dict.fromkeys(ops.launch_counts(), 0))
+            imgs[name, k] = run(cond, mask, torch.Generator(device="cuda").manual_seed(3))
+            torch.cuda.synchronize()
+            counts[name, k] = ops.launch_counts()
+    assert runs["eager"].chain is None and runs["graph"].chain.graph.graph is not None
+    ref = imgs["eager", 0]
+    assert ref.shape == (1, 64, 64, 32) and ref.max() > 0.0
+    for key, img in imgs.items():
+        assert np.array_equal(img, ref), (key, float(np.abs(img - ref).max()))
+        assert counts[key] == counts["eager", 0], (key, counts[key], counts["eager", 0])
+    site = "conv3d_fused_k4b" if flags.get("fuse_conv") else "affine_silu"
+    assert counts["eager", 0][site] > 0
+    if flags.get("fuse_conv"):
+        assert counts["eager", 0]["conv3d_wgmma"] > 0 and counts["eager", 0]["conv3d_splitk"] > 0
+
+
+def test_a_failed_capture_raises(gen):
+    """A step that copies from host memory cannot be captured: the graphed
+    chain raises at the capture (after the two eager warm-up steps) and
+    returns nothing, and it does not run the eager loop instead."""
+    model, diffusion, cond, mask = _graph_case(dict(fuse_gn_silu=True))
+
+    class HostCopy(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, x, t):
+            return self.inner(x, t) + torch.from_numpy(np.zeros(1, np.float32)).to(x.device)
+
+    run = common.make_synthesis_fn(HostCopy(model), diffusion, crop_z=32, device="cuda")
+    with pytest.raises(RuntimeError):
+        run(cond, mask, torch.Generator(device="cuda").manual_seed(0))
+    assert run.chain.graph.warmups == 2 and run.chain.graph.graph is None
