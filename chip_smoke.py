@@ -65,7 +65,21 @@ Phases, each printing one JSON object per line:
 8. reference— the whole synthesis at a tiny fp32 config on the card,
               graphed and eager, against the same on the CPU (plain
               versions), same noise: fuse_gn_silu under ddpm, and
-              fuse_conv under ddpm, ddim and dpm++.
+              fuse_conv under ddpm, ddim and dpm++;
+9. evaluation— the BraSyn evaluation chain at full size through the
+              port's entry points: ``scripts.quality_bench`` stage gen (2
+              train and 4 val 240×240×155 phantoms), ``run.sh --mode
+              train`` (4 steps: K1 5, K2 1 per step), stage eval (copy
+              rows equal to QUALITY_r04.json's within 1e-9; a 4-step
+              model's rows, finite), ``cli.drop_modality``, ``run.sh
+              --mode complete`` as written (3 K1 + 1 K2 per case) and with
+              fuse_conv + dpm++ 10 (540 K4b per case: 300 wgmma, 240
+              split-K), ``cli.prepare_nnunet_dataset``, ``run.sh --mode
+              sample`` + ``cli.evaluate_synthesis`` on the card,
+              ``scripts.downstream_bench`` (real leg and GT region means
+              equal to the JAX records within 1e-12), and ``ssim3d`` /
+              ``psnr`` on the card against the CPU (≤ 1e-10) with both
+              times.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits nonzero before
@@ -831,12 +845,13 @@ def same_tree(np, a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
 
 
-def check_synthesized(np, src: str, out_path: str, case: str) -> dict:
+def check_synthesized(np, src: str, out_path: str, case: str, mask_mod: str = "t1n") -> dict:
     """A synthesized volume at the source's shape and affine, finite, in
-    [0,1], zero outside the brain mask and in the 8-voxel X/Y border."""
+    [0,1], zero outside the brain mask (of ``mask_mod``, the first condition
+    modality) and in the 8-voxel X/Y border."""
     from fast_cwdm_tpu_torch.data import brats, nifti
 
-    t1n = os.path.join(src, f"BraTS-GLI-{case}-000-t1n.nii.gz")
+    t1n = os.path.join(src, f"BraTS-GLI-{case}-000-{mask_mod}.nii.gz")
     head = nifti.load_header(t1n)
     img = nifti.load(out_path)
     vol = img.get_fdata()
@@ -871,7 +886,10 @@ def check_completed(np, in_dir: str, out_dir: str, case: str, missing: str | Non
         if names != sorted(os.listdir(src)):
             fail(f"the complete case {case} was not passed through as it was: {names}")
         return {"passed_through": names}
-    return check_synthesized(np, src, os.path.join(out, f"{case}-{missing}.nii.gz"), case)
+    from fast_cwdm_tpu_torch.diffusion.gaussian import condition_order
+
+    return check_synthesized(np, src, os.path.join(out, f"{case}-{missing}.nii.gz"), case,
+                             mask_mod=condition_order(missing)[0])
 
 
 def phase_completion(torch, tmp: str) -> dict:
@@ -1315,6 +1333,304 @@ def phase_reference(torch) -> dict:
     return res
 
 
+# the model-free anchors of the JAX package's quality records: the copy rows
+# of QUALITY_r04.json and the real leg of QUALITY_downstream_r04.json (the
+# same in every r04/r05 downstream record), and the GT region means of the
+# r05 records
+QUALITY_RECORD = "QUALITY_r04.json"
+DOWNSTREAM_RECORD = "QUALITY_downstream_r04.json"
+REGION_RECORD = "QUALITY_downstream_sampled10_r05.json"
+EVAL_TRAIN_STEPS = 4  # run.sh --mode train, cut from 5,000
+
+
+def start_run_sh(tmp: str, name: str, *args: str) -> tuple:
+    """Start ``fast_cwdm_tpu_torch/run.sh`` with ``args`` in a child process
+    (its ``python`` this interpreter), each CLI process it runs appending
+    its launch counts to a file of run ``name``'s own at exit."""
+    bin_dir = os.path.join(tmp, "bin")
+    python = os.path.join(bin_dir, "python")
+    if not os.path.exists(python):
+        os.makedirs(bin_dir, exist_ok=True)
+        with open(python, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(python, 0o755)
+    counts_file = os.path.join(tmp, f"counts_{name}.jsonl")
+    env = dict(os.environ, PATH=f"{bin_dir}:{os.environ.get('PATH', '')}",
+               FAST_CWDM_LAUNCH_COUNTS=counts_file,
+               OPENAI_LOGDIR=os.path.join(tmp, "log", name), OPENAI_LOG_FORMAT="log,csv")
+    cmd = ["bash", os.path.join(REPO, "fast_cwdm_tpu_torch", "run.sh"), *args]
+    out, err = (open(os.path.join(tmp, f"run_{name}.{x}"), "w+") for x in ("out", "err"))
+    return args, subprocess.Popen(cmd, env=env, stdout=out, stderr=err), counts_file, out, err
+
+
+def finish_run_sh(run: tuple) -> tuple[list, str]:
+    """Wait for a run of :func:`start_run_sh`; the launch counts of each CLI
+    process it ran, and its stdout. Fails on a nonzero exit."""
+    args, proc, counts_file, out, err = run
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    if rc != 0:
+        fail(f"run.sh {' '.join(args)} exited {rc}: {stdout[-2000:]} {stderr[-3000:]}")
+    with open(counts_file) as f:
+        return [json.loads(line) for line in f], stdout
+
+
+def expect_counts(name: str, got: dict, want: dict) -> None:
+    bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+    if bad:
+        fail(f"{name}: launches (got, expected) {bad}; all counts {got}")
+
+
+def phase_evaluation(torch, tmp: str) -> dict:
+    """The BraSyn evaluation chain at full size (240×240×155 phantoms, the
+    production config of run.sh's COMMON bundle, bf16), through the port's
+    entry points: ``scripts.quality_bench`` stage gen (2 train and 4 val
+    phantoms, val seeds 10000-10003); ``run.sh --mode train`` (t1c, sampled
+    10, 4 steps: K1 5 and K2 1 per step) into the bench's
+    ``ckpt_sampled_10``; ``quality_bench`` stage eval (copy rows equal to
+    QUALITY_r04.json's within 1e-9; legs sampled-10 and +ema, a 4-step
+    pipeline check whose quality means nothing); ``cli.drop_modality``
+    (seed 123456); then at once, in three children and this process:
+    ``run.sh --mode complete`` from the trained weights (under the name of
+    every modality the draw dropped), as written (3 K1 + 1 K2 per case) and
+    with ``fuse_conv`` in the sidecars and dpm++ 10 (540 K4b per case: 300
+    wgmma, 240 split-K), ``run.sh --mode sample``, and
+    ``scripts.downstream_bench`` (real leg and GT region means equal to the
+    JAX records within 1e-12); then ``cli.prepare_nnunet_dataset``,
+    ``cli.evaluate_synthesis --mode direct`` on the card on the sampled
+    tree, and ``ssim3d``/``psnr`` on the card against the same functions on
+    the CPU for one full-size pair."""
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.cli import drop_modality, prepare_nnunet_dataset
+    from fast_cwdm_tpu_torch.cli import evaluate_synthesis as ev
+    from fast_cwdm_tpu_torch.data import nifti
+    from fast_cwdm_tpu_torch.scripts import downstream_bench, quality_bench
+    from fast_cwdm_tpu_torch.training import checkpoints
+
+    with open(os.path.join(REPO, QUALITY_RECORD)) as f:
+        copy_ref = {r["leg"]: r for r in json.load(f)["rows"] if r["model"] == "-"}
+    with open(os.path.join(REPO, DOWNSTREAM_RECORD)) as f:
+        real_ref = json.load(f)["legs"]["real"]
+    with open(os.path.join(REPO, REGION_RECORD)) as f:
+        region_ref = json.load(f)["gt_region_means"]
+    res, seconds = {}, {}
+    work = os.path.join(tmp, "qb")
+    qb_flags = [f"--workdir={work}", "--train_cases=2", "--val_cases=4",
+                "--schedules=sampled:10"]
+    t0 = time.perf_counter()
+
+    # 1. phantoms
+    quality_bench.main(qb_flags + ["--stages=gen"])
+    train_dir, val_dir = os.path.join(work, "train"), os.path.join(work, "val")
+    cases = sorted(d for d in os.listdir(val_dir) if os.path.isdir(os.path.join(val_dir, d)))
+    if cases != ["10000", "10001", "10002", "10003"] or len(os.listdir(train_dir)) != 3:
+        fail(f"stage gen wrote {cases} and {sorted(os.listdir(train_dir))}")
+    seconds["gen"] = time.perf_counter() - t0
+
+    # 2. training through run.sh, into the bench's checkpoint directory
+    t1 = time.perf_counter()
+    ckpt_dir = quality_bench.ckpt_dir_for(quality_bench.parse_args(qb_flags), "sampled", 10)
+    n = EVAL_TRAIN_STEPS
+    procs, out = finish_run_sh(start_run_sh(
+        tmp, "train", "--mode", "train", "--train_modality", "t1c",
+        "--sampling-strategy", "sampled", "--timesteps", "10", "--data_dir", train_dir,
+        "--checkpoint_dir", ckpt_dir, "--extra",
+        f"--lr_anneal_steps={n} --log_interval=1 --save_interval={n}"))
+    idle = {"affine_silu": 0, "affine_silu_bwd": 0, "conv3d_fused_k4a": 0, "conv3d_fused_k4b": 0,
+            "conv3d_fused_v4": 0, "conv3d_wgmma": 0, "conv3d_splitk": 0, "conv3d_mma_sync": 0}
+    if len(procs) != 1 or "[TIMING] Training for t1c completed" not in out:
+        fail(f"run.sh --mode train: {procs} {out[-2000:]}")
+    expect_counts("run.sh --mode train", procs[0]["launches"],
+                  dict(idle, haar_dwt3=5 * n, haar_idwt3=n))
+    found = checkpoints.find_best_checkpoint(ckpt_dir, "t1c")
+    cfg = checkpoints.load_checkpoint_config(found[0]) if found else {}
+    if not found or cfg.get("step") != n or found[1:] != ("sampled", 10):
+        fail(f"run.sh --mode train wrote no BEST at step {n}: {found} {cfg}")
+    best = found[0]
+    res["train"] = {"best": os.path.basename(best), "bytes": os.path.getsize(best),
+                    "launches_per_step": {k: v / n for k, v in procs[0]["launches"].items()}}
+    seconds["train"] = time.perf_counter() - t1
+
+    # 3. quality_bench stage eval on the card
+    t1 = time.perf_counter()
+    reset_counts()
+    rows = quality_bench.main(qb_flags + ["--stages=eval"])
+    torch.cuda.synchronize()
+    got = read_counts()
+    expect_counts("quality_bench stage eval", got,
+                  dict(idle, haar_dwt3=2 * 3 * len(cases), haar_idwt3=2 * len(cases)))
+    by_leg = {r["leg"]: r for r in rows}
+    if list(by_leg) != ["copy-t1n", "copy-t2w", "copy-t2f", "sampled-10", "sampled-10+ema"]:
+        fail(f"stage eval rows: {list(by_leg)}")
+    res["copy_rows_vs_record"] = {
+        leg: {k: by_leg[leg][k] - copy_ref[leg][k] for k in ("ssim_mean", "ssim_min", "psnr_mean")}
+        for leg in ("copy-t1n", "copy-t2w", "copy-t2f")}
+    worst = max(abs(d) for v in res["copy_rows_vs_record"].values() for d in v.values())
+    res["copy_rows_max_abs_diff_vs_record"] = worst
+    if not worst <= 1e-9:
+        fail(f"the copy rows differ from {QUALITY_RECORD}: {res['copy_rows_vs_record']}")
+    for leg in ("sampled-10", "sampled-10+ema"):
+        r = by_leg[leg]
+        if not (all(-1.0 <= r[k] <= 1.0 for k in ("ssim_mean", "ssim_min"))
+                and math.isfinite(r["psnr_mean"]) and r["s_per_volume"] > 0):
+            fail(f"model row {leg}: {r}")
+    res["quality_rows"] = rows
+    res["quality_launches"] = got
+    seconds["quality_eval"] = time.perf_counter() - t1
+
+    # 4. drop_modality; then three run.sh children at once: completion from
+    # the trained weights under the name of every modality (the draw drops
+    # t1c, t1n and t2f), as written (a) and with fuse_conv in the sidecars
+    # and dpm++ 10 (b), and run.sh --mode sample; meanwhile downstream_bench
+    # in this process (its launches are this process's counts, each child's
+    # its own). Nothing of theirs is timed: only the host start-up overlaps.
+    t1 = time.perf_counter()
+    drop_dir = os.path.join(tmp, "dropped")
+    drop_modality.main([f"--input_dir={val_dir}", f"--output_dir={drop_dir}"])
+    missing = {}
+    for case in cases:
+        marks = [f for f in os.listdir(os.path.join(drop_dir, case)) if f.startswith("missing_")]
+        missing[case] = marks[0][len("missing_"):-len(".txt")]
+    res["dropped"] = missing
+    with open(best + ".json") as f:
+        sidecar = json.load(f)
+    runs = {"complete_a": ([], {}, dict(idle, haar_dwt3=3 * len(cases), haar_idwt3=len(cases))),
+            "complete_b": (["--extra", "--sampler=dpm++ --sampling_steps=10"], {"fuse_conv": True},
+                           dict(idle, haar_dwt3=3 * len(cases), haar_idwt3=len(cases),
+                                conv3d_fused_k4b=540 * len(cases), conv3d_wgmma=300 * len(cases),
+                                conv3d_splitk=240 * len(cases)))}
+    samp = os.path.join(tmp, "sampled")
+    torch.cuda.empty_cache()  # the children share the card with this process
+    started = {}
+    try:
+        for name, (extra, side, _) in runs.items():
+            cdir = os.path.join(tmp, f"ckpt_{name}")
+            os.makedirs(cdir)
+            for m in ("t1n", "t1c", "t2w", "t2f"):
+                dst = os.path.join(cdir, checkpoints.best_checkpoint_name(m, "sampled", 10))
+                os.link(best, dst)
+                with open(dst + ".json", "w") as f:
+                    json.dump(dict(sidecar, contr=m, **side), f, indent=2)
+            started[name] = start_run_sh(tmp, name, "--mode", "complete", "--val_dir", drop_dir,
+                                         "--output_dir", os.path.join(tmp, name),
+                                         "--checkpoint_dir", cdir, *extra)
+        started["sample"] = start_run_sh(
+            tmp, "sample", "--mode", "sample", "--train_modality", "t1c",
+            "--sampling-strategy", "sampled", "--timesteps", "10",
+            "--val_dir", val_dir, "--output_dir", samp, "--checkpoint_dir", ckpt_dir)
+
+        # 5. downstream_bench on the same val tree and checkpoint
+        reset_counts()
+        down = downstream_bench.main([f"--workdir={os.path.join(tmp, 'downstream')}",
+                                      f"--val_dir={val_dir}", f"--checkpoint_dir={ckpt_dir}",
+                                      "--sampler=dpm++", "--sampling_steps=10"])
+        torch.cuda.synchronize()
+        got = read_counts()
+        finished = {name: finish_run_sh(run) for name, run in started.items()}
+    finally:
+        for run in started.values():  # a failure stops every child
+            if run[1].poll() is None:
+                run[1].kill()
+                run[1].wait()
+    expect_counts("downstream_bench", got,
+                  dict(idle, haar_dwt3=3 * len(cases), haar_idwt3=len(cases)))
+    real = down["legs"]["real"]
+    res["downstream"] = {
+        "device": down["device"], "real": {k: real[k] for k in ("n", "dice_mean", "dice_mean_ref")},
+        "real_vs_record": {k: real[k] - real_ref[k] for k in ("dice_mean", "dice_mean_ref")},
+        "gt_region_means": down["gt_region_means"],
+        "gt_region_means_vs_record": {k: down["gt_region_means"][k] - v
+                                      for k, v in region_ref.items()},
+        "synth": {k: down["legs"]["synth_dpm++-10"][k] for k in ("n", "dice_mean")},
+        "agreement": down["agreement"]}
+    diffs = list(res["downstream"]["real_vs_record"].values()) + list(
+        res["downstream"]["gt_region_means_vs_record"].values())
+    if real["n"] != real_ref["n"] or not max(abs(d) for d in diffs) <= 1e-12:
+        fail(f"the downstream real leg or GT region means differ from the records: "
+             f"{res['downstream']}")
+    models = len(set(missing.values()))
+    for name, (_, _, want) in runs.items():
+        procs, out = finished[name]
+        if len(procs) != 1 or f"done: {len(cases)} ok, 0 failed" not in out:
+            fail(f"run.sh --mode complete ({name}): {out[-2000:]}")
+        expect_counts(f"run.sh --mode complete ({name})", procs[0]["launches"], want)
+        graph = {"captures": models, "replays": 10 * len(cases) - 2 * models}
+        if procs[0]["graph"] != graph:
+            fail(f"{name}: graph counts {procs[0]['graph']}, expected {graph}")
+        res[name] = {"launches_per_case": {k: v / len(cases) for k, v in procs[0]["launches"].items()},
+                     "graph": procs[0]["graph"],
+                     "outputs": {c: check_completed(np, drop_dir, os.path.join(tmp, name), c, m)
+                                 for c, m in missing.items()}}
+    procs, _ = finished["sample"]
+    expect_counts("run.sh --mode sample", procs[0]["launches"],
+                  dict(idle, haar_dwt3=3 * len(cases), haar_idwt3=len(cases)))
+    seconds["drop_complete_sample_downstream"] = time.perf_counter() - t1
+
+    # 6. nnU-Net layout of the completed tree
+    t1 = time.perf_counter()
+    raw = os.path.join(tmp, "nnunet_raw")
+    prepare_nnunet_dataset.main([f"--input_dir={os.path.join(tmp, 'complete_a')}",
+                                 f"--nnunet_raw={raw}"])
+    ds = os.path.join(raw, "Dataset137_BraTS2023")
+    with open(os.path.join(ds, "dataset.json")) as f:
+        n_train = json.load(f)["numTraining"]
+    images, labels = sorted(os.listdir(os.path.join(ds, "imagesTr"))), os.listdir(
+        os.path.join(ds, "labelsTr"))
+    if n_train != len(cases) or len(images) != 4 * len(cases) or len(labels) != len(cases):
+        fail(f"prepare_nnunet_dataset: {n_train} cases, {len(images)} images, {len(labels)} labels")
+    res["nnunet"] = {"numTraining": n_train, "images": len(images), "labels": len(labels)}
+    seconds["nnunet"] = time.perf_counter() - t1
+
+    # 7. evaluate_synthesis --mode direct on the card, on run.sh --mode
+    # sample's output, alone on the machine (its s/case is reported)
+    t1 = time.perf_counter()
+    report = ev.main(["--mode=direct", f"--sample_dir={samp}",
+                      f"--report={os.path.join(tmp, 'evaluation_report.json')}"])
+    eval_s = time.perf_counter() - t1
+    if report["n"] != len(cases) or not all(
+            -1.0 <= r["ssim"] <= 1.0 and math.isfinite(r["psnr"]) for r in report["cases"]):
+        fail(f"evaluate_synthesis: {report}")
+    res["sample_evaluate"] = {"report": {k: v for k, v in report.items() if k != "cases"},
+                              "evaluate_s_per_case": eval_s / len(cases)}
+    seconds["evaluate"] = eval_s
+
+    # 8. ssim3d / psnr on the card against the CPU, one full-size pair
+    t1 = time.perf_counter()
+    s = nifti.load(os.path.join(samp, cases[0], "sample.nii.gz")).get_fdata()
+    g = nifti.load(os.path.join(samp, cases[0], "target.nii.gz")).get_fdata()
+    on = {dev: (torch.from_numpy(s).to(dev), torch.from_numpy(g).to(dev)) for dev in ("cpu", "cuda")}
+    vals, ms = {}, {}
+    for dev, (a, b) in on.items():
+        times = []
+        for _ in range(3 if dev == "cuda" else 1):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            vals[dev] = (ev.ssim3d(a, b), ev.psnr(a, b))  # float() synchronises
+            times.append((time.perf_counter() - t2) * 1e3)
+        ms[dev] = min(times)
+    res["metric_card_vs_cpu"] = {
+        "shape": list(s.shape), "ssim": vals, "ms_ssim_psnr": ms,
+        "ssim_abs_diff": abs(vals["cuda"][0] - vals["cpu"][0]),
+        "psnr_abs_diff": abs(vals["cuda"][1] - vals["cpu"][1])}
+    if not (res["metric_card_vs_cpu"]["ssim_abs_diff"] <= 1e-10
+            and res["metric_card_vs_cpu"]["psnr_abs_diff"] <= 1e-10):
+        fail(f"ssim3d/psnr on the card differ from the CPU: {res['metric_card_vs_cpu']}")
+    seconds["metric_card_vs_cpu"] = time.perf_counter() - t1
+    res["seconds_by_step"] = seconds
+    return res
+
+
 # the conv entries run on one of three hand-written kernels, by
 # conv3d_cuda.route
 CONV_SOURCES = ("fast_cwdm_tpu_torch/ops/csrc/conv3d_wgmma.cu (bf16, wgmma, levels 0-2) + "
@@ -1401,6 +1717,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ref = phase_reference(torch)
     emit({"phase": "reference", "seconds": time.perf_counter() - t0, **ref})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        evaluation = phase_evaluation(torch, tmp)
+    emit({"phase": "evaluation", "gpu": smi, "seconds": time.perf_counter() - t0, **evaluation})
 
     line = []
     for name, (source, replaces, key) in KERNELS.items():
@@ -1427,7 +1747,12 @@ def main(argv=None) -> int:
             **{run: comp[run]["launches"][name] // len(comp[run]["s_per_case"])
                for run in ("complete_a", "complete_b", "sample_auto")},
             **{f"train_{run}_per_step": train[run]["launches_per_step"][name]
-               for run in ("unfused", "fuse_gn_silu")}}
+               for run in ("unfused", "fuse_gn_silu")},
+            # phase evaluation: run.sh --mode train per step, run.sh --mode
+            # complete per case as written (a) and with fuse_conv (b)
+            "evaluation_train_per_step": evaluation["train"]["launches_per_step"][name],
+            **{f"evaluation_{run}_per_case": evaluation[run]["launches_per_case"][name]
+               for run in ("complete_a", "complete_b")}}
         if name.startswith("conv3d"):
             line[-1]["launches_by_kernel"] = {
                 kn: conv_counts[f"conv3d_{kn}"] for kn in ("wgmma", "splitk", "mma_sync")}

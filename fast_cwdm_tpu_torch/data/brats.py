@@ -5,6 +5,14 @@ collation of training, and the un-crop back to the raw geometry (port of
 Preprocessing: quantile clip (0.001/0.999) → min-max to [0,1] → zero-pad Z
 155→160 → crop X,Y 240→224 (``[8:-8, 8:-8]``); output channels-last
 ``(224, 224, 160, 1)`` float32. Seg labels keep their raw values (uint8).
+
+The JAX package preprocesses on one of two paths: its C++ decoder
+(``data/native/fastnifti.cpp``, in float32, the default wherever it
+builds) or its numpy reader (float64, where the decoder does not build);
+the two differ in the last float32 bit. ``load_preprocessed`` takes the
+default one: the float32 arithmetic of the C++ path, operation for
+operation in numpy (bit for bit). Only a datatype the decoder does not
+read takes the float64 path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +40,58 @@ def clip_and_normalize(img: np.ndarray) -> np.ndarray:
     return (img_clipped - lo) / (hi - lo)
 
 
+def _quantiles_float32(flat: np.ndarray, qs) -> list:
+    """The C++ path's quantiles of a float32 array: numpy's linear
+    interpolation between two order statistics, the difference taken in
+    float32 and the rest in double, rounded to float32."""
+    n = flat.size
+    poss = [q * (n - 1) for q in qs]
+    kth = sorted({k for pos in poss for k in (int(pos), min(int(pos) + 1, n - 1))})
+    part = np.partition(flat, kth)
+    out = []
+    for pos in poss:
+        lo = int(pos)
+        vlo, vhi = part[lo], part[min(lo + 1, n - 1)]
+        out.append(np.float32(float(vlo) + (pos - lo) * float(vhi - vlo)))
+    return out
+
+
+def clip_and_normalize_float32(img: np.ndarray) -> np.ndarray:
+    """:func:`clip_and_normalize` in the C++ path's float32 arithmetic:
+    clip to the float32 quantiles, then ``(x - min) · (1 / (max - min))``."""
+    v = np.asarray(img, dtype=np.float32)
+    lo, hi = _quantiles_float32(v.reshape(-1, order="A"), (0.001, 0.999))
+    v = np.clip(v, lo, hi)
+    mn, mx = v.min(), v.max()
+    rng = np.float32(mx - mn)
+    if not rng > 0:  # constant (e.g. blank) volume: zeros
+        return np.zeros_like(v)
+    return (v - mn) * (np.float32(1.0) / rng)
+
+
+# NIfTI datatypes the C++ decoder reads; the others take the float64 path
+_FLOAT32_PATH_DTYPES = frozenset(np.dtype(t).newbyteorder("=") for t in (
+    np.uint8, np.int8, np.int16, np.uint16, np.int32, np.uint32, np.float32, np.float64))
+
+
+def _load_float32(path: str) -> np.ndarray | None:
+    """The voxels as the C++ decoder converts them: cast to float32, then
+    ``x · slope + inter`` in float32 where the header scales (a NaN slope or
+    intercept counts as 0; slope 0 means no scaling); None for a datatype it
+    does not read."""
+    img = nifti.load(path)
+    raw = img.dataobj
+    if raw.dtype.newbyteorder("=") not in _FLOAT32_PATH_DTYPES:
+        return None
+    x = raw.astype(np.float32)
+    slope, inter = np.float32(img.header.scl_slope), np.float32(img.header.scl_inter)
+    slope = np.float32(0.0) if np.isnan(slope) else slope
+    inter = np.float32(0.0) if np.isnan(inter) else inter
+    if slope != 0 and (slope != 1 or inter != 0):
+        x = x * slope + inter
+    return x
+
+
 def pad_crop(vol: np.ndarray) -> np.ndarray:
     """Pad Z to 160 → crop X,Y by 8 → (X', Y', Z', 1) float32."""
     out = np.zeros((vol.shape[0], vol.shape[1], PADDED_Z), dtype=np.float32)
@@ -45,6 +105,12 @@ def preprocess_volume(vol: np.ndarray) -> np.ndarray:
 
 
 def load_preprocessed(path: str) -> np.ndarray:
+    """Load and preprocess one modality volume on the JAX package's default
+    path (float32, as its C++ decoder); a datatype that decoder does not
+    read takes the float64 numpy path."""
+    vol = _load_float32(path)
+    if vol is not None:
+        return pad_crop(clip_and_normalize_float32(vol))
     return preprocess_volume(nifti.load(path).get_fdata())
 
 

@@ -165,6 +165,7 @@ def prefetch_to_device(iterator: Iterable, *, size: int = 2,
         return False
 
     def producer():
+        it = None
         try:
             it = iter(iterator)
             while not stop.is_set():
@@ -181,9 +182,13 @@ def prefetch_to_device(iterator: Iterable, *, size: int = 2,
         except BaseException as e:  # noqa: BLE001 — re-raised by the consumer
             failure.append(e)
         finally:
+            # an upstream generator (the loader's worker threads) stops here
+            # too, not at interpreter exit
+            getattr(it, "close", lambda: None)()
             offer(sentinel)
 
-    threading.Thread(target=producer, daemon=True, name="h2d-prefetch").start()
+    thread = threading.Thread(target=producer, daemon=True, name="h2d-prefetch")
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -200,6 +205,9 @@ def prefetch_to_device(iterator: Iterable, *, size: int = 2,
             yield out
     finally:
         stop.set()
+        # a producer still inside a torch call when the interpreter exits
+        # aborts the process ("terminate called without an active exception")
+        thread.join(timeout=60)
 
 
 def device_resident_batches(dataset, batch_size: int, *, device: str | torch.device,

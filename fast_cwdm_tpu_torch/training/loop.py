@@ -285,6 +285,14 @@ class TrainLoop:
             put = lambda b: b  # noqa: E731 — already on the device
         else:
             put = lambda b: to_device(b, self.device)  # noqa: E731
+        try:
+            return self._steps(data_iter, put, preempted)
+        finally:
+            # stop the loader and prefetch threads before returning, so none
+            # is still running when the process exits
+            data_iter.close()
+
+    def _steps(self, data_iter, put, preempted: list) -> TrainState:
         t_data = t_step = t_log = t_save = 0.0
         last_metrics = None
         step = self.resume_step

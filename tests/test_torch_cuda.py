@@ -670,3 +670,29 @@ def test_a_failed_capture_raises(gen):
     with pytest.raises(RuntimeError):
         run(cond, mask, torch.Generator(device="cuda").manual_seed(0))
     assert run.chain.graph.warmups == 2 and run.chain.graph.graph is None
+
+
+def test_ssim3d_and_psnr_on_the_card_match_the_cpu(gen, tmp_path):
+    """The evaluation metrics compute in float64 on the device of their
+    inputs; the card agrees with the CPU, and evaluate_cases too."""
+    from fast_cwdm_tpu_torch.cli import evaluate_synthesis as ev
+
+    a = torch.rand((40, 36, 30), generator=gen, device="cuda", dtype=torch.float64)
+    b = (a + 0.1 * torch.randn(a.shape, generator=gen, device="cuda", dtype=torch.float64)).clamp(0, 1)
+    for win in (3, 7, 9):
+        assert abs(ev.ssim3d(a, b, win=win) - ev.ssim3d(a.cpu(), b.cpu(), win=win)) <= 1e-12
+    assert abs(ev.psnr(a, b) - ev.psnr(a.cpu(), b.cpu())) <= 1e-10
+    assert abs(ev.ssim3d(a.float(), b.float()) - ev.ssim3d(a.float().cpu(), b.float().cpu())) <= 1e-12
+    for i in range(2):
+        d = tmp_path / f"case{i}"
+        d.mkdir()
+        for name, v in (("sample", b), ("target", a)):
+            nifti.save(nifti.Nifti1Image((v + 0.01 * i).float().cpu().numpy(), np.eye(4)),
+                       str(d / f"{name}.nii.gz"))
+    card, cpu = ev.evaluate_cases(str(tmp_path), device="cuda"), ev.evaluate_cases(str(tmp_path),
+                                                                                  device="cpu")
+    assert card["n"] == cpu["n"] == 2
+    for r, c in zip(card["cases"], cpu["cases"]):
+        assert r["case"] == c["case"]
+        for k in ("ssim", "psnr", "mse"):
+            assert abs(r[k] - c[k]) <= 1e-10, (k, r, c)
