@@ -79,7 +79,27 @@ Phases, each printing one JSON object per line:
               ``scripts.downstream_bench`` (real leg and GT region means
               equal to the JAX records within 1e-12), and ``ssim3d`` /
               ``psnr`` on the card against the CPU (≤ 1e-10) with both
-              times.
+              times;
+10. models  — the rest of the network surface: (a) ``cli.train`` with
+              run.sh's flags and ``--use_freq=True --channel_mult=1,2,2,4``
+              (the 54,285,640-parameter WavUNet) on two 240×240×155
+              cases, 3 steps and a BEST (K1 5, K2 1 per step), then
+              ``cli.sample`` from that BEST with run.sh's COMMON flags
+              (the sidecar brings use_freq back; 3 K1 + 1 K2, the
+              captured chain), ``make_synthesis_fn`` eager against
+              graphed (bit for bit) and the device ms of its plain
+              multi-channel Haar transforms in a forward; (b) the
+              production UNet with attention at ds 8 and 16 and in the
+              bottleneck (4 heads), seeded weights written as a
+              JAX-layout ``.ckpt`` and read back bit for bit,
+              ``cli.sample`` unfused ddpm and ``fuse_conv`` dpm++ 10 (540
+              K4b: 300 wgmma, 240 split-K), eager against graphed for
+              both, ms/forward beside the production forward's; (c) every
+              new module at a tiny fp32 size (attention in both head
+              orders and with num_head_channels, class-conditional UNet
+              and WavUNet, the WavUNet's double run, the encoder's three
+              pools, SuperResModel, both gating blocks) on the card
+              against the CPU (≤ 1e-4, TF32 off).
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits nonzero before
@@ -892,6 +912,12 @@ def check_completed(np, in_dir: str, out_dir: str, case: str, missing: str | Non
                              mask_mod=condition_order(missing)[0])
 
 
+# every launch counter but K1's and K2's, at 0: a path that launches none
+# of K3, its VJP or the fused conv
+IDLE = {"affine_silu": 0, "affine_silu_bwd": 0, "conv3d_fused_k4a": 0, "conv3d_fused_k4b": 0,
+        "conv3d_fused_v4": 0, "conv3d_wgmma": 0, "conv3d_splitk": 0, "conv3d_mma_sync": 0}
+
+
 def phase_completion(torch, tmp: str) -> dict:
     """The production weights as a JAX-layout ``.ckpt`` (one EMA shadow equal
     to the params, a sidecar as the JAX package writes it), written and read
@@ -952,13 +978,11 @@ def phase_completion(torch, tmp: str) -> dict:
         return out_dir, got, counts
 
     flags = [f"--input_dir={in_dir}", f"--checkpoint_dir={ckpt_dir}", "--seed=0"]
-    idle = {"affine_silu": 0, "conv3d_fused_k4a": 0, "conv3d_fused_k4b": 0, "conv3d_fused_v4": 0,
-            "conv3d_wgmma": 0, "conv3d_splitk": 0, "conv3d_mma_sync": 0}
     haar = {"haar_dwt3": 3 * n_synth, "haar_idwt3": n_synth}
     runs = {
-        "complete_a": ([], dict(idle, **haar)),
+        "complete_a": ([], dict(IDLE, **haar)),
         "complete_b": (["--sampler=dpm++", "--sampling_steps=10"],
-                       dict(idle, **haar, conv3d_fused_k4b=540 * n_synth,
+                       dict(IDLE, **haar, conv3d_fused_k4b=540 * n_synth,
                             conv3d_wgmma=300 * n_synth, conv3d_splitk=240 * n_synth)),
     }
     vols = {}
@@ -983,7 +1007,7 @@ def phase_completion(torch, tmp: str) -> dict:
         json.dump(sidecar, f, indent=2)
     out_dir, got, counts = run("sample_auto", sample_auto.main,
                                [f"--data_dir={in_dir}", f"--checkpoint_dir={ckpt_dir}",
-                                "--dtype=bfloat16"], dict(idle, **haar))
+                                "--dtype=bfloat16"], dict(IDLE, **haar))
     if (got["done"], got["skipped"], got["failed"]) != (n_synth, len(cases) - n_synth, 0) \
             or sorted(os.listdir(out_dir)) != sorted(c for c, m in cases.items() if m):
         fail(f"sample_auto: {got}, wrote {sorted(os.listdir(out_dir))}")
@@ -1087,17 +1111,22 @@ def phase_vjp_kernel(torch) -> dict:
     )
 
 
+# run.sh's COMMON flags, with the 10-step sampled schedule
+COMMON_FLAGS = dict(
+    dims=3, num_groups=32, num_channels=64, num_res_blocks=2, channel_mult="1,2,2,4,4",
+    attention_resolutions="", bottleneck_attention=False, image_size=112, in_channels=32,
+    out_channels=8, resample_2d=False, use_scale_shift_norm=False, additive_skips=False,
+    diffusion_steps=10, sample_schedule="sampled", noise_schedule="linear",
+    predict_xstart=True, mode="i2i", dataset="brats", dtype="bfloat16",
+)
+
+
 def train_flags(data_dir: str, ckpt_dir: str, steps: int, **extra) -> list:
     """``run.sh``'s COMMON and TRAIN flags for ``cli.train`` (contr t1c),
     cut to ``steps`` optimizer steps with a BEST save at the last, a log
     line every step, the 10-step sampled schedule and the cached dataset."""
     flags = dict(
-        # COMMON
-        dims=3, num_groups=32, num_channels=64, num_res_blocks=2, channel_mult="1,2,2,4,4",
-        attention_resolutions="", bottleneck_attention=False, image_size=112, in_channels=32,
-        out_channels=8, resample_2d=False, use_scale_shift_norm=False, additive_skips=False,
-        diffusion_steps=10, sample_schedule="sampled", noise_schedule="linear",
-        predict_xstart=True, mode="i2i", dataset="brats", dtype="bfloat16",
+        COMMON_FLAGS,
         # TRAIN
         data_dir=data_dir, lr=1e-5, batch_size=1, log_interval=1, save_interval=steps,
         lr_anneal_steps=steps, use_checkpoint=True, num_workers=12, checkpoint_dir=ckpt_dir,
@@ -1446,12 +1475,10 @@ def phase_evaluation(torch, tmp: str) -> dict:
         "--sampling-strategy", "sampled", "--timesteps", "10", "--data_dir", train_dir,
         "--checkpoint_dir", ckpt_dir, "--extra",
         f"--lr_anneal_steps={n} --log_interval=1 --save_interval={n}"))
-    idle = {"affine_silu": 0, "affine_silu_bwd": 0, "conv3d_fused_k4a": 0, "conv3d_fused_k4b": 0,
-            "conv3d_fused_v4": 0, "conv3d_wgmma": 0, "conv3d_splitk": 0, "conv3d_mma_sync": 0}
     if len(procs) != 1 or "[TIMING] Training for t1c completed" not in out:
         fail(f"run.sh --mode train: {procs} {out[-2000:]}")
     expect_counts("run.sh --mode train", procs[0]["launches"],
-                  dict(idle, haar_dwt3=5 * n, haar_idwt3=n))
+                  dict(IDLE, haar_dwt3=5 * n, haar_idwt3=n))
     found = checkpoints.find_best_checkpoint(ckpt_dir, "t1c")
     cfg = checkpoints.load_checkpoint_config(found[0]) if found else {}
     if not found or cfg.get("step") != n or found[1:] != ("sampled", 10):
@@ -1468,7 +1495,7 @@ def phase_evaluation(torch, tmp: str) -> dict:
     torch.cuda.synchronize()
     got = read_counts()
     expect_counts("quality_bench stage eval", got,
-                  dict(idle, haar_dwt3=2 * 3 * len(cases), haar_idwt3=2 * len(cases)))
+                  dict(IDLE, haar_dwt3=2 * 3 * len(cases), haar_idwt3=2 * len(cases)))
     by_leg = {r["leg"]: r for r in rows}
     if list(by_leg) != ["copy-t1n", "copy-t2w", "copy-t2f", "sampled-10", "sampled-10+ema"]:
         fail(f"stage eval rows: {list(by_leg)}")
@@ -1504,9 +1531,9 @@ def phase_evaluation(torch, tmp: str) -> dict:
     res["dropped"] = missing
     with open(best + ".json") as f:
         sidecar = json.load(f)
-    runs = {"complete_a": ([], {}, dict(idle, haar_dwt3=3 * len(cases), haar_idwt3=len(cases))),
+    runs = {"complete_a": ([], {}, dict(IDLE, haar_dwt3=3 * len(cases), haar_idwt3=len(cases))),
             "complete_b": (["--extra", "--sampler=dpm++ --sampling_steps=10"], {"fuse_conv": True},
-                           dict(idle, haar_dwt3=3 * len(cases), haar_idwt3=len(cases),
+                           dict(IDLE, haar_dwt3=3 * len(cases), haar_idwt3=len(cases),
                                 conv3d_fused_k4b=540 * len(cases), conv3d_wgmma=300 * len(cases),
                                 conv3d_splitk=240 * len(cases)))}
     samp = os.path.join(tmp, "sampled")
@@ -1543,7 +1570,7 @@ def phase_evaluation(torch, tmp: str) -> dict:
                 run[1].kill()
                 run[1].wait()
     expect_counts("downstream_bench", got,
-                  dict(idle, haar_dwt3=3 * len(cases), haar_idwt3=len(cases)))
+                  dict(IDLE, haar_dwt3=3 * len(cases), haar_idwt3=len(cases)))
     real = down["legs"]["real"]
     res["downstream"] = {
         "device": down["device"], "real": {k: real[k] for k in ("n", "dice_mean", "dice_mean_ref")},
@@ -1573,7 +1600,7 @@ def phase_evaluation(torch, tmp: str) -> dict:
                                  for c, m in missing.items()}}
     procs, _ = finished["sample"]
     expect_counts("run.sh --mode sample", procs[0]["launches"],
-                  dict(idle, haar_dwt3=3 * len(cases), haar_idwt3=len(cases)))
+                  dict(IDLE, haar_dwt3=3 * len(cases), haar_idwt3=len(cases)))
     seconds["drop_complete_sample_downstream"] = time.perf_counter() - t1
 
     # 6. nnU-Net layout of the completed tree
@@ -1629,6 +1656,311 @@ def phase_evaluation(torch, tmp: str) -> dict:
     seconds["metric_card_vs_cpu"] = time.perf_counter() - t1
     res["seconds_by_step"] = seconds
     return res
+
+
+# phase models: the WavUNet at run.sh's COMMON widths with four levels
+# (five would halve the 112×112×80 latent to an odd size and raise, as in
+# the JAX package), and the production UNet with attention at ds 8 and 16
+# (1,960 and 245 positions) and in the bottleneck
+MODELS_TRAIN_STEPS = 3
+WUNET_FLAGS = dict(use_freq=True, channel_mult="1,2,2,4")
+WUNET_PARAMS = 54_285_640  # the JAX package's WavUNetModel at these flags (jax.eval_shape)
+ATTENTION_FLAGS = dict(bottleneck_attention=True, attention_resolutions="14,7", num_heads=4)
+
+
+def eager_vs_graph(torch, np, model, diffusion, batch, sampler: str) -> dict:
+    """``make_synthesis_fn`` eager and graphed on one case and one seed: a
+    first call each (the graph's capture), then two timed calls each in
+    turns (e, g, g, e); the images of the two paths, expected bit for bit,
+    and s/volume (host clock, condition DWTs to the image on the host)."""
+    from fast_cwdm_tpu_torch.cli import common
+
+    runs = {p: common.make_synthesis_fn(model, diffusion, sampler=sampler, sampler_steps=10,
+                                        device="cuda", cuda_graph=p == "graph")
+            for p in ("eager", "graph")}
+    imgs, times = {}, {p: [] for p in runs}
+    for k, p in enumerate(("eager", "graph", "eager", "graph", "graph", "eager")):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        img = runs[p](common.prepare_condition(batch, "t1c", device="cuda"), batch["t1n"], gen)
+        seconds = time.perf_counter() - t0
+        if k < 2:
+            imgs[p] = img
+        else:
+            times[p].append(seconds)
+            if not np.array_equal(img, imgs[p]):
+                fail(f"{sampler}: a second {p} call on the same seed gave another image")
+    res = {f"s_per_volume_{p}": statistics.median(v) for p, v in times.items()}
+    res.update({f"s_per_volume_{p}_all": v for p, v in times.items()})
+    res["max_abs_diff_graph_vs_eager"] = float(np.abs(imgs["graph"] - imgs["eager"]).max())
+    res["capture_s"] = runs["graph"].chain.graph.capture_seconds
+    res["max_image"] = float(imgs["eager"].max())
+    if not np.array_equal(imgs["graph"], imgs["eager"]) or not np.isfinite(imgs["eager"]).all():
+        fail(f"{sampler}: the graphed synthesis differs from the eager one: {res}")
+    return res
+
+
+def wunet_wavelet_ms(torch, model) -> dict:
+    """The WavUNet's multi-channel Haar transforms (plain torch, as XLA in
+    the JAX package) in one bf16 forward at the production latent: the
+    shape of every ``wav_down``/``wav_up`` call is recorded, each call is
+    timed alone with CUDA events at its shape (``time_ms``) and the times
+    are summed per forward, beside the forward's device time (``devtime``,
+    one traced call)."""
+    from fast_cwdm_tpu_torch.models import wunet
+    from fast_cwdm_tpu_torch.utils.devtime import devtime
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((1, *LATENT, 32), generator=g, device="cuda").permute(0, 4, 1, 2, 3)
+    t = torch.tensor([5], device="cuda")
+    calls = []
+    originals = {"wav_down": wunet.wav_down, "wav_up": wunet.wav_up}
+
+    def recorder(name):
+        def call(*args, **kw):
+            calls.append((name, args, kw))
+            return originals[name](*args, **kw)
+        return call
+
+    with torch.inference_mode():
+        try:
+            wunet.wav_down, wunet.wav_up = recorder("wav_down"), recorder("wav_up")
+            model(x, t)
+        finally:
+            wunet.wav_down, wunet.wav_up = originals["wav_down"], originals["wav_up"]
+        per_call = []
+        for name, args, kw in calls:
+            ms = time_ms(torch, lambda: originals[name](*args, **kw), reps=10)
+            per_call.append({"fn": name, "shape": list(args[0].shape),
+                             "dtype": str(args[0].dtype), "ms": ms})
+        forward = devtime(lambda: model(x, t), iters=1)
+    del calls
+    res = {f"{n}_ms_per_forward": sum(c["ms"] for c in per_call if c["fn"] == n)
+           for n in originals}
+    res.update(calls_per_forward={n: sum(c["fn"] == n for c in per_call) for n in originals},
+               per_call=per_call, forward_device_ms=forward["total_ms"],
+               forward_wall_ms=forward["wall_ms"], forward_busy_share=forward["busy_share"])
+    res["share_of_forward_device_ms"] = (
+        (res["wav_down_ms_per_forward"] + res["wav_up_ms_per_forward"]) / forward["total_ms"])
+    return res
+
+
+def seeded(torch, model) -> dict:
+    """Seeded weights keyed by the torch names, loaded into ``model``; its
+    state_dict afterwards (a tensor shared under two keys keeps the value
+    of its last one)."""
+    from fast_cwdm_tpu_torch.utils.testing import seeded_state_dict
+
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in seeded_state_dict(shapes).items()})
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def phase_models(torch, tmp: str) -> dict:
+    """The rest of the network surface on the card. (a) ``cli.train`` with
+    run.sh's COMMON and TRAIN flags and ``--use_freq=True
+    --channel_mult=1,2,2,4`` (the WavUNet) on two 240×240×155 cases for a
+    few steps and a BEST (K1 5 and K2 1 per step), then ``cli.sample``
+    from that BEST with run.sh's COMMON flags (its sidecar brings
+    ``use_freq`` and the widths back; 3 K1 + 1 K2, the captured chain), its
+    ``make_synthesis_fn`` eager against graphed (bit for bit) and the
+    device ms of its multi-channel Haar transforms in a forward. (b) The
+    production UNet with attention (ds 8 and 16 and the bottleneck, 4
+    heads), seeded weights written as a JAX-layout ``.ckpt`` and read back
+    bit for bit, ``cli.sample`` unfused ddpm and with ``fuse_conv`` dpm++ 10
+    (540 K4b: 300 wgmma, 240 split-K), eager against graphed for both, and
+    its ms/forward beside the production forward's, in turns. (c) Every new
+    module at a tiny fp32 size on the card against the CPU (models_reference)."""
+    import shutil
+
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.cli import common, sample
+    from fast_cwdm_tpu_torch.data import brats
+    from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
+    from fast_cwdm_tpu_torch.models.factory import model_and_diffusion_defaults
+    from fast_cwdm_tpu_torch.training import checkpoints
+
+    res = {}
+    data = os.path.join(tmp, "data")
+    for k in range(2):
+        write_case(os.path.join(data, f"0000{k + 1}"), seed=20 + k)
+    serve = os.path.join(tmp, "serve")  # one case to sample
+    shutil.copytree(os.path.join(data, "00001"), os.path.join(serve, "00001"))
+    item = brats.BRATSVolumes(serve)[0]
+    batch = {m: item[m][None] for m in brats.MODALITIES}
+    mask = batch["t1n"][0, ..., 0][:, :, :155]
+    os.environ["OPENAI_LOGDIR"] = os.path.join(tmp, "log")
+    os.environ["OPENAI_LOG_FORMAT"] = "log,csv"
+
+    def run_sample(name, argv, want):
+        out_dir = os.path.join(tmp, name)
+        reset_counts()
+        seconds = sample.main(argv + [f"--data_dir={serve}", "--contr=t1c", "--seed=0",
+                                      f"--output_dir={out_dir}"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(name, counts, want)
+        return {"s_per_volume_cli": seconds[0], "launches": counts,
+                "graph": check_graph_counts(volumes=1),
+                "sample_shape": check_sample(np, os.path.join(out_dir, "00001", "sample.nii.gz"),
+                                             mask)}
+
+    # (a) the WavUNet: train, then serve from its BEST
+    n = MODELS_TRAIN_STEPS
+    ckpt_dir = os.path.join(tmp, "ckpt_wunet")
+    r = run_train(torch, tmp, "wunet", train_flags(data, ckpt_dir, n, **WUNET_FLAGS), n)
+    r["launches_expected"] = dict(IDLE, haar_dwt3=5 * n, haar_idwt3=n)
+    expect_counts("WavUNet training", r["launches"], r["launches_expected"])
+    if r["n_params"] != WUNET_PARAMS or r["params_changed"] < 0.9 * r["params_total"]:
+        fail(f"WavUNet training: {r}")
+    found = checkpoints.find_best_checkpoint(ckpt_dir, "t1c")
+    stored = checkpoints.load_checkpoint_config(found[0]) if found else {}
+    if not found or stored.get("step") != n or stored.get("use_freq") is not True \
+            or stored.get("channel_mult") != WUNET_FLAGS["channel_mult"]:
+        fail(f"WavUNet training wrote no BEST with use_freq at step {n}: {found} {stored}")
+    r["best"] = os.path.basename(found[0])
+    res["wunet_train"] = r
+    common_flags = [f"--{k}={v}" for k, v in COMMON_FLAGS.items()]
+    res["wunet_sample"] = run_sample("wunet_sample", common_flags + [f"--model_path={found[0]}"],
+                                     dict(IDLE, haar_dwt3=3, haar_idwt3=1))
+    schema = model_and_diffusion_defaults()
+    model, diffusion = common.build_model_and_diffusion(
+        {k: v for k, v in stored.items() if k in schema})
+    if type(model).__name__ != "WavUNetModel" or not model.ref_compat:
+        fail(f"the BEST's sidecar built a {type(model).__name__}")
+    common.load_params(found[0], model)
+    res["wunet_synthesis_fn"] = eager_vs_graph(torch, np, model, diffusion, batch, "ddpm")
+    res["wunet_wavelets"] = wunet_wavelet_ms(torch, model)
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) the production UNet with attention, from a JAX-layout .ckpt
+    cfg = common.production_config(sample_schedule="sampled", diffusion_steps=10,
+                                   **ATTENTION_FLAGS)
+    model, diffusion = common.build_model_and_diffusion(cfg)
+    sd = seeded(torch, model)
+    params = jax_params_from_state_dict(sd, model)
+    path = os.path.join(tmp, "ckpt_attention", "brats_t1c_BEST_sampled_10.ckpt")
+    checkpoints.save_checkpoint(path, {"params": params, "ema_params": (), "step": 0},
+                                dict(cfg, contr="t1c"))
+    loaded = checkpoints.load_checkpoint(path)
+    back, _ = common.build_model_and_diffusion(cfg)
+    common.load_params(path, back)
+    if not same_tree(np, loaded["params"], params) \
+            or any(not torch.equal(back.state_dict()[k], v) for k, v in sd.items()):
+        fail("the attention UNet's .ckpt did not read back bit for bit")
+    n_attn = sum(type(m).__name__ == "AttentionBlock" for m in model.modules())
+    res["attention_ckpt"] = {"bytes": os.path.getsize(path), "attention_blocks": n_attn,
+                             "n_params": sum(p.numel() for p in model.parameters()),
+                             "attention_ds": list(model.attention_resolutions)}
+    del back, loaded, params
+    flags = [f"--{k}={v}" for k, v in cfg.items()] + [f"--model_path={path}"]
+    res["attention_sample_ddpm"] = run_sample(
+        "attention_sample_ddpm", flags, dict(IDLE, haar_dwt3=3, haar_idwt3=1))
+    res["attention_sample_fuse_conv_dpm"] = run_sample(
+        "attention_sample_fuse_conv_dpm",
+        flags + ["--fuse_conv=True", "--sampler=dpm++", "--sampling_steps=10"],
+        dict(IDLE, haar_dwt3=3, haar_idwt3=1, conv3d_fused_k4b=540, conv3d_wgmma=300,
+             conv3d_splitk=240))
+    fused, _ = common.build_model_and_diffusion(dict(cfg, fuse_conv=True))
+    fused.load_state_dict(sd)
+    res["attention_synthesis_fn_ddpm"] = eager_vs_graph(torch, np, model, diffusion, batch, "ddpm")
+    res["attention_synthesis_fn_fuse_conv_dpm"] = eager_vs_graph(torch, np, fused, diffusion,
+                                                                 batch, "dpm++")
+    del fused
+
+    # ms/forward beside the production forward, in turns (a, p, p, a; twice)
+    pcfg, psd = seeded_production(torch)
+    prod, _ = common.build_model_and_diffusion(pcfg)
+    prod.load_state_dict(psd)
+    models = {"attention": model.cuda().eval(), "production": prod.cuda().eval()}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((1, *LATENT, 32), generator=g, device="cuda").permute(0, 4, 1, 2, 3)
+    t = torch.tensor([9], device="cuda")
+    times = {name: [] for name in models}
+    with torch.inference_mode():
+        for m in models.values():
+            m(x, t)
+        for _ in range(2):
+            for name in ("attention", "production", "production", "attention"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = models[name](x, t)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                if tuple(y.shape) != (1, 8, *LATENT) or not bool(torch.isfinite(y).all()):
+                    fail(f"the {name} forward gave a wrong shape or non-finite values")
+    res["forward_ms"] = {name: statistics.median(v) for name, v in times.items()}
+    res["forward_ms_all"] = times
+    del models, model, prod
+    torch.cuda.empty_cache()
+    return res
+
+
+def reference_models(torch) -> dict:
+    """(name → (module, inputs)) of every new module at a tiny fp32 size,
+    seeded weights, on the CPU."""
+    from fast_cwdm_tpu_torch.models import unet, wunet
+
+    unet_cfg = dict(image_size=8, in_channels=8, model_channels=16, out_channels=8,
+                    num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                    num_groups=8, resblock_updown=True, bottleneck_attention=True,
+                    resample_2d=False, num_heads=2)
+    wunet_cfg = dict(unet_cfg, num_res_blocks=2, ref_compat=True)
+    del wunet_cfg["resblock_updown"]
+    encoder_cfg = dict(image_size=16, in_channels=8, model_channels=16, out_channels=5,
+                       num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2), dims=2,
+                       num_groups=8, resblock_updown=True, num_heads=2)
+    g = torch.Generator().manual_seed(0)
+    x3 = torch.randn((2, 8, 8, 8, 8), generator=g)
+    t = torch.tensor([7, 300])
+    y = torch.tensor([1, 0])
+    cases = {
+        "attention_legacy": (unet.UNetModel(**unet_cfg), (x3, t)),
+        "attention_new_order": (unet.UNetModel(**unet_cfg, use_new_attention_order=True), (x3, t)),
+        "attention_head_channels": (unet.UNetModel(**unet_cfg, num_head_channels=8), (x3, t)),
+        "unet_class_cond": (unet.UNetModel(**unet_cfg, num_classes=2), (x3, t, y)),
+        "wunet_ref_compat": (wunet.WavUNetModel(**wunet_cfg), (x3, t)),
+        "wunet_class_cond": (wunet.WavUNetModel(**wunet_cfg, num_classes=2), (x3, t, y)),
+        **{f"encoder_{pool}": (unet.EncoderUNetModel(**encoder_cfg, pool=pool),
+                               (torch.randn((2, 8, 16, 16), generator=g), t))
+           for pool in ("adaptive", "spatial", "spatial_v2")},
+        "super_res": (unet.SuperResModel(**dict(encoder_cfg, in_channels=6, out_channels=3,
+                                                resblock_updown=False)),
+                      (torch.randn((2, 3, 16, 16), generator=g), t,
+                       torch.randn((2, 3, 8, 8), generator=g))),
+        "gating_down": (unet.WaveletGatingDownsample(4, 8),
+                        (torch.randn((2, 4, 4, 6, 8), generator=g), torch.randn((2, 8), generator=g))),
+        "gating_up": (unet.WaveletGatingUpsample(4, 8),
+                      (torch.randn((2, 4, 4, 6, 8), generator=g), torch.randn((2, 8), generator=g))),
+    }
+    for module, _ in cases.values():
+        seeded(torch, module)
+        module.eval()
+    return cases
+
+
+def phase_models_reference(torch) -> dict:
+    """Every new module at a tiny fp32 size on the card against the same
+    module on the CPU (which the CPU tests hold against the JAX package):
+    same seeded weights and inputs, cuDNN and matmul TF32 off, tolerance
+    1e-4."""
+    res = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        for name, (module, args) in reference_models(torch).items():
+            ref = module(*args)
+            got = module.cuda()(*(a.cuda() for a in args))
+            torch.cuda.synchronize()
+            err = float((got.cpu() - ref).abs().max())
+            res[name] = {"shape": list(ref.shape), "max_abs_err": err,
+                         "max_abs_output": float(ref.abs().max())}
+            if not err <= 1e-4 or not bool(torch.isfinite(got).all()):
+                fail(f"{name} on the card disagrees with the CPU: {res[name]}")
+    torch.backends.cudnn.allow_tf32 = True
+    return {"tol": 1e-4, **res}
 
 
 # the conv entries run on one of three hand-written kernels, by
@@ -1721,6 +2053,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         evaluation = phase_evaluation(torch, tmp)
     emit({"phase": "evaluation", "gpu": smi, "seconds": time.perf_counter() - t0, **evaluation})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        models = phase_models(torch, tmp)
+    models["reference"] = phase_models_reference(torch)
+    emit({"phase": "models", "gpu": smi, "seconds": time.perf_counter() - t0, **models})
 
     line = []
     for name, (source, replaces, key) in KERNELS.items():
@@ -1752,7 +2089,13 @@ def main(argv=None) -> int:
             # complete per case as written (a) and with fuse_conv (b)
             "evaluation_train_per_step": evaluation["train"]["launches_per_step"][name],
             **{f"evaluation_{run}_per_case": evaluation[run]["launches_per_case"][name]
-               for run in ("complete_a", "complete_b")}}
+               for run in ("complete_a", "complete_b")},
+            # phase models: the WavUNet's train step and sample, the
+            # attention UNet's two samples (per volume)
+            "models_wunet_train_per_step": models["wunet_train"]["launches_per_step"][name],
+            **{f"models_{run}": models[run]["launches"][name]
+               for run in ("wunet_sample", "attention_sample_ddpm",
+                           "attention_sample_fuse_conv_dpm")}}
         if name.startswith("conv3d"):
             line[-1]["launches_by_kernel"] = {
                 kn: conv_counts[f"conv3d_{kn}"] for kn in ("wgmma", "splitk", "mma_sync")}

@@ -4,12 +4,16 @@ Conditional 3D Haar-wavelet diffusion for BraTS missing-modality synthesis,
 running on an NVIDIA H100 (sm_90a). The JAX package beside it is the
 reference this port is held against; nothing here imports it.
 
-- ``ops``       Haar DWT/IDWT (plain torch + CUDA kernels K1/K2), fused
-                GroupNorm-apply+SiLU and its VJP (plain torch + CUDA kernel
-                K3 and its VJP kernel), fused GN→SiLU→3³ conv (plain torch +
-                three CUDA kernels for K4a/K4b/K5)
-- ``models``    3D ``UNetModel`` with the reference torch parameter layout,
-                gradient checkpointing
+- ``ops``       1-, 2- and 3-D wavelets; Haar DWT/IDWT (plain torch +
+                CUDA kernels K1/K2), fused GroupNorm-apply+SiLU and its
+                VJP (plain torch + CUDA kernel K3 and its VJP kernel),
+                fused GN→SiLU→3³ conv (plain torch + three CUDA kernels
+                for K4a/K4b/K5)
+- ``models``    the UNet denoiser (attention, class conditioning, dims
+                1-3), the wavelet U-Net, the classifier and
+                super-resolution models, with the reference torch
+                parameter layout and the JAX weights both ways; gradient
+                checkpointing
 - ``diffusion`` beta schedules, respacing, ancestral, DDIM and
                 DPM-Solver++ sampling loops (with classifier guidance),
                 the chain as replays of one captured CUDA graph, the

@@ -20,7 +20,7 @@ import torch
 from fast_cwdm_tpu_torch import resolve_device
 from fast_cwdm_tpu_torch.diffusion.gaussian import condition_order
 from fast_cwdm_tpu_torch.diffusion.graph import CapturedChain
-from fast_cwdm_tpu_torch.models.convert import state_dict_from_jax
+from fast_cwdm_tpu_torch.models.convert import check_ref_compat, state_dict_from_jax
 from fast_cwdm_tpu_torch.models.factory import create_model_and_diffusion, model_and_diffusion_defaults
 from fast_cwdm_tpu_torch.ops import wavelet as wv
 from fast_cwdm_tpu_torch.training import checkpoints as ckpt
@@ -56,7 +56,9 @@ def production_config(**overrides) -> dict:
 
 
 def build_model_and_diffusion(cfg: dict):
-    """``(UNetModel on the CPU, diffusion)`` for a config dict."""
+    """``(model on the CPU, diffusion)`` for a config dict: a
+    ``WavUNetModel`` with ``use_freq``, else a ``UNetModel`` (attention and
+    class conditioning as the config says)."""
     return create_model_and_diffusion(**cfg)
 
 
@@ -80,9 +82,10 @@ def load_params_ex(path: str, model: torch.nn.Module, *, use_ema: bool = False):
     """Like :func:`load_params` but returns ``(model, ema_applied)``, so a
     caller can tell raw weights from the first EMA shadow. A ``.ckpt`` may
     carry any number of shadows; ``.orbax`` raises ``NotImplementedError``.
-    Parameters the port does not implement (attention, class embedding)
-    raise instead of loading partially."""
+    Every parameter of the model is loaded, or the load raises: a missing
+    or leftover key never loads partially."""
     if path.endswith(".pt"):
+        check_ref_compat(model, "importing .pt weights into")
         if use_ema:
             print(f"[load_params] WARNING: {path} is a torch state_dict with no "
                   "EMA shadows; using the raw parameters")

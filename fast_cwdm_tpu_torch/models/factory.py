@@ -1,9 +1,13 @@
 """Model/diffusion construction from the reference flag schema.
 
-Port of ``fast_cwdm_tpu/models/factory.py`` for ``UNetModel``: the same
+Port of ``fast_cwdm_tpu/models/factory.py``: the denoiser
+(``UNetModel``, or ``WavUNetModel`` with ``use_freq``), the classifier
+(``create_classifier``) and the super-resolution model
+(``sr_create_model_and_diffusion``). The same
 ``model_and_diffusion_defaults`` keys, so CLIs stay flag-compatible, plus
-``fuse_gn_silu`` (route every GroupNorm→SiLU site through kernel K3) and
-``fuse_conv`` (route the ResBlocks' GN→SiLU→conv chains through K4b).
+``fuse_gn_silu`` (route every GroupNorm→SiLU site of a ``UNetModel``
+through kernel K3) and ``fuse_conv`` (route its ResBlocks' GN→SiLU→conv
+chains through K4b).
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import torch
 from fast_cwdm_tpu_torch.diffusion import schedules
 from fast_cwdm_tpu_torch.diffusion.gaussian import LossType, MeanType, VarType
 from fast_cwdm_tpu_torch.diffusion.respace import create_spaced_diffusion, space_timesteps
-from fast_cwdm_tpu_torch.models.unet import UNetModel
+from fast_cwdm_tpu_torch.models.unet import EncoderUNetModel, SuperResModel, UNetModel
+from fast_cwdm_tpu_torch.models.wunet import WavUNetModel
 
 NUM_CLASSES = 2
 DTYPES = {"": None, "none": None, "float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -37,6 +42,22 @@ def diffusion_defaults() -> dict[str, Any]:
         dims=3,
         num_groups=32,
         in_channels=1,
+    )
+
+
+def classifier_defaults() -> dict[str, Any]:
+    return dict(
+        image_size=64,
+        classifier_use_fp16=False,
+        classifier_width=128,
+        classifier_depth=2,
+        classifier_attention_resolutions="32,16,8",
+        classifier_num_head_channels=64,
+        classifier_use_scale_shift_norm=True,
+        classifier_resblock_updown=True,
+        classifier_pool="spatial",
+        classifier_channel_mult="1,1,2,2,4,4",
+        dataset="brats",
     )
 
 
@@ -148,18 +169,22 @@ def create_model(
     fuse_gn_silu=False,
     fuse_conv=False,
     remat_max_ds=None,
-) -> UNetModel:
-    """Flag-compatible UNetModel constructor. ``remat_max_ds`` (None: 1, the
-    JAX package's default) bounds the downsample factor of the ResBlocks
-    that ``use_checkpoint`` recomputes; 0 recomputes every one."""
-    if use_freq:
-        raise NotImplementedError("WavUNetModel (use_freq=True) is not ported yet")
+) -> UNetModel | WavUNetModel:
+    """Flag-compatible denoiser constructor: ``WavUNetModel(use_freq=True,
+    ref_compat=True)`` with ``use_freq`` (the reference decoder's double
+    run, so that reference weights keep their forward), else
+    ``UNetModel``. ``remat_max_ds`` (None: 1, the JAX package's default)
+    bounds the downsample factor of the UNet's ResBlocks that
+    ``use_checkpoint`` recomputes; 0 recomputes every one (the WavUNet
+    recomputes every block). ``fuse_gn_silu``/``fuse_conv`` are UNet
+    routes: with ``use_freq`` they raise, as the JAX package's WavUNet has
+    no fused route."""
     if out_channels == 0:
         # Deviation kept from the JAX package (factory.py:198-205): the
         # reference doubles twice on the auto path; auto means "data
         # channels", and the single learn_sigma doubling below is the one.
         out_channels = in_channels
-    return UNetModel(
+    common = dict(
         image_size=image_size,
         in_channels=in_channels,
         model_channels=num_channels,
@@ -168,7 +193,6 @@ def create_model(
         attention_resolutions=_attention_ds(attention_resolutions, image_size),
         dropout=dropout,
         channel_mult=_parse_channel_mult(channel_mult, image_size),
-        conv_resample=True,
         dims=dims,
         num_classes=(NUM_CLASSES if class_cond else None),
         use_checkpoint=use_checkpoint,
@@ -182,10 +206,19 @@ def create_model(
         bottleneck_attention=bottleneck_attention,
         resample_2d=resample_2d,
         additive_skips=additive_skips,
+        dtype=parse_dtype(dtype, use_fp16),
+    )
+    if use_freq:
+        if fuse_gn_silu or fuse_conv:
+            raise ValueError("fuse_gn_silu and fuse_conv are UNetModel routes; the WavUNetModel "
+                             "(use_freq=True) has none")
+        return WavUNetModel(use_freq=True, ref_compat=True, **common)
+    return UNetModel(
+        conv_resample=True,
         fuse_gn_silu=fuse_gn_silu,
         fuse_conv=fuse_conv,
-        dtype=parse_dtype(dtype, use_fp16),
         remat_max_ds=1 if remat_max_ds is None else int(remat_max_ds),
+        **common,
     )
 
 
@@ -259,6 +292,130 @@ def create_model_and_diffusion(**cfg):
         sample_schedule=merged["sample_schedule"],
     )
     return model, diffusion
+
+
+def _diffusion_of(merged: dict):
+    """The process of a merged flag dict, with the schema's diffusion
+    keys."""
+    return create_gaussian_diffusion(
+        steps=merged["diffusion_steps"],
+        learn_sigma=merged["learn_sigma"],
+        noise_schedule=merged["noise_schedule"],
+        use_kl=merged["use_kl"],
+        predict_xstart=merged["predict_xstart"],
+        rescale_timesteps=merged["rescale_timesteps"],
+        rescale_learned_sigmas=merged["rescale_learned_sigmas"],
+        timestep_respacing=merged["timestep_respacing"],
+    )
+
+
+def create_classifier(
+    image_size,
+    classifier_use_fp16,
+    classifier_width,
+    classifier_depth,
+    classifier_attention_resolutions,
+    classifier_use_scale_shift_norm,
+    classifier_resblock_updown,
+    classifier_pool,
+    dataset="brats",
+    num_groups=32,
+    dims=3,
+    in_channels=1,
+    num_head_channels=64,
+    classifier_channel_mult="",
+) -> EncoderUNetModel:
+    """The noisy-image classifier, an ``EncoderUNetModel`` with 2 classes
+    (``classifier_use_fp16`` and ``dataset`` are accepted and unused, as
+    in the JAX package)."""
+    channel_mult = classifier_channel_mult
+    if not channel_mult:
+        presets = {256: (1, 1, 2, 2, 4, 4), 128: (1, 1, 2, 3, 4), 64: (1, 2, 3, 4)}
+        if image_size not in presets:
+            raise ValueError(f"unsupported image size: {image_size}")
+        channel_mult = presets[image_size]
+    elif isinstance(channel_mult, str):
+        channel_mult = tuple(literal_eval(channel_mult))
+    return EncoderUNetModel(
+        image_size=image_size,
+        in_channels=in_channels,
+        model_channels=classifier_width,
+        out_channels=NUM_CLASSES,
+        num_res_blocks=classifier_depth,
+        attention_resolutions=_attention_ds(classifier_attention_resolutions, image_size),
+        channel_mult=channel_mult,
+        num_head_channels=num_head_channels,
+        use_scale_shift_norm=classifier_use_scale_shift_norm,
+        resblock_updown=classifier_resblock_updown,
+        pool=classifier_pool,
+        num_groups=num_groups,
+        dims=dims,
+    )
+
+
+def classifier_and_diffusion_defaults() -> dict[str, Any]:
+    res = classifier_defaults()
+    res.update(diffusion_defaults())
+    return res
+
+
+def create_classifier_and_diffusion(**cfg):
+    merged = {**classifier_and_diffusion_defaults(), **cfg}
+    classifier = create_classifier(
+        merged["image_size"],
+        merged["classifier_use_fp16"],
+        merged["classifier_width"],
+        merged["classifier_depth"],
+        merged["classifier_attention_resolutions"],
+        merged["classifier_use_scale_shift_norm"],
+        merged["classifier_resblock_updown"],
+        merged["classifier_pool"],
+        merged["dataset"],
+        dims=merged["dims"],
+        num_groups=merged["num_groups"],
+        in_channels=merged["in_channels"],
+        num_head_channels=merged["classifier_num_head_channels"],
+        classifier_channel_mult=merged["classifier_channel_mult"],
+    )
+    return classifier, _diffusion_of(merged)
+
+
+def sr_model_and_diffusion_defaults() -> dict[str, Any]:
+    res = model_and_diffusion_defaults()
+    res["large_size"] = 256
+    res["small_size"] = 64
+    for k in ("image_size", "channel_mult", "out_channels", "in_channels"):
+        res.pop(k, None)
+    return res
+
+
+def sr_create_model_and_diffusion(**cfg):
+    """The 2-D ``SuperResModel`` (3 image channels + 3 of the upsampled
+    low-res image) and its process."""
+    merged = {**sr_model_and_diffusion_defaults(), **cfg}
+    large = merged["large_size"]
+    presets = {512: (1, 1, 2, 2, 4, 4), 256: (1, 1, 2, 2, 4, 4), 64: (1, 2, 3, 4)}
+    if large not in presets:
+        raise ValueError(f"unsupported large size: {large}")
+    model = SuperResModel(
+        image_size=large,
+        in_channels=6,
+        model_channels=merged["num_channels"],
+        out_channels=(3 if not merged["learn_sigma"] else 6),
+        num_res_blocks=merged["num_res_blocks"],
+        attention_resolutions=_attention_ds(merged["attention_resolutions"], large),
+        dropout=merged["dropout"],
+        channel_mult=presets[large],
+        num_classes=(NUM_CLASSES if merged["class_cond"] else None),
+        dims=2,
+        num_heads=merged["num_heads"],
+        num_head_channels=merged["num_head_channels"],
+        num_heads_upsample=merged["num_heads_upsample"],
+        use_scale_shift_norm=merged["use_scale_shift_norm"],
+        resblock_updown=merged["resblock_updown"],
+        num_groups=merged.get("num_groups", 32),
+    )
+    return model, _diffusion_of(merged)
 
 
 def add_dict_to_argparser(parser: argparse.ArgumentParser, default_dict):

@@ -1,10 +1,10 @@
 """Building blocks of the UNet: timestep embedding, fp32-statistics
-GroupNorm (with the fused GN-apply+SiLU route to kernel K3), convolutions
-with explicit compute dtypes, average pooling.
+GroupNorm (with the fused GN-apply+SiLU route to kernel K3), 1-, 2- and
+3-D convolutions with explicit compute dtypes, average pooling.
 
-Port of ``fast_cwdm_tpu/models/nn.py``. Tensors are logical NCDHW; the
-casts sit where the JAX package puts them, so bf16 rounds at the same
-points.
+Port of ``fast_cwdm_tpu/models/nn.py``. Tensors are logical NCL, NCHW or
+NCDHW; the casts sit where the JAX package puts them, so bf16 rounds at
+the same points.
 """
 
 from __future__ import annotations
@@ -62,8 +62,10 @@ class GroupNorm32(nn.Module):
         g = self.num_groups
         xf = x.float()
         spatial = tuple(range(2, x.dim()))
-        mean_c = xf.mean(dim=spatial)  # (B, C)
-        mean_sq_c = (xf * xf).mean(dim=spatial)
+        # a (B, C) input has no spatial axes: its channel means are itself
+        # (torch reads an empty ``dim`` as every axis)
+        mean_c = xf.mean(dim=spatial) if spatial else xf  # (B, C)
+        mean_sq_c = (xf * xf).mean(dim=spatial) if spatial else xf * xf
         mean = mean_c.reshape(b, g, c // g).mean(dim=-1)  # (B, G)
         mean_sq = mean_sq_c.reshape(b, g, c // g).mean(dim=-1)
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
@@ -83,15 +85,17 @@ class GroupNorm32(nn.Module):
         return y.to(x.dtype)
 
 
-class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` with symmetric padding and the JAX package's dtype
-    rule: input, weight and bias are cast to ``dtype``; with ``dtype=None``
-    the compute dtype is the promotion of the input's and the weight's
-    (flax ``nn.Conv``: a bf16 input meets fp32 params in fp32)."""
+class _ComputeDtype:
+    """The JAX package's dtype rule for a convolution: input, weight and
+    bias are cast to ``dtype``; with ``dtype=None`` the compute dtype is the
+    promotion of the input's and the weight's (flax ``nn.Conv``: a bf16
+    input meets fp32 params in fp32), or the input's with
+    ``follow_input``. Symmetric padding, as torch's."""
 
-    def __init__(self, in_ch, out_ch, kernel=3, *, stride=1, dtype=None,
+    def __init__(self, in_ch, out_ch, kernel=3, *, stride=1, groups=1, dtype=None,
                  zero_init=False, follow_input=False):
-        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=(kernel - 1) // 2)
+        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=(kernel - 1) // 2,
+                         groups=groups)
         self.compute_dtype = dtype
         # FusableConv3d's rule (`unet.py:190`): None follows the input
         self.follow_input = follow_input
@@ -103,26 +107,44 @@ class Conv3d(nn.Conv3d):
         dt = self.compute_dtype
         if dt is None:
             dt = x.dtype if self.follow_input else torch.promote_types(x.dtype, self.weight.dtype)
-        return F.conv3d(
-            x.to(dt), self.weight.to(dt), self.bias.to(dt),
-            self.stride, self.padding,
-        )
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv1d(_ComputeDtype, nn.Conv1d):
+    pass
+
+
+class Conv2d(_ComputeDtype, nn.Conv2d):
+    pass
+
+
+class Conv3d(_ComputeDtype, nn.Conv3d):
+    pass
+
+
+_CONVS = {1: Conv1d, 2: Conv2d, 3: Conv3d}
 
 
 def conv_nd(in_ch: int, out_ch: int, kernel: int = 3, *, dims: int = 3, stride=1,
-            dtype=None, zero_init: bool = False) -> Conv3d:
-    """3-D convolution with torch-style symmetric padding."""
-    if dims != 3:
-        raise NotImplementedError("the port implements dims=3 only")
-    return Conv3d(in_ch, out_ch, kernel, stride=stride, dtype=dtype, zero_init=zero_init)
+            groups: int = 1, dtype=None, zero_init: bool = False):
+    """``dims``-D convolution (1, 2 or 3) with torch-style symmetric
+    padding; ``groups`` is flax's ``feature_group_count``."""
+    if dims not in _CONVS:
+        raise NotImplementedError(f"conv_nd: dims must be 1, 2 or 3 (torch has no "
+                                  f"{dims}-D convolution), got {dims}")
+    return _CONVS[dims](in_ch, out_ch, kernel, stride=stride, groups=groups, dtype=dtype,
+                        zero_init=zero_init)
+
+
+_POOLS = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+_CHANNELS_LAST = {4: torch.channels_last, 5: torch.channels_last_3d}
 
 
 def avg_pool_nd(x: torch.Tensor, window) -> torch.Tensor:
-    """Average pooling over the spatial dims, accumulated in float32 and
-    rounded once to ``x``'s dtype, in ``x``'s memory format."""
-    fmt = (
-        torch.channels_last_3d
-        if x.is_contiguous(memory_format=torch.channels_last_3d)
-        else torch.contiguous_format
-    )
-    return F.avg_pool3d(x.float(), tuple(window)).to(x.dtype, memory_format=fmt)
+    """Average pooling over the spatial dims (one ``window`` entry each),
+    accumulated in float32 and rounded once to ``x``'s dtype, in ``x``'s
+    memory format."""
+    window = tuple(window)
+    cl = _CHANNELS_LAST.get(x.dim())
+    fmt = cl if cl is not None and x.is_contiguous(memory_format=cl) else torch.contiguous_format
+    return _POOLS[len(window)](x.float(), window).to(x.dtype, memory_format=fmt)

@@ -1,7 +1,10 @@
-"""3-D UNet denoiser (port of ``fast_cwdm_tpu/models/unet.py``).
+"""UNet model family (port of ``fast_cwdm_tpu/models/unet.py``): the
+denoiser ``UNetModel``, ``SuperResModel`` and the classifier
+``EncoderUNetModel``, with their blocks.
 
-Tensors are logical NCDHW (spatial axes in the JAX package's X, Y, Z
-order). Callers holding channels-last ``(B, X, Y, Z, C)`` data pass
+Tensors are logical N, C, spatial (NCDHW for ``dims=3``, spatial axes in
+the JAX package's X, Y, Z order; NCHW for ``dims=2``; NCL for ``dims=1``).
+Callers holding channels-last ``(B, X, Y, Z, C)`` data pass
 ``x.permute(0, 4, 1, 2, 3)``: a free view whose memory is
 ``channels_last_3d``, the format cuDNN's 3-D convolutions prefer, and
 every activation keeps it.
@@ -12,17 +15,19 @@ JAX package's ``training/bridge.py::flax_to_torch`` emits
 load with ``load_state_dict(strict=True)``.
 
 Ported: ResBlocks (with resblock_updown, scale-shift norm, additive skips),
-conv/avg-pool resampling, the fused GN-apply+SiLU route (kernel K3 and its
-VJP, ``fuse_gn_silu``), the fused GN→SiLU→conv route (kernel K4b,
-``fuse_conv``, inference only, as in the JAX package) and gradient
-checkpointing (``use_checkpoint`` with ``remat_max_ds``). Dropout follows
-``model.train()``/``model.eval()`` (the JAX package's ``train=``). Not yet
-ported, and refused with ``NotImplementedError``: attention blocks (the
-production config has none) and class conditioning.
+conv/avg-pool resampling, ``AttentionBlock`` (both head orders,
+``num_head_channels``), class conditioning (``num_classes``), ``dims`` 1,
+2 and 3, the wavelet-gated resampling blocks, the fused GN-apply+SiLU route
+(kernel K3 and its VJP, ``fuse_gn_silu``), the fused GN→SiLU→conv route
+(kernel K4b, ``fuse_conv``, 3-D only, inference only, as in the JAX
+package) and gradient checkpointing (``use_checkpoint`` with
+``remat_max_ds``). Dropout follows ``model.train()``/``model.eval()`` (the
+JAX package's ``train=``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -37,6 +42,8 @@ from fast_cwdm_tpu_torch.models.nn import (
     conv_nd,
     timestep_embedding,
 )
+from fast_cwdm_tpu_torch.ops import wavelet as wv
+from fast_cwdm_tpu_torch.ops.wavelet import dtype_scalar
 from fast_cwdm_tpu_torch.ops.conv3d_cuda import conv3d_fused, group_stats, pack_wgmma_weights
 
 
@@ -52,43 +59,103 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
-def nearest_upsample(x: torch.Tensor, resample_2d: bool) -> torch.Tensor:
-    """Nearest-neighbour ×2; with ``resample_2d`` only the inner two
+def nearest_upsample(x: torch.Tensor, dims: int, resample_2d: bool) -> torch.Tensor:
+    """Nearest-neighbour ×2; for 3-D with ``resample_2d`` only the inner two
     spatial axes are scaled."""
-    return F.interpolate(x, scale_factor=(1, 2, 2) if resample_2d else 2, mode="nearest")
+    scale = (1, 2, 2) if dims == 3 and resample_2d else 2
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
-def _down_window(resample_2d: bool) -> tuple[int, ...]:
-    return (1, 2, 2) if resample_2d else (2, 2, 2)
+def _down_window(dims: int, resample_2d: bool) -> tuple[int, ...]:
+    return (1, 2, 2) if dims == 3 and resample_2d else (2,) * dims
 
 
 class Upsample(nn.Module):
     """×2 nearest upsample + optional conv (parameter ``conv``)."""
 
-    def __init__(self, channels, use_conv, out_channels=None, resample_2d=True, dtype=None):
+    def __init__(self, channels, use_conv, out_channels=None, resample_2d=True, dtype=None,
+                 dims=3):
         super().__init__()
-        self.resample_2d = resample_2d
+        self.dims, self.resample_2d = dims, resample_2d
         if use_conv:
-            self.conv = conv_nd(channels, out_channels or channels, 3, dtype=dtype)
+            self.conv = conv_nd(channels, out_channels or channels, 3, dims=dims, dtype=dtype)
 
     def forward(self, x, emb=None):
-        x = nearest_upsample(x, self.resample_2d)
+        x = nearest_upsample(x, self.dims, self.resample_2d)
         return self.conv(x) if hasattr(self, "conv") else x
 
 
 class Downsample(nn.Module):
     """Strided conv (parameter ``op``) or average-pool ×2 downsample."""
 
-    def __init__(self, channels, use_conv, out_channels=None, resample_2d=True, dtype=None):
+    def __init__(self, channels, use_conv, out_channels=None, resample_2d=True, dtype=None,
+                 dims=3):
         super().__init__()
-        self.window = _down_window(resample_2d)
+        self.window = _down_window(dims, resample_2d)
         if use_conv:
-            self.op = conv_nd(channels, out_channels or channels, 3, stride=self.window, dtype=dtype)
+            self.op = conv_nd(channels, out_channels or channels, 3, dims=dims,
+                              stride=self.window, dtype=dtype)
         elif (out_channels or channels) != channels:
             raise ValueError("average-pool downsample cannot change the channel count")
 
     def forward(self, x, emb=None):
         return self.op(x) if hasattr(self, "op") else avg_pool_nd(x, self.window)
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    """NCDHW → the JAX package's (B, X, Y, Z, C) view."""
+    return x.permute(0, 2, 3, 4, 1)
+
+
+def _channels_first(x: torch.Tensor) -> torch.Tensor:
+    """(B, X, Y, Z, C) → the NCDHW view."""
+    return x.permute(0, 4, 1, 2, 3)
+
+
+class _WaveletGate(nn.Module):
+    """sigmoid(MLP(global average pool ⊕ temb)) → one gate per subband
+    (parameters ``fnn.0`` and ``fnn.2``, the JAX package's ``fnn_0`` and
+    ``fnn_2``)."""
+
+    def __init__(self, channels: int, temb_dim: int, dtype=None):
+        super().__init__()
+        self.fnn = nn.Sequential(Linear(channels + temb_dim, 128, dtype), nn.SiLU(),
+                                 Linear(128, 8, dtype))
+
+    def gates(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        """(B, 1, 1, 1, 8, 1) gates for (B, X, Y, Z, 8, C) subbands."""
+        pooled = x.mean(dim=tuple(range(2, x.dim())))  # (B, C)
+        g = self.fnn[0](torch.cat([pooled, temb], dim=-1))
+        g = self.fnn[2](F.silu(g))
+        return torch.sigmoid(g).reshape(g.shape[0], 1, 1, 1, 8, 1)
+
+
+class WaveletGatingDownsample(_WaveletGate):
+    """Wavelet-gated downsample (JAX `unet.py:112-137`): DWT the features,
+    gate each of the 8 subbands, sum the gated subbands. 3-D."""
+
+    def __init__(self, channels: int, temb_dim: int, wavelet: str = "haar", dtype=None):
+        super().__init__(channels, temb_dim, dtype)
+        self.wavelet = wavelet
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        bands = wv.dwt3(_channels_last(x), self.wavelet)  # (B, X/2, Y/2, Z/2, 8, C)
+        return _channels_first((bands * self.gates(x, temb)).sum(dim=-2))
+
+
+class WaveletGatingUpsample(_WaveletGate):
+    """Wavelet-gated upsample (JAX `unet.py:140-162`): 1×1×1 conv
+    (``conv_exp``) into 8 subbands of ``channels``, gate them, IDWT. 3-D."""
+
+    def __init__(self, channels: int, temb_dim: int, wavelet: str = "haar", dtype=None):
+        super().__init__(channels, temb_dim, dtype)
+        self.channels, self.wavelet = channels, wavelet
+        self.conv_exp = conv_nd(channels, channels * 8, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        expanded = _channels_last(self.conv_exp(x))  # (B, X, Y, Z, 8C)
+        bands = expanded.reshape(*expanded.shape[:-1], 8, self.channels)
+        return _channels_first(wv.idwt3(bands * self.gates(x, temb), self.wavelet))
 
 
 class FusableConv3d(Conv3d):
@@ -141,23 +208,31 @@ class ResBlock(nn.Module):
     def __init__(self, channels, emb_channels, dropout=0.0, out_channels=None,
                  use_conv=False, use_scale_shift_norm=False, up=False, down=False,
                  num_groups=32, resample_2d=True, fuse_conv=False,
-                 fuse_gn_silu=False, dtype=None):
+                 fuse_gn_silu=False, dtype=None, dims=3):
         super().__init__()
         out_ch = out_channels or channels
         self.up, self.down = up, down
-        self.resample_2d = resample_2d
+        self.dims, self.resample_2d = dims, resample_2d
         self.use_scale_shift_norm = use_scale_shift_norm
         self.fuse_gn_silu = fuse_gn_silu
-        # both GN→SiLU→conv chains through K4b (`unet.py:257-264`)
-        self.fuse = fuse_conv and not (up or down) and not use_scale_shift_norm and dropout == 0
+        # both GN→SiLU→conv chains through K4b (`unet.py:257-264`); the
+        # configuration decides, as the JAX package's `dims == 3` test
+        self.fuse = (fuse_conv and dims == 3 and not (up or down)
+                     and not use_scale_shift_norm and dropout == 0)
         self.num_groups = num_groups
         # set by UNetModel: recompute this block's activations in the
         # backward pass instead of keeping them (use_checkpoint)
         self.remat = False
+
+        def conv(ci, co, zero_init=False):
+            if dims == 3:
+                return FusableConv3d(ci, co, dtype=dtype, zero_init=zero_init)
+            return conv_nd(ci, co, 3, dims=dims, dtype=dtype, zero_init=zero_init)
+
         self.in_layers = nn.Sequential(
             GroupNorm32(num_groups, channels),
             nn.SiLU(),
-            FusableConv3d(channels, out_ch, dtype=dtype),
+            conv(channels, out_ch),
         )
         self.emb_layers = nn.Sequential(
             nn.SiLU(),
@@ -167,12 +242,13 @@ class ResBlock(nn.Module):
             GroupNorm32(num_groups, out_ch),
             nn.SiLU(),
             nn.Dropout(dropout),
-            FusableConv3d(out_ch, out_ch, dtype=dtype, zero_init=True),
+            conv(out_ch, out_ch, zero_init=True),
         )
         if out_ch == channels:
             self.skip_connection = nn.Identity()
         else:
-            self.skip_connection = conv_nd(channels, out_ch, 3 if use_conv else 1, dtype=dtype)
+            self.skip_connection = conv_nd(channels, out_ch, 3 if use_conv else 1, dims=dims,
+                                           dtype=dtype)
 
     def _norm_act(self, norm: GroupNorm32, h: torch.Tensor) -> torch.Tensor:
         return norm(h, act="silu") if self.fuse_gn_silu else F.silu(norm(h))
@@ -199,11 +275,11 @@ class ResBlock(nn.Module):
         norm_in, _, conv_in = self.in_layers
         h = self._norm_act(norm_in, x)
         if self.up:
-            h = nearest_upsample(h, self.resample_2d)
-            x = nearest_upsample(x, self.resample_2d)
+            h = nearest_upsample(h, self.dims, self.resample_2d)
+            x = nearest_upsample(x, self.dims, self.resample_2d)
         elif self.down:
-            h = avg_pool_nd(h, _down_window(self.resample_2d))
-            x = avg_pool_nd(x, _down_window(self.resample_2d))
+            h = avg_pool_nd(h, _down_window(self.dims, self.resample_2d))
+            x = avg_pool_nd(x, _down_window(self.dims, self.resample_2d))
         h = conv_in(h)
 
         emb_out = self.emb_layers[1](F.silu(emb)).to(h.dtype)
@@ -218,14 +294,91 @@ class ResBlock(nn.Module):
         return self.skip_connection(x) + h
 
 
-class UNetModel(nn.Module):
-    """The production denoiser: encoder ResBlocks + downsampling, two
-    bottleneck ResBlocks, decoder with concatenated (or averaged additive)
-    skips and upsampling, GN→SiLU→zero conv head; fp32 output.
+class AttentionBlock(nn.Module):
+    """Self-attention over the flattened spatial positions (JAX
+    `unet.py:345-400`).
 
-    ``forward(x, timesteps)`` takes logical NCDHW ``x`` and returns NCDHW.
-    ``dtype`` (None, torch.float32 or torch.bfloat16) is the compute dtype;
-    params stay fp32 and GroupNorm statistics are fp32 regardless.
+    GroupNorm (fp32 statistics), then ``qkv`` and ``proj_out``: the
+    reference's 1×1 ``Conv1d`` parameters ((3C, C, 1) and (C, C, 1),
+    ``proj_out`` zero-initialised) applied as dense layers over the channel
+    axis, as the JAX package's ``nn.Dense``. ``use_new_attention_order``
+    reads qkv as ``[q | k | v]`` (qkv-major); the legacy order is head-major
+    ``[h0: q k v | h1: q k v | ...]``. q and k are each scaled by 1/√√ch,
+    the logits' softmax is taken in fp32 and cast back, in plain einsums in
+    the JAX package's order. Not ``F.scaled_dot_product_attention``: it
+    scales once and takes the softmax in the input dtype.
+
+    The attention matrix is built whole: (heads, T, T) per sample, T the
+    number of positions.
+    """
+
+    def __init__(self, channels: int, num_heads: int = 1, num_head_channels: int = -1,
+                 use_new_attention_order: bool = False, num_groups: int = 32, dtype=None):
+        super().__init__()
+        if num_head_channels == -1:
+            self.heads = num_heads
+        elif channels % num_head_channels:
+            raise ValueError(f"channels {channels} not divisible by num_head_channels "
+                             f"{num_head_channels}")
+        else:
+            self.heads = channels // num_head_channels
+        self.new_order = use_new_attention_order
+        self.norm = GroupNorm32(num_groups, channels)
+        self.qkv = conv_nd(channels, 3 * channels, 1, dims=1, dtype=dtype)
+        self.proj_out = conv_nd(channels, channels, 1, dims=1, dtype=dtype, zero_init=True)
+
+    @staticmethod
+    def _dense(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+        """A 1×1 conv's parameters as ``nn.Dense`` over the last axis of
+        ``x``, with the conv's dtype rule."""
+        dt = conv.compute_dtype or torch.promote_types(x.dtype, conv.weight.dtype)
+        return F.linear(x.to(dt), conv.weight[:, :, 0].to(dt), conv.bias.to(dt))
+
+    def forward(self, x: torch.Tensor, emb=None) -> torch.Tensor:
+        b, c, *spatial = x.shape
+        heads = self.heads
+        ch = c // heads
+        flat = x.flatten(2)  # (B, C, T)
+        qkv = self._dense(self.qkv, self.norm(flat).transpose(1, 2))  # (B, T, 3C)
+        if self.new_order:
+            q, k, v = (t.reshape(b, -1, heads, ch) for t in qkv.chunk(3, dim=-1))
+        else:
+            q, k, v = qkv.reshape(b, -1, heads, 3 * ch).chunk(3, dim=-1)
+        scale = dtype_scalar(1.0 / math.sqrt(math.sqrt(ch)), q.dtype)
+        logits = torch.einsum("bthc,bshc->bhts", q * scale, k * scale)
+        weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
+        a = torch.einsum("bhts,bshc->bthc", weights, v).reshape(b, -1, c)
+        out = flat.transpose(1, 2) + self._dense(self.proj_out, a)  # (B, T, C)
+        return out.transpose(1, 2).reshape(b, c, *spatial)
+
+
+def embedding(model: nn.Module, timesteps: torch.Tensor,
+              y: torch.Tensor | None = None) -> torch.Tensor:
+    """``model.time_embed`` of the sinusoidal timestep embedding, plus
+    ``model.label_emb(y)`` where the model is class-conditional
+    (``num_classes`` set); fp32. ``y`` must be given exactly then
+    (``ValueError``), as the JAX package asserts."""
+    num_classes = getattr(model, "num_classes", None)
+    if (y is None) != (num_classes is None):
+        raise ValueError("class labels y must be given exactly when the model is "
+                         f"class-conditional (num_classes={num_classes})")
+    t_emb = timestep_embedding(timesteps, model.model_channels)
+    emb = model.time_embed[2](F.silu(model.time_embed[0](t_emb)))
+    return emb if y is None else emb + model.label_emb(y)
+
+
+class UNetModel(nn.Module):
+    """The denoiser: encoder ResBlocks (+ attention) + downsampling, a
+    bottleneck ResBlock[, attention], ResBlock, decoder with concatenated
+    (or averaged additive) skips, attention and upsampling, GN→SiLU→zero
+    conv head; fp32 output.
+
+    ``forward(x, timesteps, y=None)`` takes logical N, C, spatial ``x`` and
+    returns the same layout; ``y`` (class labels) is given exactly when
+    ``num_classes`` is set, and its embedding is added to the timestep
+    embedding. ``dtype`` (None, torch.float32 or torch.bfloat16) is the
+    compute dtype; params stay fp32 and GroupNorm statistics are fp32
+    regardless.
 
     ``use_checkpoint`` recomputes, in the backward pass, the ResBlocks at
     downsample factor ds <= ``remat_max_ds`` (0: every ResBlock) instead of
@@ -263,65 +416,72 @@ class UNetModel(nn.Module):
         remat_max_ds: int = 0,
     ):
         super().__init__()
-        if dims != 3:
-            raise NotImplementedError("the port implements dims=3 only")
-        if attention_resolutions or bottleneck_attention:
-            raise NotImplementedError(
-                "AttentionBlock is not ported yet (the production config has "
-                "no attention: attention_resolutions='' and "
-                "bottleneck_attention=False)"
-            )
-        if num_classes is not None:
-            raise NotImplementedError("class conditioning is not ported yet")
         self.in_channels = in_channels
         self.model_channels = model_channels
         self.out_channels = out_channels
+        self.num_classes = num_classes
         self.channel_mult = tuple(channel_mult)
+        self.attention_resolutions = tuple(attention_resolutions)
         self.num_res_blocks = num_res_blocks
         self.resblock_updown = resblock_updown
         self.conv_resample = conv_resample
+        self.bottleneck_attention = bottleneck_attention
         self.additive_skips = additive_skips
         self.fuse_gn_silu = fuse_gn_silu
+        self.dims = dims
         self.dtype = dtype
+        heads_up = num_heads if num_heads_upsample == -1 else num_heads_upsample
 
         ted = model_channels * 4
         self.time_embed = nn.Sequential(
             Linear(model_channels, ted), nn.SiLU(), Linear(ted, ted)
         )
+        if num_classes is not None:
+            self.label_emb = nn.Embedding(num_classes, ted)
 
         def resblock(ch_in, ch_out, ds, **kw):
             block = ResBlock(
                 ch_in, ted, dropout, ch_out,
                 use_scale_shift_norm=use_scale_shift_norm,
                 num_groups=num_groups, resample_2d=resample_2d,
-                fuse_conv=fuse_conv, fuse_gn_silu=fuse_gn_silu, dtype=dtype, **kw,
+                fuse_conv=fuse_conv, fuse_gn_silu=fuse_gn_silu, dtype=dtype, dims=dims, **kw,
             )
             block.remat = use_checkpoint and (not remat_max_ds or ds <= remat_max_ds)
             return block
 
+        def attention(ch, heads):
+            return AttentionBlock(ch, heads, num_head_channels, use_new_attention_order,
+                                  num_groups, dtype)
+
         self.input_blocks = nn.ModuleList(
-            [nn.ModuleList([conv_nd(in_channels, model_channels, 3, dtype=dtype)])]
+            [nn.ModuleList([conv_nd(in_channels, model_channels, 3, dims=dims, dtype=dtype)])]
         )
         skip_chans = [model_channels]
         ch = model_channels
         ds = 1
         for level, mult in enumerate(self.channel_mult):
             for _ in range(num_res_blocks):
-                self.input_blocks.append(
-                    nn.ModuleList([resblock(ch, mult * model_channels, ds)]))
+                layers = nn.ModuleList([resblock(ch, mult * model_channels, ds)])
                 ch = mult * model_channels
+                if ds in self.attention_resolutions:
+                    layers.append(attention(ch, num_heads))
+                self.input_blocks.append(layers)
                 skip_chans.append(ch)
             if level != len(self.channel_mult) - 1:
                 down = (
                     resblock(ch, ch, ds, down=True)
                     if resblock_updown
-                    else Downsample(ch, conv_resample, ch, resample_2d, dtype)
+                    else Downsample(ch, conv_resample, ch, resample_2d, dtype, dims)
                 )
                 self.input_blocks.append(nn.ModuleList([down]))
                 skip_chans.append(ch)
                 ds *= 2
 
-        self.middle_block = nn.ModuleList([resblock(ch, ch, ds), resblock(ch, ch, ds)])
+        self.middle_block = nn.ModuleList(
+            [resblock(ch, ch, ds)]
+            + ([attention(ch, num_heads)] if bottleneck_attention else [])
+            + [resblock(ch, ch, ds)]
+        )
 
         self.output_blocks = nn.ModuleList()
         for level, mult in list(enumerate(self.channel_mult))[::-1]:
@@ -334,12 +494,14 @@ class UNetModel(nn.Module):
                     mid_ch = model_channels * mult
                     in_ch = ch + ich
                 layers = nn.ModuleList([resblock(in_ch, mid_ch, ds)])
+                if ds in self.attention_resolutions:
+                    layers.append(attention(mid_ch, heads_up))
                 ch = mid_ch
                 if level and i == num_res_blocks:
                     layers.append(
                         resblock(ch, ch, ds, up=True)
                         if resblock_updown
-                        else Upsample(ch, conv_resample, ch, resample_2d, dtype)
+                        else Upsample(ch, conv_resample, ch, resample_2d, dtype, dims)
                     )
                     ds //= 2
                 self.output_blocks.append(layers)
@@ -347,27 +509,161 @@ class UNetModel(nn.Module):
         self.out = nn.Sequential(
             GroupNorm32(num_groups, model_channels),
             nn.SiLU(),
-            conv_nd(model_channels, out_channels, 3, zero_init=True),
+            conv_nd(model_channels, out_channels, 3, dims=dims, zero_init=True),
         )
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
-        t_emb = timestep_embedding(timesteps, self.model_channels)
-        emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb)))
-        emb = emb.to(self.dtype or x.dtype)
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                y: torch.Tensor | None = None) -> torch.Tensor:
+        emb = embedding(self, timesteps, y).to(self.dtype or x.dtype)
 
         h = self.input_blocks[0][0](x)
         hs = [h]
-        for (block,) in self.input_blocks[1:]:
-            h = block(h, emb)
+        for layers in self.input_blocks[1:]:
+            for layer in layers:
+                h = layer(h, emb)
             hs.append(h)
-        for block in self.middle_block:
-            h = block(h, emb)
+        for layer in self.middle_block:
+            h = layer(h, emb)
         for layers in self.output_blocks:
             skip = hs.pop()
             h = (h + skip) / 2.0 if self.additive_skips else torch.cat([h, skip], dim=1)
-            for block in layers:
-                h = block(h, emb)
+            for layer in layers:
+                h = layer(h, emb)
 
         norm, _, conv = self.out
         h = norm(h, act="silu") if self.fuse_gn_silu else F.silu(norm(h))
         return conv(h).float()
+
+
+class SuperResModel(UNetModel):
+    """Super-resolution UNet (JAX `unet.py:619-635`): ``low_res`` is
+    resized to ``x``'s spatial size by linear interpolation with half-pixel
+    centres (``align_corners=False``; the JAX package's
+    ``jax.image.resize(..., "bilinear")``, the same function for an
+    upscale, where its antialiasing does nothing) and concatenated to ``x``
+    on channels. ``in_channels`` counts both, as the JAX package's inner
+    UNet; the parameters are the UNet's own, as the reference's subclass."""
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                low_res: torch.Tensor | None = None,
+                y: torch.Tensor | None = None) -> torch.Tensor:
+        mode = {3: "linear", 4: "bilinear", 5: "trilinear"}[x.dim()]
+        up = F.interpolate(low_res, size=tuple(x.shape[2:]), mode=mode, align_corners=False)
+        return super().forward(torch.cat([x, up], dim=1), timesteps, y)
+
+
+ENCODER_POOLS = ("adaptive", "spatial", "spatial_v2")
+
+
+class EncoderUNetModel(nn.Module):
+    """Half-UNet classifier (JAX `unet.py:638-767`), built by
+    ``create_classifier``: the UNet's encoder and bottleneck (with
+    attention), then a pooled head, fp32 logits (B, out_channels).
+
+    ``pool``: "adaptive" (GN→SiLU→global mean→zero 1×1 conv; parameters
+    ``out.0`` and ``out.3``, the reference's), "spatial" (the global means
+    of the input conv's, every block's and the bottleneck's features,
+    concatenated, → ``out.0`` Linear) or "spatial_v2" (the same features
+    → ``out.0`` Linear 2048 → ``out.1`` GroupNorm → SiLU → ``out.3``
+    Linear). The two spatial heads have no reference layout.
+    """
+
+    def __init__(
+        self,
+        image_size: int,
+        in_channels: int,
+        model_channels: int,
+        out_channels: int,
+        num_res_blocks: int,
+        attention_resolutions: Sequence[int] = (),
+        dropout: float = 0.0,
+        channel_mult: Sequence[int] = (1, 2, 4, 8),
+        conv_resample: bool = True,
+        dims: int = 3,
+        num_heads: int = 1,
+        num_head_channels: int = -1,
+        use_scale_shift_norm: bool = False,
+        resblock_updown: bool = False,
+        use_new_attention_order: bool = False,
+        pool: str = "adaptive",
+        num_groups: int = 32,
+        resample_2d: bool = True,
+        dtype: torch.dtype | None = None,
+    ):
+        super().__init__()
+        if pool not in ENCODER_POOLS:
+            raise NotImplementedError(f"Unexpected {pool} pooling")
+        self.model_channels = model_channels
+        self.channel_mult = tuple(channel_mult)
+        self.attention_resolutions = tuple(attention_resolutions)
+        self.num_res_blocks = num_res_blocks
+        self.resblock_updown = resblock_updown
+        self.conv_resample = conv_resample
+        self.pool = pool
+        self.dims = dims
+
+        ted = model_channels * 4
+        self.time_embed = nn.Sequential(
+            Linear(model_channels, ted), nn.SiLU(), Linear(ted, ted)
+        )
+
+        def resblock(ch_in, ch_out, **kw):
+            return ResBlock(ch_in, ted, dropout, ch_out, use_scale_shift_norm=use_scale_shift_norm,
+                            num_groups=num_groups, resample_2d=resample_2d, dtype=dtype,
+                            dims=dims, **kw)
+
+        def attention(ch):
+            return AttentionBlock(ch, num_heads, num_head_channels, use_new_attention_order,
+                                  num_groups, dtype)
+
+        self.input_blocks = nn.ModuleList(
+            [nn.ModuleList([conv_nd(in_channels, model_channels, 3, dims=dims, dtype=dtype)])]
+        )
+        ch = model_channels
+        features = ch  # channels of the spatial heads' concatenated means
+        ds = 1
+        for level, mult in enumerate(self.channel_mult):
+            for _ in range(num_res_blocks):
+                layers = nn.ModuleList([resblock(ch, mult * model_channels)])
+                ch = mult * model_channels
+                if ds in self.attention_resolutions:
+                    layers.append(attention(ch))
+                self.input_blocks.append(layers)
+                features += ch
+            if level != len(self.channel_mult) - 1:
+                down = (resblock(ch, ch, down=True) if resblock_updown
+                        else Downsample(ch, conv_resample, ch, resample_2d, dtype, dims))
+                self.input_blocks.append(nn.ModuleList([down]))
+                features += ch
+                ds *= 2
+        self.middle_block = nn.ModuleList([resblock(ch, ch), attention(ch), resblock(ch, ch)])
+        features += ch
+
+        if pool == "adaptive":
+            self.out = nn.Sequential(
+                GroupNorm32(num_groups, ch), nn.SiLU(),
+                (nn.AdaptiveAvgPool1d, nn.AdaptiveAvgPool2d, nn.AdaptiveAvgPool3d)[dims - 1](1),
+                conv_nd(ch, out_channels, 1, dims=dims, zero_init=True), nn.Flatten(),
+            )
+        elif pool == "spatial":
+            self.out = nn.Sequential(Linear(features, out_channels))
+        else:
+            self.out = nn.Sequential(Linear(features, 2048), GroupNorm32(num_groups, 2048),
+                                     nn.SiLU(), Linear(2048, out_channels))
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        emb = embedding(self, timesteps)
+        spatial = tuple(range(2, x.dim()))
+        keep = self.pool != "adaptive"
+        h = self.input_blocks[0][0](x)
+        means = [h.mean(dim=spatial)] if keep else []
+        for layers in self.input_blocks[1:]:
+            for layer in layers:
+                h = layer(h, emb)
+            if keep:
+                means.append(h.mean(dim=spatial))
+        for layer in self.middle_block:
+            h = layer(h, emb)
+        if not keep:
+            return self.out(h)
+        return self.out(torch.cat(means + [h.mean(dim=spatial)], dim=-1))

@@ -3,6 +3,24 @@ VJP), with one view of the wrappers' launch counters."""
 
 from __future__ import annotations
 
+from fast_cwdm_tpu_torch.ops.wavelet import (  # noqa: F401
+    LLL_SCALE,
+    dwt1,
+    dwt2,
+    dwt2_tiny,
+    dwt3,
+    dwt3_flat,
+    dwt_normalized,
+    filter_bank,
+    haar_clamp_project,
+    idwt1,
+    idwt2,
+    idwt3,
+    idwt3_flat,
+    idwt_normalized,
+    scale_lll,
+)
+
 
 def _counters() -> dict:
     """name → (holder, attribute or key) of every wrapper's launch counter."""

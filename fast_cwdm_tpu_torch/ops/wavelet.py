@@ -1,9 +1,9 @@
 """3-D discrete wavelet transforms on channels-last tensors.
 
-Port of ``fast_cwdm_tpu/ops/wavelet.py`` (3-D part). Layout is the JAX
-package's channels-last ``(..., X, Y, Z, C)``; subband order is LLL, LLH,
-LHL, LHH, HLL, HLH, HHL, HHH, i.e. band index = 4*high(X) + 2*high(Y) +
-high(Z). Haar runs as paired sums and differences; Daubechies-N as banded
+Port of ``fast_cwdm_tpu/ops/wavelet.py``: the 1-, 2- and 3-D transforms.
+Layout is the JAX package's channels-last ``(..., X, Y, Z, C)``; 3-D
+subband order is LLL, LLH, LHL, LHH, HLL, HLH, HHL, HHH, i.e. band index =
+4*high(X) + 2*high(Y) + high(Z). Haar runs as paired sums and differences; Daubechies-N as banded
 decimated matrices with zero-boundary truncation.
 
 Single-channel Haar transforms of fp32 tensors route to the hand-written
@@ -79,6 +79,14 @@ def _banded_matrices(n: int, wavelet: str) -> tuple[np.ndarray, np.ndarray]:
     return mats
 
 
+@functools.lru_cache(maxsize=None)
+def dtype_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: what a Python scalar becomes in JAX
+    when it meets an array of that dtype (a bf16 array times 1/√2 is
+    multiplied by bf16(1/√2); torch would use the float32 value)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def _every_other(x: torch.Tensor, axis: int, start: int) -> torch.Tensor:
     idx = [slice(None)] * x.dim()
     idx[axis] = slice(start, None, 2)
@@ -93,7 +101,8 @@ def _axis_down(x: torch.Tensor, axis: int, wavelet: str):
         )
     if wavelet in HAAR:
         even, odd = _every_other(x, axis, 0), _every_other(x, axis, 1)
-        return (even + odd) * INV_SQRT2, (even - odd) * INV_SQRT2
+        r = dtype_scalar(INV_SQRT2, x.dtype)
+        return (even + odd) * r, (even - odd) * r
     mat_l, mat_h = _banded_matrices(x.shape[axis], wavelet)
     moved = x.movedim(axis, -1)
     ml = torch.as_tensor(mat_l, dtype=x.dtype, device=x.device)
@@ -105,8 +114,9 @@ def _axis_up(lo: torch.Tensor, hi: torch.Tensor, axis: int, wavelet: str):
     """Inverse of :func:`_axis_down` along ``axis``."""
     pos = axis % lo.dim()
     if wavelet in HAAR:
-        even = (lo + hi) * INV_SQRT2
-        odd = (lo - hi) * INV_SQRT2
+        r = dtype_scalar(INV_SQRT2, lo.dtype)
+        even = (lo + hi) * r
+        odd = (lo - hi) * r
         shape = list(lo.shape)
         shape[pos] *= 2
         return torch.stack([even, odd], dim=pos + 1).reshape(shape)
@@ -115,6 +125,35 @@ def _axis_up(lo: torch.Tensor, hi: torch.Tensor, axis: int, wavelet: str):
     mh = torch.as_tensor(mat_h, dtype=lo.dtype, device=lo.device)
     out = lo.movedim(axis, -1) @ ml + hi.movedim(axis, -1) @ mh
     return out.movedim(-1, pos)
+
+
+def dwt1(x: torch.Tensor, wavelet: str = "haar") -> tuple[torch.Tensor, torch.Tensor]:
+    """1-D DWT over the second-to-last axis of ``(..., L, C)`` → (lo, hi)."""
+    return _axis_down(x, -2, wavelet)
+
+
+def idwt1(lo: torch.Tensor, hi: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:
+    """Inverse of :func:`dwt1`."""
+    return _axis_up(lo, hi, -2, wavelet)
+
+
+def dwt2(x: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:
+    """2-D DWT of ``(..., H, W, C)`` → ``(..., H/2, W/2, 4, C)``, bands LL,
+    LH, HL, HH (first letter: the first spatial axis)."""
+    lo, hi = _axis_down(x, -3, wavelet)
+    return torch.stack([b for part in (lo, hi) for b in _axis_down(part, -2, wavelet)], dim=-2)
+
+
+def dwt2_tiny(x: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:
+    """The LL band of :func:`dwt2` alone."""
+    lo, _ = _axis_down(x, -3, wavelet)
+    return _axis_down(lo, -2, wavelet)[0]
+
+
+def idwt2(bands: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:
+    """Inverse of :func:`dwt2`: ``(..., H, W, 4, C)`` → ``(..., 2H, 2W, C)``."""
+    ll, lh, hl, hh = (bands[..., i, :] for i in range(4))
+    return _axis_up(_axis_up(ll, lh, -2, wavelet), _axis_up(hl, hh, -2, wavelet), -3, wavelet)
 
 
 def dwt3(x: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:

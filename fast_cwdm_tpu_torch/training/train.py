@@ -112,8 +112,11 @@ class AdamW:
         """The inverse of :meth:`state_to_tree`, from a loaded ``.ckpt`` tree
         (tuples come back keyed "0", "1", "2")."""
         adam = tree["0"] if isinstance(tree, dict) else tree[0]
-        to_dev = lambda sd: {k: v.to(device=device, dtype=torch.float32).contiguous()  # noqa: E731
-                             for k, v in sd.items()}
+        # by parameter name: a shared tensor's alias keys (the WavUNet's
+        # decoder) name no moment of their own
+        names = dict(model.named_parameters())
+        to_dev = lambda sd: {k: sd[k].to(device=device, dtype=torch.float32).contiguous()  # noqa: E731
+                             for k in names}
         return {"count": int(np.asarray(adam["count"])),
                 "mu": to_dev(state_dict_from_jax(adam["mu"], model)),
                 "nu": to_dev(state_dict_from_jax(adam["nu"], model))}

@@ -4,8 +4,9 @@ its plain torch version, their wrappers' refusals (the fused conv's
 backward included), the autograd pairs (K1/K2, K3 and its VJP), fuse_conv
 UNets that reach K4b on each conv kernel, a .ckpt round trip of a model on
 the card, complete_dataset on the card, a train step on the card
-against the same step on the CPU, and the synthesis chain captured as a
-CUDA graph against the eager chain.
+against the same step on the CPU, the synthesis chain captured as a CUDA
+graph against the eager chain (an attention UNet's too), and a WavUNet's
+forward on the card against the CPU.
 
 Marked ``cuda``: skipped where no GPU is present. This file imports no JAX,
 so it also runs where JAX is not installed:
@@ -650,6 +651,43 @@ def test_graphed_chain_equals_the_eager_chain(gen, flags, sampler):
     assert counts["eager", 0][site] > 0
     if flags.get("fuse_conv"):
         assert counts["eager", 0]["conv3d_wgmma"] > 0 and counts["eager", 0]["conv3d_splitk"] > 0
+
+
+def test_attention_unet_graphed_chain_equals_the_eager_chain(gen):
+    """The _graph_case UNet with attention at ds 2 (16³ = 4,096 positions,
+    4 heads) and in the bottleneck: the graphed chain's image equals the
+    eager chain's bit for bit."""
+    model, diffusion, cond, mask = _graph_case(dict(attention_resolutions="16",
+                                                    bottleneck_attention=True, num_heads=4))
+    assert sum(type(m).__name__ == "AttentionBlock" for m in model.modules()) == 4
+    imgs = {}
+    for graphed in (False, True):
+        run = common.make_synthesis_fn(model, diffusion, crop_z=32, device="cuda",
+                                       cuda_graph=graphed)
+        imgs[graphed] = run(cond, mask, torch.Generator(device="cuda").manual_seed(3))
+    assert imgs[False].max() > 0.0 and np.array_equal(imgs[True], imgs[False])
+
+
+def test_wunet_forward_on_the_card_matches_the_cpu(gen):
+    """A WavUNet (widths 16/32, two res blocks a level, attention at ds 2,
+    the reference's double run) in fp32 on the card against the CPU, same
+    seeded weights and input, TF32 off: within 1e-4."""
+    from fast_cwdm_tpu_torch.models.wunet import WavUNetModel
+
+    cfg = dict(image_size=16, in_channels=32, model_channels=16, out_channels=8,
+               num_res_blocks=2, attention_resolutions=(2,), channel_mult=(1, 2), num_groups=8,
+               resample_2d=False, num_heads=2, ref_compat=True)
+    model = WavUNetModel(**cfg).eval()
+    sd = seeded_state_dict({k: tuple(v.shape) for k, v in model.state_dict().items()})
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    x = torch.randn((1, 32, 16, 16, 12), generator=torch.Generator().manual_seed(0))
+    t = torch.tensor([123])
+    with torch.no_grad():
+        ref = model(x, t)
+        ours = model.cuda()(x.cuda(), t.cuda())
+    torch.cuda.synchronize()
+    assert ours.shape == ref.shape == (1, 8, 16, 16, 12)
+    torch.testing.assert_close(ours.cpu(), ref, atol=1e-4, rtol=0)
 
 
 def test_a_failed_capture_raises(gen):

@@ -12,8 +12,9 @@ import torch
 from fast_cwdm_tpu.models import UNetModel as JUNetModel
 from fast_cwdm_tpu.ops import elementwise_pallas as ep
 from fast_cwdm_tpu.training.bridge import torch_to_flax
-from fast_cwdm_tpu_torch.models.convert import state_dict_from_jax
-from fast_cwdm_tpu_torch.models.unet import UNetModel
+from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict, state_dict_from_jax
+from fast_cwdm_tpu_torch.models.unet import EncoderUNetModel, UNetModel
+from fast_cwdm_tpu_torch.models.wunet import WavUNetModel
 from fast_cwdm_tpu_torch.utils.testing import seeded_state_dict
 
 torch.set_num_threads(2)
@@ -177,6 +178,33 @@ def test_state_dict_from_jax_inverts_the_bridge():
             assert torch.equal(back[k], v), k
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="AttentionBlock"):
-        UNetModel(**dict(TINY_CFG, attention_resolutions=(2,)))
+WUNET_GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "wunet_tiny_torch.npz")
+WUNET_CFG = dict(TINY_CFG, in_channels=8, model_channels=16, channel_mult=(1, 1),
+                 use_freq=True, progressive_input="residual")
+
+
+def _alias_mismatch():
+    data = np.load(WUNET_GOLDEN)
+    sd = {k[3:]: data[k] for k in data.files if k.startswith("sd.")}
+    # output_blocks.1.0 is the reference's second registration of .0.0
+    sd["output_blocks.1.0.in_layers.2.weight"] = sd["output_blocks.1.0.in_layers.2.weight"] + 1.0
+    jax_params_from_state_dict(sd, WavUNetModel(**WUNET_CFG))
+
+
+# what still raises, as in the JAX package
+RAISES = {
+    "wunet_alias_mismatch": (ValueError, "aliased", _alias_mismatch),
+    "wunet_additive_skips": (ValueError, "additive_skips",
+                             lambda: WavUNetModel(**dict(WUNET_CFG, additive_skips=True))),
+    "encoder_spatial_pool_layout": (NotImplementedError, "adaptive", lambda: state_dict_from_jax(
+        {}, EncoderUNetModel(16, 8, 16, 2, 1, channel_mult=(1, 2), num_groups=8,
+                             pool="spatial"))),
+    "dims4": (NotImplementedError, "dims", lambda: UNetModel(**dict(TINY_CFG, dims=4))),
+}
+
+
+@pytest.mark.parametrize("case", list(RAISES))
+def test_unported_options_raise(case):
+    exc, match, fn = RAISES[case]
+    with pytest.raises(exc, match=match):
+        fn()
