@@ -99,7 +99,25 @@ Phases, each printing one JSON object per line:
               orders and with num_head_channels, class-conditional UNet
               and WavUNet, the WavUNet's double run, the encoder's three
               pools, SuperResModel, both gating blocks) on the card
-              against the CPU (≤ 1e-4, TF32 off).
+              against the CPU (≤ 1e-4, TF32 off);
+11. diffusion_api — the rest of ``GaussianDiffusion`` at the production
+              config (bf16, fuse_conv, 10-step schedule): sample_known, the
+              ancestral interpolation, ddim_sample_loop_known, a
+              ddim_reverse_sample round trip, calc_bpd_loop (59 forwards,
+              3,186 K4b launches), each progressive generator against its
+              loop bit for bit; then the same methods at a tiny fp32 size,
+              card against CPU on the same draws (≤ 1e-4, TF32 off);
+12. distributed — the data axis through ``torch.distributed.run``:
+              (a) ``cli.train`` as one NCCL rank (bf16, fuse_gn_silu, 3
+              steps); (b) two gloo ranks sharing the card (fp32, TF32 off,
+              cuDNN deterministic, global batch 2) against one process
+              accumulating the same rows (bit for bit) and one process at
+              batch 2 (losses within 2e-5; Adam's moments and parameters
+              reported); (c) ``make_synthesis_fn(mesh=)`` over two ranks,
+              each row bit for bit its batch-1 synthesis, the difference
+              from a batch-2 synthesis reported; per run and rank the
+              launches, s/step, the all-reduce's ms and bytes, peak memory
+              and which rank wrote files.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits nonzero before
@@ -160,6 +178,26 @@ def emit(rec: dict) -> None:
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+class no_tf32:
+    """cuDNN and cuBLAS in full fp32 inside the block (and, with
+    ``deterministic``, cuDNN restricted to its deterministic algorithms:
+    no atomic-add reductions in the weight gradients), each flag restored
+    after it (cuDNN's default is TF32 on, cuBLAS's off)."""
+
+    def __init__(self, torch, deterministic: bool = False):
+        self.b, self.det = torch.backends, deterministic
+
+    def __enter__(self):
+        b = self.b
+        self.saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic)
+        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+        b.cudnn.deterministic = self.det or b.cudnn.deterministic
+
+    def __exit__(self, *exc):
+        b = self.b
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic = self.saved
 
 
 def nvidia_smi() -> str:
@@ -1963,6 +2001,501 @@ def phase_models_reference(torch) -> dict:
     return {"tol": 1e-4, **res}
 
 
+API_STEPS = 10  # the sampled schedule of every diffusion_api chain
+
+
+def api_methods(torch, diffusion, fn, img, cond, img2, seed: int, noise=None) -> dict:
+    """The rest of ``GaussianDiffusion``'s API on one model: each method's
+    result (tensors), drawn from a generator seeded with ``seed`` on
+    ``img``'s device, or from ``noise`` (a dict of the draws each method
+    takes, for a card-against-CPU comparison)."""
+    dev = img.device
+    noise = noise or {}
+    gen = lambda: (torch.Generator(device=dev).manual_seed(seed)  # noqa: E731
+                   if not noise else None)
+    shape = tuple(img.shape)
+    kw = lambda name: ({"noise": noise[name][0], "step_noise": noise[name][1]}  # noqa: E731
+                       if noise else {"generator": gen()})
+    out = {}
+    out["sample_known"] = diffusion.sample_known(fn, img, cond=cond, **kw("sample_known"))
+    s, i, _, _ = diffusion.p_sample_loop_interpolation(
+        fn, shape, img1=img, img2=img2, lambdaint=0.3, cond=cond, **kw("interpolation"))
+    out["p_sample_loop_interpolation"], out["interpol"] = s, i
+    ddim_kw = {"noise": noise["ddim_known"][0]} if noise else {"generator": gen()}
+    s, none, ret = diffusion.ddim_sample_loop_known(fn, shape, img=cond, **ddim_kw)
+    if none is not None or ret is not cond:
+        fail("ddim_sample_loop_known did not return (sample, None, img)")
+    out["ddim_sample_loop_known"] = s
+    # the DDIM round trip: encode img with the reverse ODE to t = T-1, decode
+    x = img
+    for ti in range(diffusion.num_timesteps - 1):
+        t = torch.full((shape[0],), ti, dtype=torch.long, device=dev)
+        x = diffusion.ddim_reverse_sample(fn, x, t, cond=cond)["sample"]
+    out["ddim_reverse_encoded"] = x
+    out["ddim_round_trip"] = diffusion.ddim_sample_loop(fn, shape, cond=cond, noise=x)
+    bpd = diffusion.calc_bpd_loop(
+        lambda x_, t_: x_[..., :8] + 1e-3 * fn(x_, t_), img, cond=cond, clip_denoised=False,
+        **({"step_noise": noise["bpd"]} if noise else {"generator": gen()}))
+    out.update({f"bpd.{k}": v for k, v in bpd.items()})
+    return out
+
+
+def phase_diffusion_api(torch) -> dict:
+    """The rest of ``GaussianDiffusion`` on the card (ROADMAP M9): at the
+    production config in bf16 with ``fuse_conv`` (K4b) and the 10-step
+    sampled schedule, seeded weights, a condition from three seeded
+    volumes: ``sample_known``, ``p_sample_loop_interpolation``,
+    ``ddim_sample_loop_known``, a ``ddim_reverse_sample`` round trip (9
+    reverse steps, then the 10-step DDIM chain), ``calc_bpd_loop`` (10
+    forwards, the model as a 1e-3 correction to an identity predictor so
+    the t = 0 decoder term is well-conditioned), and each progressive
+    generator against its loop, bit for bit on one generator seed; launch
+    counts and seconds of each. Then the same methods at a tiny fp32 size
+    (fuse_gn_silu + fuse_conv), card against CPU on the same draws, TF32
+    off, tolerance 1e-4 (of the output's scale for the bound's bits and
+    the DDIM round trip)."""
+    import numpy as np
+
+    from fast_cwdm_tpu_torch import ops
+    from fast_cwdm_tpu_torch.cli import common
+    from fast_cwdm_tpu_torch.ops import wavelet as wv
+
+    res = {}
+    cfg, sd = seeded_production(torch, fuse_conv=True)
+    model, diffusion = common.build_model_and_diffusion(cfg)
+    model.load_state_dict(sd)
+    model.cuda().eval()
+    fn = lambda x, t: model(x.permute(0, 4, 1, 2, 3), t).permute(0, 2, 3, 4, 1)  # noqa: E731
+    g = torch.Generator(device="cuda").manual_seed(4)
+    vols = {m: torch.rand((1, *VOLUME, 1), generator=g, device="cuda")
+            for m in ("t1n", "t1c", "t2w", "t2f")}
+    with torch.inference_mode():
+        reset_counts()
+        t0 = time.perf_counter()
+        cond = common.prepare_condition(vols, "t1c", device="cuda")
+        img = wv.dwt_normalized(vols["t1c"])
+        img2 = wv.dwt_normalized(torch.rand((1, *VOLUME, 1), generator=g, device="cuda"))
+        out = api_methods(torch, diffusion, fn, img, cond, img2, seed=1)
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"] = read_counts()
+        shape = tuple(img.shape)
+        progressive = {}
+        for prog, loop in (("p_sample_loop_progressive", "p_sample_loop"),
+                           ("ddim_sample_loop_progressive", "ddim_sample_loop")):
+            steps = list(getattr(diffusion, prog)(
+                fn, shape, cond=cond, generator=torch.Generator(device="cuda").manual_seed(2)))
+            ref = getattr(diffusion, loop)(
+                fn, shape, cond=cond, generator=torch.Generator(device="cuda").manual_seed(2))
+            progressive[prog] = {"steps": len(steps),
+                                 "bit_for_bit": bool(torch.equal(steps[-1]["sample"], ref))}
+            if len(steps) != API_STEPS or not progressive[prog]["bit_for_bit"]:
+                fail(f"{prog} does not end where {loop} ends: {progressive[prog]}")
+    res["progressive"] = progressive
+    bpd_sum = (out["bpd.vb"].sum(1) + out["bpd.prior_bpd"]).double()
+    res["results"] = {k: {"shape": list(v.shape), "finite": bool(torch.isfinite(v).all()),
+                          "max_abs": float(v.abs().max())} for k, v in out.items()}
+    res["round_trip_max_abs_err"] = float((out["ddim_round_trip"] - img).abs().max())
+    res["bpd_total"] = out["bpd.total_bpd"].tolist()
+    res["bpd_sum_rel_err"] = float(((out["bpd.total_bpd"].double() - bpd_sum).abs()
+                                    / bpd_sum.abs()).max())
+    k4b = res["launches"]["conv3d_fused_k4b"]
+    res["forwards"] = k4b // 54
+    if not all(r["finite"] for r in res["results"].values()) or res["bpd_sum_rel_err"] > 1e-5 \
+            or out["bpd.vb"].shape != (1, API_STEPS) or k4b == 0 or k4b % 54 \
+            or res["launches"]["haar_dwt3"] == 0:
+        fail(f"diffusion_api at the production config: {res}")
+    del model, out
+    torch.cuda.empty_cache()
+
+    # tiny fp32, card against CPU on the same draws
+    rng = np.random.default_rng(0)
+    shape = (1, 8, 8, 8, 8)
+    draws = lambda n: [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+                       for _ in range(n)]
+    noise = {"sample_known": (draws(1)[0], draws(API_STEPS)),
+             "interpolation": (draws(1)[0], draws(API_STEPS)),
+             "ddim_known": (draws(1)[0],), "bpd": draws(API_STEPS)}
+    tin = {k: torch.from_numpy(rng.random(shape[:-1] + (c,)).astype(np.float32))
+           for k, c in (("img", 8), ("img2", 8), ("cond", 24))}
+    tiny = common.production_config(num_channels=16, num_res_blocks=1, channel_mult="1,2",
+                                    num_groups=8, image_size=8, diffusion_steps=API_STEPS,
+                                    sample_schedule="sampled", dtype="float32",
+                                    fuse_gn_silu=True, fuse_conv=True)
+
+    def to(v, dev):  # a draw, or a tuple or list of them, on dev
+        return type(v)(to(a, dev) for a in v) if isinstance(v, (tuple, list)) else v.to(dev)
+
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model, diffusion = common.build_model_and_diffusion(tiny)
+        model.load_state_dict(seeded(torch, model))
+        model.to(dev).eval()
+        f = lambda x, t, m=model: m(x.permute(0, 4, 1, 2, 3), t).permute(0, 2, 3, 4, 1)  # noqa: E731
+        with torch.inference_mode(), no_tf32(torch):
+            outs[dev] = api_methods(torch, diffusion, f, tin["img"].to(dev), tin["cond"].to(dev),
+                                    tin["img2"].to(dev), seed=0,
+                                    noise={k: to(v, dev) for k, v in noise.items()})
+    ref = {}
+    for k, v in outs["cpu"].items():
+        got = outs["cuda"][k].cpu()
+        err = float((got - v).abs().max())
+        # 1e-4; relative to the scale for the bound's bits and the DDIM
+        # round trip, whose encoded latent grows to ~200 (ε divides by
+        # √(1/ᾱ − 1) = 0.01 at t = 0)
+        scaled = k.startswith("bpd.") or k.startswith("ddim_r")
+        tol = 1e-4 * (max(1.0, float(v.abs().max())) if scaled else 1.0)
+        ref[k] = {"max_abs_err": err, "tol": tol, "max_abs": float(v.abs().max())}
+        if not err <= tol or not bool(torch.isfinite(got).all()):
+            fail(f"diffusion_api {k} on the card disagrees with the CPU: {ref[k]}")
+    res["reference_tiny_fp32"] = ref
+    return res
+
+
+def torchrun(tmp: str, name: str, n: int, child: list, env: dict, timeout: int = 300) -> list:
+    """``python -m torch.distributed.run --standalone --nproc_per_node=n
+    chip_smoke.py <child>``: n ranks on this host, each writing its record
+    to ``tmp/name/rank{r}.json``; returns the records in rank order."""
+    import torch
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    out_dir = os.path.join(tmp, name)
+    os.makedirs(out_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}", os.path.join(REPO, "chip_smoke.py"), *child]
+    with open(os.path.join(tmp, f"{name}.log"), "w") as log:
+        proc = subprocess.run(cmd, env=dict(os.environ, **env), stdout=log, stderr=log,
+                              timeout=timeout, cwd=REPO)
+    if proc.returncode != 0:
+        with open(os.path.join(tmp, f"{name}.log")) as f:
+            fail(f"torchrun {name} exited {proc.returncode}:\n{f.read()[-4000:]}")
+    recs = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def rank_record(torch, out_dir: str, rec: dict) -> None:
+    rank = int(os.environ["RANK"])
+    rec.update(rank=rank, world=int(os.environ["WORLD_SIZE"]),
+               backend=os.environ.get("FAST_CWDM_DIST_BACKEND", "nccl"),
+               device=torch.cuda.current_device(), launches=read_counts(),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def rank_train(torch, out_dir: str, exact: bool, argv: list) -> None:
+    """One rank of ``cli.train`` under torchrun: its step log (loss, s/step,
+    all-reduce ms and bytes), launches, peak memory, which of its calls
+    wrote checkpoint files, and a digest of its parameters."""
+    import hashlib
+
+    from fast_cwdm_tpu_torch.cli import train
+    from fast_cwdm_tpu_torch.training import checkpoints
+
+    if exact:  # as no_tf32(deterministic=True), for the life of the rank
+        no_tf32(torch, deterministic=True).__enter__()
+    writes = []
+    for name in ("save_checkpoint", "save_if_best"):
+        def wrapped(*a, _f=getattr(checkpoints, name), _n=name, **kw):
+            writes.append(_n)
+            return _f(*a, **kw)
+        setattr(checkpoints, name, wrapped)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loop = train.main(argv)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for p in loop.state.params.values():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    rank_record(torch, out_dir, {"step_log": loop.step_log, "steps": loop.state.step,
+                                 "preempted": loop.preempted, "writes": writes,
+                                 "params_sha256": h.hexdigest()})
+
+
+DIST_CASES = 2  # synthetic 240×240×155 cases of the distributed phase
+
+
+def dist_synthesis_inputs(torch):
+    """The global batch of the sharded synthesis: three modalities of two
+    seeded volumes → the condition (B = 2) and the brain mask."""
+    from fast_cwdm_tpu_torch.cli import common
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    vols = {m: torch.rand((DIST_CASES, *VOLUME, 1), generator=g, device="cuda")
+            for m in ("t1n", "t1c", "t2w", "t2f")}
+    vols["t1n"][:, :16] = 0.0  # some background for the mask
+    return common.prepare_condition(vols, "t1c", device="cuda"), vols["t1n"]
+
+
+def dist_synthesis_fn(torch, mesh=None):
+    """The production UNet (seeded, bf16, fuse_conv) as make_synthesis_fn's
+    dpm++ 10 chain, sharded over ``mesh`` or not."""
+    from fast_cwdm_tpu_torch.cli import common
+
+    cfg, sd = seeded_production(torch, fuse_conv=True)
+    model, diffusion = common.build_model_and_diffusion(cfg)
+    model.load_state_dict(sd)
+    return common.make_synthesis_fn(model, diffusion, sampler="dpm++", sampler_steps=10,
+                                    device="cuda", mesh=mesh)
+
+
+def rank_synthesis(torch, out_dir: str) -> None:
+    """One rank of ``make_synthesis_fn(mesh=)``: the whole batch (written
+    by every rank, to check they agree), launches, seconds of a first and
+    a second call, peak memory."""
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.parallel.mesh import local_batch_rows, make_mesh, setup_distributed
+
+    setup_distributed("cuda")
+    mesh = make_mesh()
+    run = dist_synthesis_fn(torch, mesh)
+    cond, mask = dist_synthesis_inputs(torch)
+    seconds = []
+    for _ in range(2):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img = run(cond, mask, torch.Generator(device="cuda").manual_seed(9))
+        seconds.append(time.perf_counter() - t0)
+    np.save(os.path.join(out_dir, f"synth_rank{mesh.rank}.npy"), img)
+    rank_record(torch, out_dir, {"s_per_call": seconds, "shape": list(img.shape),
+                                 "rows": list(local_batch_rows(mesh, DIST_CASES))})
+    torch.distributed.destroy_process_group()
+
+
+def dist_run_summary(recs: list) -> dict:
+    """Per rank: launches per step, s/step (warm median), all-reduce ms and
+    bytes per step, peak memory."""
+    out = []
+    for r in recs:
+        log = r["step_log"]
+        out.append({
+            "rank": r["rank"], "world": r["world"], "backend": r["backend"],
+            "device": r["device"], "losses": [x["loss"] for x in log],
+            "s_per_step_warm": statistics.median(x["seconds_per_step"] for x in log[1:]),
+            "s_per_step_all": [x["seconds_per_step"] for x in log],
+            "allreduce_ms_per_step": [x.get("allreduce_ms_per_step") for x in log],
+            "allreduce_bytes_per_step": [x.get("allreduce_bytes_per_step") for x in log],
+            "max_memory_allocated_bytes": r["max_memory_allocated_bytes"],
+            "launches_per_step": {k: v / r["steps"] for k, v in r["launches"].items() if v},
+            "writes": r["writes"], "params_sha256": r["params_sha256"]})
+    return {"ranks": out}
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A stored tree as ``{"a/b/c": array}``."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        return out
+    return {prefix.rstrip("/"): tree}
+
+
+def adam_state(checkpoints, np, ckpt_dir: str) -> dict:
+    """The BEST's parameters and its optimizer blob's Adam moments, flat."""
+    found = checkpoints.find_best_checkpoint(ckpt_dir, "t1c")
+    adam = checkpoints.load_checkpoint(os.path.join(ckpt_dir, "opt_best_t1c.ckpt"))[
+        "opt_state"]["0"]
+    return {"params": flat_tree(checkpoints.load_with_ema_probe(found[0])["params"]),
+            "mu": flat_tree(adam["mu"]), "nu": flat_tree(adam["nu"])}
+
+
+def compare_runs(np, a: dict, b: dict, steps: int, lr: float) -> dict:
+    """Two runs' BEST states: Adam's first moment (linear in the gradients)
+    against its largest magnitude; each parameter element against 5e-3·lr
+    plus two float32 ulps, with the RMS gradient (Adam's bias-corrected
+    √ν) of the elements beyond it: where that is near Adam's eps (1e-8), a
+    gradient at float32 noise becomes a step of up to lr."""
+    mu_scale = max(float(np.abs(v).max()) for v in b["mu"].values())
+    mu_err = max(float(np.abs(a["mu"][k] - v).max()) for k, v in b["mu"].items())
+    worst, beyond, rms = [], 0, []
+    for k, v in b["params"].items():
+        ratio = np.abs(a["params"][k] - v) / (5e-3 * lr + 2.0**-22 * np.abs(v))
+        over = ratio > 1.0
+        beyond += int(over.sum())
+        if over.any():
+            rms.append(np.sqrt(b["nu"][k][over] / (1.0 - 0.999**steps)))
+        worst.append((float(ratio.max()), k))
+    worst.sort(reverse=True)
+    rms = np.concatenate(rms) if rms else np.zeros(0)
+    return {"params_equal": all(np.array_equal(a["params"][k], v) for k, v in b["params"].items()),
+            "adam_mu_max_abs_diff": mu_err, "adam_mu_max_abs": mu_scale,
+            "params_worst_ratio": worst[:6], "params_elements_beyond_tol": beyond,
+            "grad_rms_of_elements_beyond_tol": {
+                q: float(np.quantile(rms, q)) for q in (0.0, 0.5, 0.9, 1.0)} if beyond else {}}
+
+
+def dist_two_ranks_vs_one(torch, tmp: str, data: str, env: dict) -> dict:
+    """Phase distributed (b): ``cli.train`` as two gloo ranks sharing the
+    card, global batch 2, 3 steps with ``--fuse_gn_silu``, fp32 with TF32
+    off and cuDNN's deterministic algorithms, from the same seeded
+    production weights (``--resume_checkpoint``, so that every layer has a
+    gradient from the first step), against one process on the same global
+    batch 2: (i) with ``--microbatch=1``, which runs each case at batch 1 as
+    a rank does and sums the two gradients once, as the all-reduce does:
+    losses, parameters and Adam's moments the same bits; (ii) at batch 2 in
+    one pass, whose convolutions reduce in another order: losses within
+    2e-5, and Adam's first moment and the parameters reported
+    (``compare_runs``; PERF.md §6)."""
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.cli import common
+    from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
+    from fast_cwdm_tpu_torch.training import checkpoints
+
+    steps, lr = DIST_STEPS, 1e-5
+    cfg, sd = seeded_production(torch)
+    model, _ = common.build_model_and_diffusion(cfg)
+    seed_ckpt = os.path.join(tmp, "seeded", "seeded_production.ckpt")
+    checkpoints.save_checkpoint(seed_ckpt, {"params": jax_params_from_state_dict(sd, model),
+                                            "ema_params": (), "step": 0})
+    del model, sd
+    flags = dict(fuse_gn_silu=True, batch_size=2, dtype="float32",
+                 resume_checkpoint=seed_ckpt, data_mesh=0)
+    recs = torchrun(tmp, "train_gloo_2", 2, ["--rank-train", os.path.join(tmp, "train_gloo_2"),
+                                              "--exact", "--",
+                                              *train_flags(data, os.path.join(tmp, "ckpt_two"),
+                                                           steps, **flags)],
+                    dict(env, FAST_CWDM_DIST_BACKEND="gloo"))
+    out = check_dist_run("(b)", recs)
+    two = adam_state(checkpoints, np, os.path.join(tmp, "ckpt_two"))
+    for name, extra in (("one_process_microbatch_1", {"microbatch": 1}),
+                        ("one_process_batch_2", {})):
+        with no_tf32(torch, deterministic=True):
+            run = run_train(torch, tmp, name, train_flags(
+                data, os.path.join(tmp, f"ckpt_{name}"), steps, **flags, **extra), steps)
+        state = adam_state(checkpoints, np, os.path.join(tmp, f"ckpt_{name}"))
+        out[name] = {
+            **{k: run[k] for k in ("losses", "s_per_step_warm", "max_memory_allocated_bytes",
+                                   "launches_per_step")},
+            "max_abs_loss_diff": max(abs(a - b) for r in out["ranks"]
+                                     for a, b in zip(r["losses"], run["losses"])),
+            **compare_runs(np, two, state, steps, lr)}
+    exact = out["one_process_microbatch_1"]
+    if not (exact["max_abs_loss_diff"] == 0.0 and exact["params_equal"]
+            and exact["adam_mu_max_abs_diff"] == 0.0):
+        fail(f"(b) two ranks differ from one process accumulating the same rows: {exact}")
+    if not out["one_process_batch_2"]["max_abs_loss_diff"] <= 2e-5:
+        fail(f"(b) two ranks disagree with one process at batch 2: {out['one_process_batch_2']}")
+    out.update(loss_tol_batch_2=2e-5, params_tol="5e-3 lr + 2^-22 |p|, lr 1e-5",
+               gradient_bytes=GRAD_BYTES)
+    return out
+
+
+DIST_STEPS = 3  # optimizer steps of each training run of phase distributed
+# K1, K2, K3 and its VJP a step of a rank with one case (use_checkpoint)
+DIST_LAUNCHES_PER_STEP = {"haar_dwt3": 5, "haar_idwt3": 1, "affine_silu": 71 + REMAT_GN_SITES,
+                          "affine_silu_bwd": 71}
+GRAD_BYTES = 4 * 81_511_048  # the float32 gradients of the production UNet
+
+
+def check_dist_run(name: str, recs: list) -> dict:
+    """A training run's ranks: K1, K2, K3 and its VJP each step, one
+    all-reduce of the gradients and the 9 loss floats a step, rank 0 alone
+    writing files, the same parameters on every rank."""
+    summary = dist_run_summary(recs)
+    for r in summary["ranks"]:
+        got = {k: r["launches_per_step"].get(k, 0) for k in DIST_LAUNCHES_PER_STEP}
+        if got != DIST_LAUNCHES_PER_STEP:
+            fail(f"{name}: rank {r['rank']} launches per step {got}, "
+                 f"expected {DIST_LAUNCHES_PER_STEP}")
+        if r["allreduce_bytes_per_step"][-1] != GRAD_BYTES + 4 * 9:
+            fail(f"{name}: all-reduce bytes {r['allreduce_bytes_per_step']}")
+    if not summary["ranks"][0]["writes"] or any(r["writes"] for r in summary["ranks"][1:]):
+        fail(f"{name}: files written by {[r['writes'] for r in summary['ranks']]}")
+    if len({r["params_sha256"] for r in summary["ranks"]}) != 1:
+        fail(f"{name}: the ranks' parameters differ")
+    return summary
+
+
+def dist_data(tmp: str) -> tuple[str, dict]:
+    """Two synthetic 240×240×155 cases and the ranks' log environment."""
+    data = os.path.join(tmp, "data")
+    for k in range(DIST_CASES):
+        write_case(os.path.join(data, f"0000{k + 1}"), seed=20 + k)
+    return data, {"OPENAI_LOGDIR": os.path.join(tmp, "log"), "OPENAI_LOG_FORMAT": "log,csv"}
+
+
+def dist_one_nccl_rank(tmp: str, data: str, env: dict) -> dict:
+    """Phase distributed (a): ``cli.train`` as one NCCL rank, the
+    production config in bf16 with ``--fuse_gn_silu``."""
+    flags = train_flags(data, os.path.join(tmp, "ckpt_a"), DIST_STEPS, fuse_gn_silu=True,
+                        data_mesh=0)
+    recs = torchrun(tmp, "train_nccl_1", 1, ["--rank-train", os.path.join(tmp, "train_nccl_1"),
+                                              "--", *flags], env)
+    return check_dist_run("(a)", recs)
+
+
+def dist_sharded_synthesis(torch, tmp: str, env: dict) -> dict:
+    """Phase distributed (c): ``make_synthesis_fn(mesh=)`` (bf16,
+    fuse_conv, dpm++ 10) over two gloo ranks on the card. Held: both ranks
+    return the same whole batch, each row equal bit for bit to that row
+    synthesized alone at batch 1 on its slice of the same draws, 540 K4b
+    a rank. Reported: its difference from the batch synthesized at batch 2
+    in one process, where 100 of the 540 convs route to the wgmma kernel
+    instead of split-K and the random-weight chain carries the bf16
+    differences through 10 steps."""
+    import numpy as np
+
+    recs = torchrun(tmp, "synth_gloo_2", 2, ["--rank-synthesis",
+                                              os.path.join(tmp, "synth_gloo_2")],
+                    dict(env, FAST_CWDM_DIST_BACKEND="gloo"))
+    imgs = [np.load(os.path.join(tmp, "synth_gloo_2", f"synth_rank{r}.npy")) for r in range(2)]
+    if not np.array_equal(imgs[0], imgs[1]):
+        fail("(c) the two ranks returned different batches")
+    run = dist_synthesis_fn(torch)
+    cond, mask = dist_synthesis_inputs(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    whole = run(cond, mask, torch.Generator(device="cuda").manual_seed(9))
+    whole_s = time.perf_counter() - t0
+    whole_counts = read_counts()
+    x_t = torch.randn((DIST_CASES, *LATENT, 8), generator=torch.Generator(
+        device="cuda").manual_seed(9), device="cuda")
+    rows = [run(cond[r:r + 1], mask[r:r + 1], noise=x_t[r:r + 1]) for r in range(DIST_CASES)]
+    row_equal = [bool(np.array_equal(imgs[0][r:r + 1], rows[r])) for r in range(DIST_CASES)]
+    diff = np.abs(imgs[0] - whole)
+    out = {
+        "ranks": [{k: r[k] for k in ("rank", "backend", "device", "s_per_call", "rows",
+                                     "max_memory_allocated_bytes")}
+                  | {"launches": {k: v for k, v in r["launches"].items() if v}} for r in recs],
+        "unsharded_batch_2": {"s_per_call": whole_s,
+                              "launches": {k: v for k, v in whole_counts.items() if v}},
+        "max_abs_diff_vs_batch_2": float(diff.max()),
+        "mean_abs_diff_vs_batch_2": float(diff.mean()),
+        "rows_bit_for_bit_vs_batch_1": row_equal, "shape": list(imgs[0].shape)}
+    for r in recs:
+        if r["launches"]["conv3d_fused_k4b"] != 540 or r["launches"]["conv3d_wgmma"] == 0 \
+                or r["launches"]["conv3d_splitk"] == 0:
+            fail(f"(c) rank {r['rank']} K4b launches {r['launches']}")
+    if not (all(row_equal) and np.isfinite(imgs[0]).all()):
+        fail(f"(c) sharded synthesis: {out}")
+    return out
+
+
+def phase_distributed(torch, tmp: str) -> dict:
+    """The data axis on the card (ROADMAP M8), through torchrun: (a)
+    ``cli.train`` as one rank on NCCL, the production config in bf16 with
+    ``--fuse_gn_silu``, 3 steps; (b) two ranks sharing the one card (gloo:
+    NCCL takes one rank per GPU), global batch 2, 3 steps with
+    ``--fuse_gn_silu``, against one process on the same global batch 2
+    (:func:`dist_two_ranks_vs_one`); (c) ``make_synthesis_fn(mesh=)``
+    (bf16, fuse_conv, dpm++ 10) over two ranks against each row
+    synthesized alone (:func:`dist_sharded_synthesis`). Per run: launches per kernel and rank, s/step, the all-reduce's
+    ms and bytes per step, peak memory per rank, only rank 0 writing
+    files, the same parameters on every rank. Two ranks on one card check
+    correctness; they do not show scaling."""
+    data, env = dist_data(tmp)
+    return {"a_nccl_world_1": dist_one_nccl_rank(tmp, data, env),
+            "b_gloo_world_2": dist_two_ranks_vs_one(torch, tmp, data, env),
+            "c_synthesis_gloo_world_2": dist_sharded_synthesis(torch, tmp, env)}
+
+
 # the conv entries run on one of three hand-written kernels, by
 # conv3d_cuda.route
 CONV_SOURCES = ("fast_cwdm_tpu_torch/ops/csrc/conv3d_wgmma.cu (bf16, wgmma, levels 0-2) + "
@@ -1993,6 +2526,11 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one forward and one train step of each kind with "
                          "torch.profiler")
+    # one rank of phase distributed, as torchrun starts it
+    ap.add_argument("--rank-train", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--rank-synthesis", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--exact", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("train_argv", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2011,6 +2549,12 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port's package is not this checkout's ({_build.__file__})",
               file=sys.stderr)
         return 2
+    if args.rank_train:
+        rank_train(torch, args.rank_train, args.exact, args.train_argv)
+        return 0
+    if args.rank_synthesis:
+        rank_synthesis(torch, args.rank_synthesis)
+        return 0
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -2058,6 +2602,13 @@ def main(argv=None) -> int:
         models = phase_models(torch, tmp)
     models["reference"] = phase_models_reference(torch)
     emit({"phase": "models", "gpu": smi, "seconds": time.perf_counter() - t0, **models})
+    t0 = time.perf_counter()
+    api = phase_diffusion_api(torch)
+    emit({"phase": "diffusion_api", "gpu": smi, "seconds": time.perf_counter() - t0, **api})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist = phase_distributed(torch, tmp)
+    emit({"phase": "distributed", "gpu": smi, "seconds": time.perf_counter() - t0, **dist})
 
     line = []
     for name, (source, replaces, key) in KERNELS.items():
@@ -2095,7 +2646,15 @@ def main(argv=None) -> int:
             "models_wunet_train_per_step": models["wunet_train"]["launches_per_step"][name],
             **{f"models_{run}": models[run]["launches"][name]
                for run in ("wunet_sample", "attention_sample_ddpm",
-                           "attention_sample_fuse_conv_dpm")}}
+                           "attention_sample_fuse_conv_dpm")},
+            # phase diffusion_api (59 forwards), phase distributed per rank:
+            # (a) and (b) per train step, (c) per sharded synthesis call
+            "diffusion_api": api["launches"][name],
+            **{f"distributed_{run}_rank{r['rank']}_per_step": r["launches_per_step"].get(name, 0)
+               for run, key in (("a", "a_nccl_world_1"), ("b", "b_gloo_world_2"))
+               for r in dist[key]["ranks"]},
+            **{f"distributed_c_rank{r['rank']}": r["launches"].get(name, 0)
+               for r in dist["c_synthesis_gloo_world_2"]["ranks"]}}
         if name.startswith("conv3d"):
             line[-1]["launches_by_kernel"] = {
                 kn: conv_counts[f"conv3d_{kn}"] for kn in ("wgmma", "splitk", "mma_sync")}

@@ -16,13 +16,16 @@ reference this port is held against; nothing here imports it.
                 checkpointing
 - ``diffusion`` beta schedules, respacing, ancestral, DDIM and
                 DPM-Solver++ sampling loops (with classifier guidance),
-                the chain as replays of one captured CUDA graph, the
-                training loss, timestep samplers
+                known-image, interpolation and progressive loops, the
+                variational bound, the chain as replays of one captured
+                CUDA graph, the training loss, timestep samplers
 - ``data``      NIfTI IO, BraTS preprocessing and un-crop, training
                 batches, prefetch loaders
 - ``training``  the train step (AdamW as optax's, EMA), the training loop,
                 the JAX package's ``.ckpt`` format (numpy msgpack codec),
                 BEST discovery and saving
+- ``parallel``  the data axis over ``torch.distributed`` (one process per
+                GPU under torchrun), the multi-process dry run
 - ``cli``       synthesis plumbing and the ``sample``, ``complete_dataset``,
                 ``sample_auto``, ``convert_checkpoint`` and ``train`` entry
                 points

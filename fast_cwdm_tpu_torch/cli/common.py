@@ -23,6 +23,7 @@ from fast_cwdm_tpu_torch.diffusion.graph import CapturedChain
 from fast_cwdm_tpu_torch.models.convert import check_ref_compat, state_dict_from_jax
 from fast_cwdm_tpu_torch.models.factory import create_model_and_diffusion, model_and_diffusion_defaults
 from fast_cwdm_tpu_torch.ops import wavelet as wv
+from fast_cwdm_tpu_torch.parallel.mesh import all_gather_rows, local_batch_rows
 from fast_cwdm_tpu_torch.training import checkpoints as ckpt
 
 PRODUCTION_OVERRIDES = dict(
@@ -119,7 +120,7 @@ def load_best_synthesis(checkpoint_dir: str, contr: str, *, dataset: str = "brat
                         base_cfg: dict | None = None, dtype: str | None = None,
                         use_ema: bool = True, tag: str = "synth", clip_denoised: bool = True,
                         sampler: str = "ddpm", sampler_steps: int | None = None,
-                        device: str | torch.device | None = None):
+                        device: str | torch.device | None = None, mesh=None):
     """Find the BEST checkpoint for ``contr``, merge its stored config,
     build the model and diffusion, load the weights and return
     :func:`make_synthesis_fn`'s ``run``.
@@ -130,7 +131,8 @@ def load_best_synthesis(checkpoint_dir: str, contr: str, *, dataset: str = "brat
     that only ``dtype`` overrides; other stored keys (``contr``, training
     flags) are ignored. A stored ``fuse_gn_silu``/``fuse_conv`` routes the
     UNet through K3/K4b. ``sampler="ddim"`` with ``sampler_steps`` respaces
-    the process to ``ddim{N}``."""
+    the process to ``ddim{N}``. ``mesh`` serves batches over the data axis
+    (:func:`make_synthesis_fn`)."""
     found = ckpt.find_best_checkpoint(checkpoint_dir, contr, dataset)
     if found is None:
         raise FileNotFoundError(f"no BEST checkpoint for {contr} in {checkpoint_dir}")
@@ -148,7 +150,7 @@ def load_best_synthesis(checkpoint_dir: str, contr: str, *, dataset: str = "brat
     model, diffusion = build_model_and_diffusion(cfg)
     load_params(path, model, use_ema=use_ema)
     fn = make_synthesis_fn(model, diffusion, clip_denoised=clip_denoised, sampler=sampler,
-                           sampler_steps=sampler_steps, device=device)
+                           sampler_steps=sampler_steps, device=device, mesh=mesh)
     print(f"[{tag}] {contr}: {os.path.basename(path)} ({schedule}, {steps} steps, "
           f"sampler={sampler})")
     return fn
@@ -177,18 +179,23 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, mesh=None,
 
     ``chunk`` ("auto": 100 where T > 200, else None) runs a ddpm chain in
     segments of ``chunk`` steps with identical numerics: on the graph path
-    it bounds how many steps' noise is drawn ahead. ``mesh`` (batched
-    multi-device serving) is not ported and must be None.
+    it bounds how many steps' noise is drawn ahead.
 
     ``noise``/``step_noise`` inject the initial and per-step noise (for
     parity with the JAX package's key stream); otherwise both are drawn
     from ``generator``, in the same order on both paths.
+
+    ``mesh`` (``parallel.mesh.make_mesh()``, one process per GPU): batched
+    serving over the data axis. Every rank is called with the whole batch
+    and synthesizes its rows (``local_batch_rows``): x_T and each step's
+    noise are drawn for the WHOLE batch from ``generator`` (or the given
+    ``noise``/``step_noise`` are sliced) and the rank keeps its rows, so a
+    volume's noise depends on its batch position, not on the mesh. The
+    images are gathered and every rank returns the whole batch, as the JAX
+    package's sharded ``run`` does. The captured chain runs per rank.
     """
     if sampler not in ("ddpm", "ddim", "dpm++"):
         raise ValueError(f"sampler must be ddpm, ddim or dpm++, got {sampler!r}")
-    if mesh is not None:
-        raise NotImplementedError("make_synthesis_fn(mesh=...): multi-device serving is not "
-                                  "ported yet (ROADMAP M8); pass mesh=None")
     if chunk == "auto":
         chunk = 100 if diffusion.num_timesteps > 200 else None
     dev = resolve_device(device)
@@ -213,23 +220,65 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, mesh=None,
         mask = torch.as_tensor(mask_vol, device=dev)
         as_dev = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
             a, dtype=torch.float32, device=dev)
+        noise, step_noise = as_dev(noise), as_dev(step_noise)
         shape = (cond.shape[0], *cond.shape[1:-1], diffusion.target_channels)
-        kw = dict(cond=cond, noise=as_dev(noise), generator=generator)
+        if mesh is not None:
+            lo, hi = local_batch_rows(mesh, shape[0])
+            if noise is None:
+                noise = torch.randn(shape, generator=generator, device=dev)
+            n_steps = diffusion.num_timesteps
+            if sampler == "ddpm":
+                step_noise = (_RowsOfGlobalNoise(n_steps, shape, (lo, hi), generator, dev)
+                              if step_noise is None else step_noise[:, lo:hi])
+            cond, mask, noise = cond[lo:hi], mask[lo:hi], noise[lo:hi]
+            shape = (hi - lo, *shape[1:])
+        kw = dict(cond=cond, noise=noise, generator=generator)
         if chain is not None:
-            sample = chain(shape, step_noise=as_dev(step_noise), chunk=chunk, **kw)
+            sample = chain(shape, step_noise=step_noise, chunk=chunk, **kw)
         elif sampler == "dpm++":
             sample = diffusion.dpm_solver_pp_loop(model_fn, shape, steps=steps, device=dev,
                                                   clip_denoised=clip_denoised, **kw)
         else:
-            kw.update(step_noise=as_dev(step_noise), device=dev, clip_denoised=clip_denoised)
+            kw.update(step_noise=step_noise, device=dev, clip_denoised=clip_denoised)
             sample = (diffusion.ddim_sample_loop(model_fn, shape, **kw) if sampler == "ddim"
                       else diffusion.p_sample_loop(model_fn, shape, chunk_size=chunk, **kw))
         img = torch.clamp(wv.idwt_normalized(sample, 1, diffusion.wavelet), 0.0, 1.0)
         img = torch.where(mask == 0, 0.0, img)
+        if mesh is not None:
+            img = all_gather_rows(mesh, img)
         return img[..., 0].cpu().numpy()[:, :, :, :crop_z]
 
     run.chain = chain
     return run
+
+
+class _RowsOfGlobalNoise:
+    """The ddpm chain's per-step noise on one rank of a mesh: step k's noise
+    is drawn for the whole batch (``shape``) from ``generator``, in step
+    order, and the rank keeps rows ``[lo, hi)``. A sequence of ``n`` steps
+    whose items are drawn when read, each once and in order, as the chains
+    read ``step_noise``; a slice is a view that continues the same draws."""
+
+    def __init__(self, n, shape, rows, generator, device, offset=0, drawn=None):
+        self.n, self.shape, self.rows = n, shape, rows
+        self.generator, self.device, self.offset = generator, device, offset
+        self._drawn = drawn if drawn is not None else [0]
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, k):
+        if isinstance(k, slice):
+            start, stop, _ = k.indices(self.n)
+            return _RowsOfGlobalNoise(max(stop - start, 0), self.shape, self.rows,
+                                      self.generator, self.device, self.offset + start,
+                                      self._drawn)
+        if self.offset + k != self._drawn[0]:
+            raise IndexError(f"step noise {self.offset + k} read out of order "
+                             f"(next is {self._drawn[0]})")
+        self._drawn[0] += 1
+        lo, hi = self.rows
+        return torch.randn(self.shape, generator=self.generator, device=self.device)[lo:hi]
 
 
 def subject_id_from_path(path: str) -> str:

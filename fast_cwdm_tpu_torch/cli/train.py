@@ -14,9 +14,18 @@ resume with ``--resume_checkpoint``), 0 when it ran to its end.
 
 ``--device_cache`` keeps every case in device memory after its first
 epoch; ``--dataset lidc-idri`` trains unconditionally (``--mode default``)
-on LIDC CT volumes. One device: ``--data_mesh`` and ``--spatial_mesh`` are
-accepted, and a value that needs more than one device raises (ROADMAP
-M8).
+on LIDC CT volumes.
+
+Data parallelism: one process per GPU, started by torchrun,
+
+    torchrun --nproc_per_node=N -m fast_cwdm_tpu_torch.cli.train --data_mesh 0 ...
+
+``--batch_size`` is the global batch (a multiple of N); each rank decodes
+its rows of every batch, the gradients are averaged over the ranks, and
+rank 0 writes the checkpoints and the log files (the other ranks log to
+stdout). ``--data_mesh 0`` means every rank; another value must equal the
+number of ranks. ``--spatial_mesh`` > 1 raises ``NotImplementedError``
+(the ``sp`` axis is not ported).
 """
 
 from __future__ import annotations
@@ -96,23 +105,30 @@ def main(argv=None):
     ``.state``, ``.step_log``)."""
     from fast_cwdm_tpu_torch import resolve_device
     from fast_cwdm_tpu_torch.data.brats import MODALITIES, BRATSVolumes, LIDCVolumes, iterate_batches
-    from fast_cwdm_tpu_torch.data.loader import device_resident_batches, iter_items
+    from fast_cwdm_tpu_torch.data.loader import (
+        device_resident_batches,
+        iter_items,
+        shard_order_rows,
+    )
     from fast_cwdm_tpu_torch.diffusion.resample import create_named_schedule_sampler
     from fast_cwdm_tpu_torch.models.factory import create_model_and_diffusion
+    from fast_cwdm_tpu_torch.parallel.mesh import local_batch_rows, make_mesh, setup_distributed
     from fast_cwdm_tpu_torch.training.loop import TrainLoop
     from fast_cwdm_tpu_torch.utils import logger
 
     args = create_argparser().parse_args(argv)
-    device = resolve_device(args.device)
-    if args.data_mesh > 1 or args.spatial_mesh > 1:
-        raise NotImplementedError(
-            f"--data_mesh={args.data_mesh} --spatial_mesh={args.spatial_mesh} need more than "
-            "one device; the port trains on one (multi-device training is ROADMAP M8)")
+    owns_group = not torch.distributed.is_initialized()
+    device = setup_distributed(resolve_device(args.device))  # before the logger
+    mesh = make_mesh(data=args.data_mesh or -1, sp=args.spatial_mesh)
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
-    logger.configure()
+    if mesh.rank == 0:
+        logger.configure()
+    else:
+        # the other ranks: stdout only, where file sinks would race rank 0's
+        logger.configure(format_strs=["stdout"])
     logger.log("creating model and diffusion...")
     cfg = args_to_dict(args, model_and_diffusion_defaults().keys())
     if args.mode == "i2i":
@@ -135,17 +151,31 @@ def main(argv=None):
     logger.log(f"dataset: {len(dataset)} cases from {args.data_dir}")
     epoch_counter = itertools.count()  # a new shuffle every epoch
     device_cache: dict = {}
+    # every rank builds the same seeded order and decodes only its rows of
+    # each global batch
+    rows = None
+    if mesh.size > 1:
+        rows = local_batch_rows(mesh, args.batch_size)
+        logger.log(f"data mesh {mesh.shape}: rank {mesh.rank} decodes rows "
+                   f"[{rows[0]}, {rows[1]}) of each batch of {args.batch_size}")
 
     if args.dataset == "lidc-idri":  # unconditional: batches are plain arrays
         def data():
             order = np.random.default_rng(args.seed + next(epoch_counter)).permutation(len(dataset))
+            local_bs = args.batch_size
+            if rows is not None:
+                order, local_bs = shard_order_rows(order, args.batch_size, rows)
             buf = []
             for item in iter_items(dataset, order, args.num_workers):
                 buf.append(item)
-                if len(buf) == args.batch_size:
+                if len(buf) == local_bs:
                     yield np.stack(buf)
                     buf = []
     elif args.device_cache:
+        if rows is not None:
+            raise ValueError(
+                "--device_cache is a single-process input path; a data-parallel run feeds "
+                "each rank its rows of every batch (drop the flag or run one rank)")
         def data():
             return device_resident_batches(dataset, args.batch_size, device=device, shuffle=True,
                                            seed=args.seed + next(epoch_counter), keys=keys,
@@ -154,7 +184,7 @@ def main(argv=None):
         def data():
             return iterate_batches(dataset, args.batch_size, shuffle=True,
                                    seed=args.seed + next(epoch_counter),
-                                   num_workers=args.num_workers, keys=keys)
+                                   num_workers=args.num_workers, keys=keys, rows=rows)
 
     loop = TrainLoop(
         model=model,
@@ -184,8 +214,11 @@ def main(argv=None):
         lesion_core_weight=args.lesion_core_weight,
         lesion_t_power=args.lesion_t_power,
         device=device,
+        mesh=mesh,
     )
     loop.run_loop()
+    if owns_group and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return loop
 
 

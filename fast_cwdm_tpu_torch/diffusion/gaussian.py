@@ -14,13 +14,18 @@ channels-last tensors.
 Noise: ``jax.random``'s key stream cannot be reproduced in torch, so the
 loops take their initial noise (``noise=``) and per-step noise
 (``step_noise=``) as tensors, or draw both from a ``torch.Generator``;
-``training_losses`` likewise takes ``noise_img`` or a generator.
+``training_losses`` likewise takes ``noise_img`` or a generator. A method
+that noises a known image first (``p_sample_loop_known``, the
+interpolations) draws that noise first, then the chain's as its loop does;
+the progressive generators draw as their loops, so the same generator seed
+gives the loop's result step for step.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Callable, Sequence
+import math
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -57,6 +62,9 @@ class LossType(str, enum.Enum):
     RESCALED_MSE = "rescaled_mse"
     KL = "kl"
     RESCALED_KL = "rescaled_kl"
+
+    def is_vb(self) -> bool:
+        return self in (LossType.KL, LossType.RESCALED_KL)
 
 
 class GaussianDiffusion:
@@ -353,6 +361,89 @@ class GaussianDiffusion:
             return noise
         return torch.randn(tuple(shape), generator=generator, device=device)
 
+    def _noised(self, shape, t_total, imgs, noise, generator):
+        """q_sample of each of ``imgs`` to step ``t_total - 1`` with one
+        shared noise draw (``noise``, else drawn from ``generator``)."""
+        ref = imgs[0]
+        if noise is None:
+            noise = torch.randn(tuple(shape), generator=generator, device=ref.device)
+        t0 = torch.full((shape[0],), t_total - 1, dtype=torch.long, device=ref.device)
+        return [self.q_sample(im, t0, noise) for im in imgs]
+
+    def p_sample_loop_known(self, model_fn, shape, *, img: torch.Tensor, cond=None,
+                            noise=None, step_noise=None,
+                            generator: torch.Generator | None = None, clip_denoised=True,
+                            denoised_fn=None, cond_fn=None, model_kwargs=None,
+                            noise_level: int = 500, time: int | None = None) -> torch.Tensor:
+        """Partial noising: q_sample the KNOWN ``img`` to step
+        ``min(noise_level, time or T) - 1`` with ``noise`` (drawn first from
+        ``generator`` when not given), then the ancestral chain from there
+        to 0 (``step_noise`` as in :meth:`p_sample_loop`)."""
+        t_total = min(noise_level, self.num_timesteps if time is None else time)
+        (x,) = self._noised(shape, t_total, [img], noise, generator)
+        return self.p_sample_loop(
+            model_fn, shape, cond=cond, noise=x, step_noise=step_noise, generator=generator,
+            clip_denoised=clip_denoised, denoised_fn=denoised_fn, cond_fn=cond_fn,
+            model_kwargs=model_kwargs, time=t_total,
+        )
+
+    def sample_known(self, model_fn, img: torch.Tensor, *, cond=None, noise=None,
+                     step_noise=None, generator: torch.Generator | None = None,
+                     clip_denoised=True, denoised_fn=None, cond_fn=None, model_kwargs=None,
+                     noise_level: int = 500, time: int | None = None) -> torch.Tensor:
+        """:meth:`p_sample_loop_known` at ``img``'s shape. As in the JAX
+        package (a documented deviation from the reference, whose version
+        cannot run), the model is a parameter and the shape comes from
+        ``img``."""
+        return self.p_sample_loop_known(
+            model_fn, tuple(img.shape), img=img, cond=cond, noise=noise,
+            step_noise=step_noise, generator=generator, clip_denoised=clip_denoised,
+            denoised_fn=denoised_fn, cond_fn=cond_fn, model_kwargs=model_kwargs,
+            noise_level=noise_level, time=time,
+        )
+
+    def p_sample_loop_interpolation(self, model_fn, shape, *, img1: torch.Tensor,
+                                    img2: torch.Tensor, lambdaint: float, cond=None,
+                                    noise=None, step_noise=None,
+                                    generator: torch.Generator | None = None,
+                                    clip_denoised=True, denoised_fn=None, cond_fn=None,
+                                    model_kwargs=None, noise_level: int = 300,
+                                    time: int | None = None):
+        """Latent interpolation: q_sample both endpoints to ``noise_level``
+        with ONE shared noise draw, mix ``lambdaint·x1 + (1−lambdaint)·x2``
+        and denoise the mixture over ``noise_level-1..0`` (the JAX
+        package's deviation from the reference's hard-coded t=299).
+        Returns ``(sample, interpol, img1, img2)``."""
+        t_total = min(noise_level, self.num_timesteps if time is None else time)
+        x1, x2 = self._noised(shape, t_total, [img1, img2], noise, generator)
+        interpol = lambdaint * x1 + (1.0 - lambdaint) * x2
+        sample = self.p_sample_loop(
+            model_fn, shape, cond=cond, noise=interpol, step_noise=step_noise,
+            generator=generator, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+            cond_fn=cond_fn, model_kwargs=model_kwargs, time=t_total,
+        )
+        return sample, interpol, img1, img2
+
+    def p_sample_loop_progressive(self, model_fn, shape, *, cond=None, noise=None,
+                                  step_noise=None, generator: torch.Generator | None = None,
+                                  device=None, clip_denoised=True, denoised_fn=None,
+                                  cond_fn=None, model_kwargs=None,
+                                  time: int | None = None) -> Iterator[dict]:
+        """Generator of each ancestral step's ``{"sample", "pred_xstart"}``,
+        ``time`` (default T) of them; noise drawn as :meth:`p_sample_loop`
+        draws it, so the last sample is that loop's result."""
+        t_total = self.num_timesteps if time is None else time
+        img = self._start(shape, cond, noise, step_noise, generator, device, t_total)
+        for k, i in enumerate(range(t_total - 1, -1, -1)):
+            t = torch.full((img.shape[0],), i, dtype=torch.long, device=img.device)
+            eps = (step_noise[k] if step_noise is not None
+                   else torch.randn(img.shape, generator=generator, device=img.device))
+            out = self.p_sample(model_fn, img, t, eps, cond=cond, clip_denoised=clip_denoised,
+                                denoised_fn=denoised_fn, cond_fn=cond_fn,
+                                model_kwargs=model_kwargs)
+            yield out
+            img = out["sample"]
+
     # -- DDIM ------------------------------------------------------------
 
     def ddim_sample(self, model_fn, x, t, noise=None, *, cond=None, clip_denoised=True,
@@ -418,6 +509,83 @@ class GaussianDiffusion:
                 denoised_fn=denoised_fn, eta=eta, cond_fn=cond_fn, model_kwargs=model_kwargs,
             )["sample"]
         return img
+
+    def ddim_reverse_sample(self, model_fn, x, t, *, cond=None, clip_denoised=True,
+                            denoised_fn=None, model_kwargs=None) -> dict[str, torch.Tensor]:
+        """Deterministic ODE step x_t → x_{t+1}."""
+        out = self.p_mean_variance(
+            model_fn, x, t, cond=cond, clip_denoised=clip_denoised,
+            denoised_fn=denoised_fn, model_kwargs=model_kwargs,
+        )
+        x_ref = x[..., : self.target_channels] if self.mode == "i2i" else x
+        eps = self.predict_eps_from_xstart(x_ref, t, out["pred_xstart"])
+        abar_next = self._extract("alphas_cumprod_next", t, x_ref.dim())
+        sample = out["pred_xstart"] * torch.sqrt(abar_next) + torch.sqrt(1 - abar_next) * eps
+        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_sample_loop_known(self, model_fn, shape, *, img: torch.Tensor, noise=None,
+                               step_noise=None, generator: torch.Generator | None = None,
+                               device=None, clip_denoised=True, denoised_fn=None,
+                               cond_fn=None, model_kwargs=None, eta: float = 0.0,
+                               noise_level: int = 1000, time: int | None = None):
+        """The DDIM chain over ``min(noise_level, time or T)`` steps from
+        fresh noise at ``shape``, conditioned on ``img`` by channel concat
+        (the i2i path of :meth:`p_mean_variance`, so ``mode`` must be
+        "i2i"). Returns ``(sample, None, img)``, the reference's tuple."""
+        if self.mode != "i2i":
+            raise ValueError(
+                "ddim_sample_loop_known conditions on img by channel concat, which "
+                f"requires mode='i2i' (got mode={self.mode!r})")
+        t_total = min(noise_level, self.num_timesteps if time is None else time)
+        sample = self.ddim_sample_loop(
+            model_fn, shape, cond=img, noise=noise, step_noise=step_noise,
+            generator=generator, device=device, clip_denoised=clip_denoised,
+            denoised_fn=denoised_fn, eta=eta, cond_fn=cond_fn, model_kwargs=model_kwargs,
+            time=t_total,
+        )
+        return sample, None, img
+
+    def ddim_sample_loop_interpolation(self, model_fn, shape, *, img1: torch.Tensor,
+                                       img2: torch.Tensor, lambdaint: float, cond=None,
+                                       noise=None, step_noise=None,
+                                       generator: torch.Generator | None = None,
+                                       clip_denoised=True, denoised_fn=None, cond_fn=None,
+                                       model_kwargs=None, eta: float = 0.0,
+                                       noise_level: int = 200, time: int | None = None):
+        """:meth:`p_sample_loop_interpolation` with the DDIM chain (the
+        JAX package's ``noise_level``, where the reference hard-codes
+        t=199). Returns ``(sample, interpol, img1, img2)``."""
+        t_total = min(noise_level, self.num_timesteps if time is None else time)
+        x1, x2 = self._noised(shape, t_total, [img1, img2], noise, generator)
+        interpol = lambdaint * x1 + (1.0 - lambdaint) * x2
+        sample = self.ddim_sample_loop(
+            model_fn, shape, cond=cond, noise=interpol, step_noise=step_noise,
+            generator=generator, clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+            eta=eta, cond_fn=cond_fn, model_kwargs=model_kwargs, time=t_total,
+        )
+        return sample, interpol, img1, img2
+
+    def ddim_sample_loop_progressive(self, model_fn, shape, *, cond=None, noise=None,
+                                     step_noise=None, generator: torch.Generator | None = None,
+                                     device=None, clip_denoised=True, denoised_fn=None,
+                                     eta: float = 0.0, cond_fn=None, model_kwargs=None,
+                                     time: int | None = None) -> Iterator[dict]:
+        """Generator of each DDIM step's ``{"sample", "pred_xstart"}``;
+        noise drawn as :meth:`ddim_sample_loop` draws it."""
+        t_total = self.num_timesteps if time is None else time
+        img = self._start(shape, cond, noise, step_noise, generator, device, t_total)
+        for k, i in enumerate(range(t_total - 1, -1, -1)):
+            t = torch.full((img.shape[0],), i, dtype=torch.long, device=img.device)
+            eps = None
+            if eta != 0.0:
+                eps = step_noise[k] if step_noise is not None else torch.randn(
+                    (*img.shape[:-1], self.target_channels), generator=generator,
+                    device=img.device)
+            out = self.ddim_sample(model_fn, img, t, eps, cond=cond,
+                                   clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                                   eta=eta, cond_fn=cond_fn, model_kwargs=model_kwargs)
+            yield out
+            img = out["sample"]
 
     def dpm_solver_pp_loop(self, model_fn, shape, **kwargs) -> torch.Tensor:
         """DPM-Solver++ multistep sampling (:mod:`.dpm`)."""
@@ -513,3 +681,59 @@ class GaussianDiffusion:
             "loss_per_sample": sq.mean(dim=tuple(range(1, sq.dim()))),
         }
         return terms, model_output, model_output_idwt
+
+
+    # -- variational bound -----------------------------------------------
+
+    def vb_terms_bpd(self, model_fn, x_start, x_t, t, *, cond=None,
+                     clip_denoised=True) -> dict[str, torch.Tensor]:
+        """The bound's term at ``t`` in bits per dimension: KL(q‖p) of the
+        posterior, or the decoder's discretized NLL where t == 0."""
+        from fast_cwdm_tpu_torch.diffusion import losses  # losses → models → this module
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(model_fn, x_t, t, cond=cond, clip_denoised=clip_denoised)
+        kl = losses.normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])
+        kl = losses.mean_flat(kl) / math.log(2.0)
+        decoder_nll = -losses.discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
+        decoder_nll = losses.mean_flat(decoder_nll) / math.log(2.0)
+        return {"output": torch.where(t == 0, decoder_nll, kl),
+                "pred_xstart": out["pred_xstart"]}
+
+    def prior_bpd(self, x_start) -> torch.Tensor:
+        """KL(q(x_T|x_0) ‖ N(0, I)) in bits per dimension, (B,)."""
+        from fast_cwdm_tpu_torch.diffusion import losses
+        t = torch.full((x_start.shape[0],), self.num_timesteps - 1, dtype=torch.long,
+                       device=x_start.device)
+        mean, _, log_var = self.q_mean_variance(x_start, t)
+        return losses.mean_flat(losses.normal_kl(mean, log_var, 0.0, 0.0)) / math.log(2.0)
+
+    def calc_bpd_loop(self, model_fn, x_start, *, cond=None, clip_denoised=True,
+                      step_noise=None,
+                      generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """The whole variational bound, t = T-1 down to 0 (implemented
+        correctly, as in the JAX package; the reference's is broken).
+        ``step_noise[k]`` is the q_sample noise of the k-th timestep
+        visited, else drawn from ``generator`` one timestep at a time.
+
+        Returns total_bpd (B,), prior_bpd (B,), vb, xstart_mse and mse
+        (B, T), in the order t = T-1 … 0 along the second axis."""
+        from fast_cwdm_tpu_torch.diffusion import losses
+        b = x_start.shape[0]
+        vb, xstart_mse, mse = [], [], []
+        for k, ti in enumerate(range(self.num_timesteps - 1, -1, -1)):
+            t = torch.full((b,), ti, dtype=torch.long, device=x_start.device)
+            noise = (step_noise[k] if step_noise is not None
+                     else torch.randn(x_start.shape, generator=generator, dtype=x_start.dtype,
+                                      device=x_start.device))
+            x_t = self.q_sample(x_start, t, noise)
+            out = self.vb_terms_bpd(model_fn, x_start, x_t, t, cond=cond,
+                                    clip_denoised=clip_denoised)
+            vb.append(out["output"])
+            xstart_mse.append(losses.mean_flat((out["pred_xstart"] - x_start) ** 2))
+            eps = self.predict_eps_from_xstart(x_t, t, out["pred_xstart"])
+            mse.append(losses.mean_flat((eps - noise) ** 2))
+        vb = torch.stack(vb, dim=1)
+        prior = self.prior_bpd(x_start)
+        return {"total_bpd": vb.sum(dim=1) + prior, "prior_bpd": prior, "vb": vb,
+                "xstart_mse": torch.stack(xstart_mse, dim=1), "mse": torch.stack(mse, dim=1)}

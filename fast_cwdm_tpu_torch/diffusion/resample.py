@@ -4,8 +4,10 @@
 samples t in proportion to sqrt(E[loss²]) per timestep once every timestep
 has ``history_per_term`` recorded losses. Its state is a
 :class:`LossAwareState` of two tensors, updated functionally as in the JAX
-package (which gathers across its data axis; the port runs on one device).
-Draws come from a ``torch.Generator`` instead of a ``jax.random`` key.
+package; ``update(..., axis_name="data")`` first gathers every rank's t
+and losses over the process group (``parallel/mesh.py``), so that every
+rank records the same history. Draws come from a ``torch.Generator``
+instead of a ``jax.random`` key.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ class UniformSampler:
     def init_state(self, device: str | torch.device = "cpu"):
         return ()
 
-    def update(self, state, t, losses):
+    def update(self, state, t, losses, axis_name: str | None = None):
         return state
 
 
@@ -83,10 +85,20 @@ class LossSecondMomentResampler:
         t = torch.multinomial(p, batch_size, replacement=True, generator=generator)
         return t, 1.0 / (self.num_timesteps * p[t])
 
-    def update(self, state: LossAwareState, t: torch.Tensor,
-               losses: torch.Tensor) -> LossAwareState:
+    def update(self, state: LossAwareState, t: torch.Tensor, losses: torch.Tensor,
+               axis_name: str | None = None) -> LossAwareState:
         """Record per-example losses at their timesteps, in batch order
-        (a full row shifts left and takes the new loss at its end)."""
+        (a full row shifts left and takes the new loss at its end). With
+        ``axis_name`` ("data", the only axis ported) every rank's t and
+        losses are gathered in rank order first, as the JAX package's
+        ``all_gather`` does, so every rank's history stays the same."""
+        if axis_name is not None:
+            from fast_cwdm_tpu_torch.parallel.mesh import DATA_AXIS, all_gather_rows, make_mesh
+
+            if axis_name != DATA_AXIS:
+                raise ValueError(f"axis_name must be {DATA_AXIS!r} or None, got {axis_name!r}")
+            mesh = make_mesh()
+            t, losses = all_gather_rows(mesh, t), all_gather_rows(mesh, losses)
         hist = state.loss_history.clone()
         counts = state.loss_counts.clone()
         k = self.history_per_term

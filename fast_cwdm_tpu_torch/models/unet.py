@@ -535,20 +535,54 @@ class UNetModel(nn.Module):
         return conv(h).float()
 
 
+def _linear_resize_weights(m: int, n: int, device) -> torch.Tensor:
+    """(m, n) float32 weights taking an axis of m samples to n, as
+    ``jax.image.resize(..., "bilinear")`` builds them
+    (``jax/_src/image/scale.py::compute_weight_mat``): half-pixel sample
+    positions, a triangle kernel widened by 1/scale when the axis shrinks
+    (antialiasing), each output sample's weights normalised to sum 1, and
+    samples outside the input zeroed."""
+    f32 = torch.float32
+    inv_scale = m / n  # 1 / (n / m), rounded to float32 where it is used
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n, dtype=f32, device=device) + 0.5) * torch.tensor(
+        inv_scale, dtype=f32) - 0.5
+    dist = (sample[None, :] - torch.arange(m, dtype=f32, device=device)[:, None]).abs()
+    w = torch.clamp(1.0 - dist / torch.tensor(kernel_scale, dtype=f32), min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)), 0.0)
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize_linear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """``jax.image.resize(x, ..., "bilinear")`` of an (N, C, *spatial)
+    tensor to the spatial ``size``, in 1, 2 or 3 dimensions: each axis
+    whose length changes is contracted with its weight matrix
+    (:func:`_linear_resize_weights`), one axis after another. Downscales
+    antialias; upscales are plain linear interpolation with half-pixel
+    centres."""
+    for d, n in enumerate(size):
+        axis, m = 2 + d, x.shape[2 + d]
+        if m != n:
+            w = _linear_resize_weights(m, n, x.device).to(x.dtype)
+            x = torch.matmul(x.movedim(axis, -1), w).movedim(-1, axis)
+    return x
+
+
 class SuperResModel(UNetModel):
     """Super-resolution UNet (JAX `unet.py:619-635`): ``low_res`` is
-    resized to ``x``'s spatial size by linear interpolation with half-pixel
-    centres (``align_corners=False``; the JAX package's
-    ``jax.image.resize(..., "bilinear")``, the same function for an
-    upscale, where its antialiasing does nothing) and concatenated to ``x``
-    on channels. ``in_channels`` counts both, as the JAX package's inner
-    UNet; the parameters are the UNet's own, as the reference's subclass."""
+    resized to ``x``'s spatial size by :func:`resize_linear` (the JAX
+    package's ``jax.image.resize(..., "bilinear")``, which antialiases
+    when an axis shrinks) and concatenated to ``x`` on channels.
+    ``in_channels`` counts both, as the JAX package's inner UNet; the
+    parameters are the UNet's own, as the reference's subclass."""
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 low_res: torch.Tensor | None = None,
                 y: torch.Tensor | None = None) -> torch.Tensor:
-        mode = {3: "linear", 4: "bilinear", 5: "trilinear"}[x.dim()]
-        up = F.interpolate(low_res, size=tuple(x.shape[2:]), mode=mode, align_corners=False)
+        up = resize_linear(low_res, tuple(x.shape[2:]))
         return super().forward(torch.cat([x, up], dim=1), timesteps, y)
 
 

@@ -15,9 +15,16 @@ first save;
 ``FAST_CWDM_STRICT_FINITE`` (set) raises on a non-finite logged loss.
 
 Checkpoints hold the JAX package's trees (parameters under its names,
-optax's adamw state), so a run resumes across the two packages. One
-process, one device: the JAX loop's mesh and multi-host paths are ROADMAP
-M8.
+optax's adamw state), so a run resumes across the two packages.
+
+Data parallelism (``mesh``, one process per GPU under ``torchrun``): the
+data source yields this rank's rows of each global batch of
+``batch_size``; the step averages the gradients over the ranks. On log
+and save steps the per-sample metrics are gathered across the ranks
+(collective: every rank fetches at the same steps); the SIGTERM flag is
+agreed every step, so that a signal to any subset of ranks stops every
+rank after the same step; checkpoints, BEST, the ledger and the log files
+are written by rank 0 alone.
 """
 
 from __future__ import annotations
@@ -35,10 +42,12 @@ from fast_cwdm_tpu_torch.data.loader import prefetch_to_device, to_device
 from fast_cwdm_tpu_torch.diffusion.gaussian import GaussianDiffusion, condition_order
 from fast_cwdm_tpu_torch.diffusion.resample import UniformSampler
 from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict, state_dict_from_jax
+from fast_cwdm_tpu_torch.parallel import mesh as pmesh
 from fast_cwdm_tpu_torch.training import checkpoints as ckpt
 from fast_cwdm_tpu_torch.training.state import TrainState
 from fast_cwdm_tpu_torch.training.train import (
     IMAGE_METRIC_KEYS,
+    PER_SAMPLE_METRIC_KEYS,
     StepRNG,
     make_optimizer,
     make_train_step,
@@ -106,8 +115,13 @@ class TrainLoop:
         lesion_core_weight: float = 0.0,
         lesion_t_power: float = 0.0,
         device: str | torch.device | None = None,
+        mesh: pmesh.DataMesh | None = None,
     ):
         self.device = resolve_device(device)
+        # default: the process group's data axis (one rank without torchrun)
+        self.mesh = mesh if mesh is not None else pmesh.make_mesh()
+        # rank 0 writes every file; the others compute and log to stdout
+        self.writer_rank = self.mesh.rank == 0
         self.model = model.to(self.device)
         self.diffusion = diffusion
         self.data_factory = data if callable(data) else (lambda: data)
@@ -129,7 +143,8 @@ class TrainLoop:
         self.opt = make_optimizer(lr, weight_decay=weight_decay, lr_anneal_steps=lr_anneal_steps)
         self.sampler = schedule_sampler or UniformSampler(diffusion.num_timesteps)
         # microbatch <= 0 or >= batch_size: no accumulation; otherwise the
-        # batch runs as batch_size/microbatch accumulated chunks
+        # (global) batch runs as batch_size/microbatch accumulated chunks,
+        # each rank taking its rows of every chunk
         if 0 < microbatch < batch_size:
             if batch_size % microbatch != 0:
                 raise ValueError(
@@ -141,13 +156,15 @@ class TrainLoop:
             self.model, diffusion, self.opt, contr=contr, mode=mode, sampler=self.sampler,
             accum_steps=accum_steps, lesion_weight=lesion_weight,
             lesion_core_weight=lesion_core_weight, lesion_t_power=lesion_t_power,
+            mesh=self.mesh,
         )
         self.rng = StepRNG.seeded(seed, self.device)
         # BEST saves write in the background; every return waits for them
         self.writer = ckpt.AsyncWriter()
         self.state: TrainState | None = None
         # one record per log step: step, loss, wall seconds per step of the
-        # window (the metric fetch synchronises the device)
+        # window (the metric fetch synchronises the device), and the
+        # gradient all-reduce's milliseconds and bytes per step
         self.step_log: list[dict] = []
         self._pending_resume: str | None = None
         if resume_checkpoint:
@@ -250,11 +267,18 @@ class TrainLoop:
         self._pending_resume = None
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _fetch(metrics: dict) -> dict:
-        """Metrics to the host (numpy), in one pass."""
-        return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
-                for k, v in metrics.items()}
+    def _fetch(self, metrics: dict) -> dict:
+        """Metrics to the host (numpy), the per-sample ones gathered across
+        the ranks (collective)."""
+        return pmesh.gather_metrics(self.mesh, metrics, PER_SAMPLE_METRIC_KEYS)
+
+    def _preempt_agreed(self, preempted: list) -> bool:
+        """Whether any rank was sent SIGTERM. Delivery is per process: a
+        rank that stopped alone would leave the others waiting in the next
+        all-reduce, and a signal to rank 1 only would save nothing. One
+        small all-reduce a step stops every rank after the same step, and
+        rank 0 saves."""
+        return pmesh.any_rank(self.mesh, bool(preempted))
 
     def run_loop(self) -> TrainState:
         # SIGTERM (preemption): finish the step in flight, write a
@@ -330,8 +354,15 @@ class TrainLoop:
             if step % self.log_interval == 0:
                 loss = float(m["loss"])
                 now = time.perf_counter()
-                self.step_log.append({"step": step, "loss": loss,
-                                      "seconds_per_step": (now - window_t0) / (step - window_step)})
+                n_win = step - window_step
+                comm = self.step_fn.comm.drain()
+                rec = {"step": step, "loss": loss, "seconds_per_step": (now - window_t0) / n_win}
+                if comm:
+                    rec["allreduce_ms_per_step"] = sum(ms for _, ms in comm) / n_win
+                    rec["allreduce_bytes_per_step"] = sum(b for b, _ in comm) / n_win
+                    logger.logkv("time/allreduce_ms", rec["allreduce_ms_per_step"])
+                    logger.logkv("comm/allreduce_bytes", rec["allreduce_bytes_per_step"])
+                self.step_log.append(rec)
                 window_t0, window_step = now, step
                 if not np.isfinite(loss):
                     logger.log(f"Encountered non-finite loss {loss}")
@@ -378,7 +409,7 @@ class TrainLoop:
                     logger.log("DIFFUSION_TRAINING_TEST: early exit")
                     return self.state
 
-            if preempted:
+            if self._preempt_agreed(preempted):
                 logger.log(f"SIGTERM at step {step}: writing preemption checkpoint and exiting")
                 self.preempted = True
                 self.save(step)
@@ -401,6 +432,8 @@ class TrainLoop:
         return {"opt_state": self.opt.state_to_tree(self.state.opt_state, self.model)}
 
     def save_if_best(self, loss: float, step: int) -> bool:
+        if not self.writer_rank:
+            return False  # the parameters are the same on every rank
         saved = ckpt.save_if_best(
             self.checkpoint_dir, self.contr, loss, self._payload(step), self._opt_payload(),
             sample_schedule=self.sample_schedule, diffusion_steps=self.diffusion_steps,
@@ -416,7 +449,10 @@ class TrainLoop:
 
     def save(self, step: int, prune_previous: bool = True) -> None:
         """Step-stamped checkpoint and its optimizer blob (the preemption
-        save); ``prune_previous`` then deletes this run's older ones."""
+        save); ``prune_previous`` then deletes this run's older ones.
+        Rank 0 only."""
+        if not self.writer_rank:
+            return
         names = (self.contr, step, self.sample_schedule, self.diffusion_steps, self.dataset)
         self.writer.wait()
         ckpt.save_checkpoint(os.path.join(self.checkpoint_dir, ckpt.step_checkpoint_name(*names)),

@@ -11,6 +11,15 @@ Randomness: the JAX step splits one key into t, noise and dropout keys;
 the port draws each from its own ``torch.Generator`` (:class:`StepRNG`),
 and the step takes explicit ``t`` and ``noise_img`` so that tests can feed
 it the JAX side's draws.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): each rank holds its
+rows of the global batch. t and the noise are drawn for the GLOBAL batch
+from the step's generators on every rank and each rank takes its rows, so
+a sharded step computes what an unsharded step on the global batch
+computes. After the backward (and any accumulation) one all-reduce of a
+flat float32 buffer averages the gradients, the loss and the batch-mean
+metrics over the ranks; AdamW and the EMA then run identically on every
+rank.
 """
 
 from __future__ import annotations
@@ -24,11 +33,14 @@ import torch
 from fast_cwdm_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from fast_cwdm_tpu_torch.diffusion.resample import LossSecondMomentResampler, UniformSampler
 from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict, state_dict_from_jax
+from fast_cwdm_tpu_torch.parallel import mesh as pmesh
 from fast_cwdm_tpu_torch.training.state import TrainState, update_ema
 
 # metric leaves that are image panels (mid-plane slices), not scalars: the
 # loop fetches them only on image-log steps
 IMAGE_METRIC_KEYS = ("sample_slice", "subband_slices")
+# metric leaves with one row per sample: a rank's rows under a mesh
+PER_SAMPLE_METRIC_KEYS = ("loss_per_sample", "t") + IMAGE_METRIC_KEYS
 
 
 class AdamW:
@@ -169,6 +181,7 @@ def make_train_step(
     lesion_weight: float = 0.0,
     lesion_core_weight: float = 0.0,
     lesion_t_power: float = 0.0,
+    mesh: pmesh.DataMesh | None = None,
 ) -> Callable[..., tuple[TrainState, dict]]:
     """Build ``step(state, batch, rng=None, *, t=None, noise_img=None) ->
     (state, metrics)``.
@@ -177,6 +190,12 @@ def make_train_step(
     or one tensor, on the training device. ``t`` and ``noise_img``
     override the sampler's and the noise generator's draws. The model is
     put in training mode (dropout on).
+
+    ``mesh``: the data axis. ``batch`` is then this rank's rows of the
+    global batch (``mesh.size`` times as many), and ``t`` / ``noise_img``,
+    given or drawn, are the global batch's, of which the step takes its
+    rows. The all-reduces' bytes and milliseconds go to ``step.comm``
+    (a :class:`~fast_cwdm_tpu_torch.parallel.mesh.CommLog`).
 
     ``accum_steps``: the batch is split into that many microbatches run
     one after another (one microbatch's activations live at a time), the
@@ -192,7 +211,9 @@ def make_train_step(
     Metrics: loss, mse_wav (8,), loss_per_sample, t, the two image panels,
     grad_max and param_max (zeros without ``with_norms``), and mse_lesion
     / mse_lesion_core where those terms are on; all detached device
-    tensors.
+    tensors. Under a mesh, loss, mse_wav and the lesion terms are the
+    global batch's; loss_per_sample, t and the panels are this rank's rows
+    (``PER_SAMPLE_METRIC_KEYS``, which the loop gathers).
     """
     sampler = sampler or UniformSampler(diffusion.num_timesteps)
     loss_aware = isinstance(sampler, LossSecondMomentResampler)
@@ -212,6 +233,8 @@ def make_train_step(
             "case's seg labels; unconditional batches are plain arrays)"
         )
     dropout_on = _has_dropout(model)
+    dp = mesh is not None and mesh.group is not None
+    comm = pmesh.CommLog()
 
     def model_fn(x, tt):
         if compute_dtype is not None:
@@ -284,17 +307,23 @@ def make_train_step(
         model.train()
         target = batch[contr] if isinstance(batch, dict) else batch
         bsz, dev = target.shape[0], target.device
+        # the global batch's t and noise, drawn alike on every rank; this
+        # rank's rows of them
+        gbsz = bsz * mesh.size if dp else bsz
+        lo, hi = pmesh.local_batch_rows(mesh, gbsz) if dp else (0, bsz)
         if t is None:
             if loss_aware:
-                t, _ = sampler.sample(rng.t if rng else None, bsz, state.sampler_state)
+                t, _ = sampler.sample(rng.t if rng else None, gbsz, state.sampler_state)
             else:
-                t, _ = sampler.sample(rng.t if rng else None, bsz, device=dev)
-        t = t.to(dev)
+                t, _ = sampler.sample(rng.t if rng else None, gbsz, device=dev)
+        t = t.to(dev)[lo:hi]
         if noise_img is None:
             # the full batch's noise in one draw (sliced per microbatch
             # under accumulation), so accum_steps does not change it
-            noise_img = torch.randn(target.shape, generator=rng.noise if rng else None,
+            noise_img = torch.randn((gbsz, *target.shape[1:]),
+                                    generator=rng.noise if rng else None,
                                     dtype=target.dtype, device=dev)
+        noise_img = noise_img[lo:hi]
         if dropout_on:
             seed = int(torch.randint(2**62, (1,), generator=rng.dropout if rng else None))
             devices = [dev] if dev.type == "cuda" else []
@@ -307,17 +336,32 @@ def make_train_step(
         for k, p in state.params.items():
             gk = p.grad if p.grad is not None else torch.zeros_like(p)
             grads[k] = gk / accum if accum else gk
+        means = [k for k in ("mse_lesion", "mse_lesion_core") if k in terms]
+        if dp:
+            # one all-reduce per optimizer step: the gradients, then the
+            # loss and the batch-mean metrics in the same buffer
+            loss = loss.reshape(1).clone()
+            terms["mse_wav"] = terms["mse_wav"].clone()
+            for k in means:
+                terms[k] = terms[k].reshape(1).clone()
+            pmesh.all_reduce_mean_(
+                mesh, [*grads.values(), loss, terms["mse_wav"], *(terms[k] for k in means)],
+                comm)
+            loss = loss[0]
+            for k in means:
+                terms[k] = terms[k][0]
         opt.update_(state.params, grads, state.opt_state)
         state.step += 1
         update_ema(state)
         if loss_aware:
-            state.sampler_state = sampler.update(state.sampler_state, t, terms["loss_per_sample"])
+            state.sampler_state = sampler.update(
+                state.sampler_state, t, terms["loss_per_sample"],
+                axis_name=pmesh.DATA_AXIS if dp else None)
         metrics = {"loss": loss, "mse_wav": terms["mse_wav"],
                    "loss_per_sample": terms["loss_per_sample"], "t": t,
                    **{k: terms[k] for k in IMAGE_METRIC_KEYS}}
-        for k in ("mse_lesion", "mse_lesion_core"):
-            if k in terms:
-                metrics[k] = terms[k]
+        for k in means:
+            metrics[k] = terms[k]
         if with_norms:
             metrics["grad_max"] = _max_abs(grads.values())
             metrics["param_max"] = _max_abs(p.detach() for p in state.params.values())
@@ -327,6 +371,7 @@ def make_train_step(
             p.grad = None
         return state, metrics
 
+    step.comm = comm
     return step
 
 

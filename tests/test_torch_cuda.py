@@ -734,3 +734,133 @@ def test_ssim3d_and_psnr_on_the_card_match_the_cpu(gen, tmp_path):
         assert r["case"] == c["case"]
         for k in ("ssim", "psnr", "mse"):
             assert abs(r[k] - c[k]) <= 1e-10, (k, r, c)
+
+
+class _matmul_fp32:
+    """cuBLAS without TF32 inside the block, the flag restored after it."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def test_diffusion_api_on_the_card_matches_the_cpu(gen):
+    """sample_known, the DDIM known loop, a ddim_reverse_sample step and
+    calc_bpd_loop of the tiny fp32 UNet (fuse_gn_silu) on the card and on
+    the CPU, on the same draws, TF32 off: within 1e-4 (the bound's bits
+    relative to their scale)."""
+    cfg = _tiny_cfg(fuse_gn_silu=True)
+    rng = np.random.default_rng(1)
+    shape = (1, 8, 8, 8, 8)
+    draw = lambda: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    img = torch.from_numpy(rng.random(shape).astype(np.float32))
+    cond = torch.from_numpy(rng.random((1, 8, 8, 8, 24)).astype(np.float32))
+    x_known, steps, x_ddim, bpd_noise = draw(), [draw() for _ in range(4)], draw(), \
+        [draw() for _ in range(4)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model, diffusion = common.build_model_and_diffusion(cfg)
+        sd = seeded_state_dict({k: tuple(v.shape) for k, v in model.state_dict().items()})
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+        model.to(dev).eval()
+
+        def fn(x, t):
+            return model(x.permute(0, 4, 1, 2, 3), t).permute(0, 2, 3, 4, 1)
+
+        mv = lambda v: v.to(dev)  # noqa: E731
+        with torch.inference_mode(), _matmul_fp32():
+            out[dev] = {
+                "known": diffusion.sample_known(fn, mv(img), cond=mv(cond), noise=mv(x_known),
+                                                step_noise=[mv(s) for s in steps]),
+                "ddim_known": diffusion.ddim_sample_loop_known(fn, shape, img=mv(cond),
+                                                               noise=mv(x_ddim))[0],
+                "reverse": diffusion.ddim_reverse_sample(
+                    fn, mv(img), torch.tensor([2], device=dev), cond=mv(cond))["sample"],
+                **{f"bpd.{k}": v for k, v in diffusion.calc_bpd_loop(
+                    lambda x, t: x[..., :8] + 1e-3 * fn(x, t), mv(img), cond=mv(cond),
+                    clip_denoised=False, step_noise=[mv(s) for s in bpd_noise]).items()}}
+    for k, v in out["cpu"].items():
+        scale = max(1.0, float(v.abs().max())) if k.startswith("bpd.") else 1.0
+        torch.testing.assert_close(out["cuda"][k].cpu(), v, atol=1e-4 * scale, rtol=0)
+
+
+_GLOO_CARD_CHILD = r"""
+import json, os, sys
+import numpy as np, torch
+from fast_cwdm_tpu_torch.cli import common
+from fast_cwdm_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from fast_cwdm_tpu_torch.parallel import mesh as pm
+from fast_cwdm_tpu_torch.training import state as tstate, train
+from fast_cwdm_tpu_torch.utils.testing import seeded_state_dict
+
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+dev = pm.setup_distributed("cuda")
+mesh = pm.make_mesh()
+cfg = json.loads(sys.argv[1])
+model, _ = common.build_model_and_diffusion(cfg)
+sd = seeded_state_dict({k: tuple(v.shape) for k, v in model.state_dict().items()})
+model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+model.to(dev)
+data = np.load(sys.argv[2])
+diffusion = GaussianDiffusion.named("linear", 4, "sampled", mode="i2i")
+opt = train.make_optimizer(1e-4, eps=1e-3)
+step = train.make_train_step(model, diffusion, opt, contr="t1n", mode="i2i", mesh=mesh)
+state = tstate.TrainState.create(model, opt)
+batch = pm.shard_batch(mesh, {m: data[m] for m in ("t1n", "t1c", "t2w", "t2f")}, device=dev)
+state, m = step(state, batch, t=torch.from_numpy(data["t"]).to(dev),
+                noise_img=torch.from_numpy(data["noise"]).to(dev))
+np.savez(sys.argv[3] + f"{mesh.rank}.npz", loss=m["loss"].cpu().numpy(),
+         **{k: v.detach().cpu().numpy() for k, v in state.params.items()})
+print("RESULT " + json.dumps({"rank": mesh.rank, "device": str(dev)}), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(gen, tmp_path):
+    """Two gloo ranks sharing the card (NCCL takes one rank per GPU), one
+    fp32 train step of the tiny UNet (fuse_gn_silu) on global batch 2,
+    against one process on the card: loss within 2e-5, parameters the
+    same bits on both ranks and within 5e-3·lr plus two ulps of one
+    process's."""
+    import json
+
+    from fast_cwdm_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from fast_cwdm_tpu_torch.parallel import dryrun
+    from fast_cwdm_tpu_torch.training import state as tstate
+    from fast_cwdm_tpu_torch.training import train
+
+    cfg = _tiny_cfg(fuse_gn_silu=True)
+    rng = np.random.default_rng(0)
+    data = {m: rng.random((2, 8, 8, 8, 1)).astype(np.float32) for m in ("t1n", "t1c", "t2w", "t2f")}
+    data.update(noise=rng.standard_normal((2, 8, 8, 8, 1)).astype(np.float32),
+                t=np.array([3, 1]))
+    np.savez(tmp_path / "data.npz", **data)
+    script = tmp_path / "child.py"
+    script.write_text(_GLOO_CARD_CHILD)
+    env = dict(os.environ, FAST_CWDM_DIST_BACKEND="gloo")
+    recs = dryrun.results(dryrun.wait_ranks(dryrun.start_ranks(
+        2, [str(script), json.dumps(cfg), str(tmp_path / "data.npz"), str(tmp_path / "rank")],
+        env=env), 120))
+    assert [r["device"] for r in recs] == ["cuda:0", "cuda:0"]
+    model, _ = common.build_model_and_diffusion(cfg)
+    sd = seeded_state_dict({k: tuple(v.shape) for k, v in model.state_dict().items()})
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    model.cuda()
+    opt = train.make_optimizer(1e-4, eps=1e-3)
+    step = train.make_train_step(model, GaussianDiffusion.named("linear", 4, "sampled", mode="i2i"),
+                                 opt, contr="t1n", mode="i2i")
+    state = tstate.TrainState.create(model, opt)
+    with _matmul_fp32():
+        state, m = step(state, {k: torch.from_numpy(data[k]).cuda()
+                                for k in ("t1n", "t1c", "t2w", "t2f")},
+                        t=torch.from_numpy(data["t"]).cuda(),
+                        noise_img=torch.from_numpy(data["noise"]).cuda())
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    assert abs(float(ranks[0]["loss"]) - float(m["loss"])) <= 2e-5
+    for k, p in state.params.items():
+        v = p.detach().cpu().numpy()
+        assert np.array_equal(ranks[0][k], ranks[1][k]), k
+        assert (np.abs(ranks[0][k] - v) <= 5e-3 * 1e-4 + 2.0**-22 * np.abs(v)).all(), k

@@ -198,15 +198,39 @@ SR_CFG = dict(
 
 
 def test_bilinear_upsample_matches_jax_image_resize():
-    """F.interpolate(bilinear, align_corners=False) against
-    jax.image.resize(bilinear) at ×2 and ×4 upscales, tolerance 1e-6."""
+    """resize_linear against jax.image.resize(bilinear) at ×2 and ×4
+    upscales, tolerance 1e-6."""
     low = np.random.default_rng(3).standard_normal((2, 5, 7, 3)).astype(np.float32)
     for size in ((10, 14), (20, 28)):
         ref = np.asarray(jax.image.resize(jnp.asarray(low), (2, *size, 3), "bilinear"))
-        ours = torch.nn.functional.interpolate(
-            torch.from_numpy(low).movedim(-1, 1), size=size, mode="bilinear",
-            align_corners=False).movedim(1, -1).numpy()
-        np.testing.assert_allclose(ours, ref, atol=1e-6)
+        ours = unet.resize_linear(torch.from_numpy(low).movedim(-1, 1), size)
+        np.testing.assert_allclose(ours.movedim(1, -1).numpy(), ref, atol=1e-6)
+
+
+# (input spatial, output spatial): the four downscales of the fault where
+# F.interpolate missed jax.image.resize by 0.60-0.88, a 1-D case, and
+# mixed shrink/grow sizes in each dimension count
+RESIZE_CASES = [
+    ((16, 16), (8, 8)),
+    ((16, 16), (12, 20)),
+    ((8, 8, 8), (4, 4, 4)),
+    ((8, 8, 8), (8, 8, 4)),
+    ((12,), (5,)),
+    ((7,), (16,)),
+    ((9, 6), (4, 13)),
+    ((6, 9, 5), (11, 4, 5)),
+]
+
+
+@pytest.mark.parametrize("src,dst", RESIZE_CASES)
+def test_resize_linear_matches_jax_image_resize(src, dst):
+    """Downscales antialias as jax.image.resize does (the triangle kernel
+    widened by 1/scale), mixed shrink/grow sizes, dims 1-3; tolerance
+    1e-6."""
+    x = np.random.default_rng(0).standard_normal((1, *src, 2)).astype(np.float32)
+    ref = np.asarray(jax.image.resize(jnp.asarray(x), (1, *dst, 2), "bilinear"))
+    ours = unet.resize_linear(torch.from_numpy(x).movedim(-1, 1), dst)
+    np.testing.assert_allclose(ours.movedim(1, -1).numpy(), ref, atol=1e-6)
 
 
 def test_super_res_model_matches_jax():
@@ -218,6 +242,26 @@ def test_super_res_model_matches_jax():
     low = rng.standard_normal((2, 8, 8, 3)).astype(np.float32)
     t = _t(3, 900)
     ref = _apply(junet.SuperResModel(unet=junet.UNetModel(**SR_CFG)), params, x, t,
+                 low_res=jnp.asarray(low))
+    ours = _ours(model, x, torch.from_numpy(t).long(),
+                 low_res=torch.from_numpy(low).movedim(-1, 1))
+    np.testing.assert_allclose(ours, ref, atol=5e-5)
+
+
+@pytest.mark.parametrize("dims,low_size", [(1, (24,)), (2, (32, 12)), (3, (16, 8, 12))])
+def test_super_res_model_with_a_shrinking_low_res_matches_jax(dims, low_size):
+    """low_res larger than x on some axis: the antialiased downscale
+    inside the forward, in dims 1-3; fp32, atol 5e-5."""
+    cfg = dict(SR_CFG, dims=dims, image_size=8 if dims == 3 else 16,
+               attention_resolutions=() if dims == 3 else (2,))
+    model = _seeded(unet.SuperResModel(**cfg))
+    params = convert.jax_params_from_state_dict(model.state_dict(), model)
+    rng = np.random.default_rng(5)
+    spatial = (cfg["image_size"],) * dims
+    x = rng.standard_normal((1, *spatial, 3)).astype(np.float32)
+    low = rng.standard_normal((1, *low_size, 3)).astype(np.float32)
+    t = _t(7)
+    ref = _apply(junet.SuperResModel(unet=junet.UNetModel(**cfg)), params, x, t,
                  low_res=jnp.asarray(low))
     ours = _ours(model, x, torch.from_numpy(t).long(),
                  low_res=torch.from_numpy(low).movedim(-1, 1))
