@@ -48,7 +48,20 @@ Phases, each printing one JSON object per line:
               output checked (geometry, affine, [0,1], brain mask, border,
               pass-through), each run through the captured chain, and the
               seconds per case;
-7. training — the K3 VJP kernel against its plain version at every
+7. orbax    — the main path from the JAX package's ``.orbax`` backend
+              (``training/orbax_io.py``, no Orbax): the same weights written
+              by the port as an Orbax directory and read back bit for bit
+              (bytes and seconds beside the ``.ckpt``'s); the committed
+              tensorstore-written fixtures ``tests/golden/*.orbax`` equal
+              to their ``.npz``; ``cli.complete_dataset`` from the
+              ``.orbax`` with ``fuse_conv`` and dpm++ 10 (the images of
+              completion's run (b) by sha256; 540 K4b per case); then
+              ``cli.train --fuse_gn_silu=True`` under
+              ``FAST_CWDM_CKPT_BACKEND=orbax`` (3 steps, every file an Orbax
+              directory) and one step resumed from its step checkpoint
+              (the ``.orbax`` opt blob named, the state restored bit for
+              bit; K1 5, K2 1, K3 83, VJP 71 per step);
+8. training — the K3 VJP kernel against its plain version at every
               distinct GN+SiLU shape of the production UNet (bf16
               channels_last_3d and fp32 contiguous; gx bit for bit, ga and
               gb within 1e-5 of the sum of the terms' magnitudes, two
@@ -62,11 +75,11 @@ Phases, each printing one JSON object per line:
               use_checkpoint for its peak memory; a fuse_conv model under
               backward still raises; then ``cli.complete_dataset`` from (a)'s
               BEST on a case without t1c, output checked;
-8. reference— the whole synthesis at a tiny fp32 config on the card,
+9. reference— the whole synthesis at a tiny fp32 config on the card,
               graphed and eager, against the same on the CPU (plain
               versions), same noise: fuse_gn_silu under ddpm, and
               fuse_conv under ddpm, ddim and dpm++;
-9. evaluation— the BraSyn evaluation chain at full size through the
+10. evaluation— the BraSyn evaluation chain at full size through the
               port's entry points: ``scripts.quality_bench`` stage gen (2
               train and 4 val 240×240×155 phantoms), ``run.sh --mode
               train`` (4 steps: K1 5, K2 1 per step), stage eval (copy
@@ -80,7 +93,7 @@ Phases, each printing one JSON object per line:
               equal to the JAX records within 1e-12), and ``ssim3d`` /
               ``psnr`` on the card against the CPU (≤ 1e-10) with both
               times;
-10. models  — the rest of the network surface: (a) ``cli.train`` with
+11. models  — the rest of the network surface: (a) ``cli.train`` with
               run.sh's flags and ``--use_freq=True --channel_mult=1,2,2,4``
               (the 54,285,640-parameter WavUNet) on two 240×240×155
               cases, 3 steps and a BEST (K1 5, K2 1 per step), then
@@ -100,14 +113,14 @@ Phases, each printing one JSON object per line:
               and WavUNet, the WavUNet's double run, the encoder's three
               pools, SuperResModel, both gating blocks) on the card
               against the CPU (≤ 1e-4, TF32 off);
-11. diffusion_api — the rest of ``GaussianDiffusion`` at the production
+12. diffusion_api — the rest of ``GaussianDiffusion`` at the production
               config (bf16, fuse_conv, 10-step schedule): sample_known, the
               ancestral interpolation, ddim_sample_loop_known, a
               ddim_reverse_sample round trip, calc_bpd_loop (59 forwards,
               3,186 K4b launches), each progressive generator against its
               loop bit for bit; then the same methods at a tiny fp32 size,
               card against CPU on the same draws (≤ 1e-4, TF32 off);
-12. distributed — the data axis through ``torch.distributed.run``:
+13. distributed — the data axis through ``torch.distributed.run``:
               (a) ``cli.train`` as one NCCL rank (bf16, fuse_gn_silu, 3
               steps); (b) two gloo ranks sharing the card (fp32, TF32 off,
               cuDNN deterministic, global batch 2) against one process
@@ -895,6 +908,14 @@ def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
     return res
 
 
+def image_sha256(np, vol) -> str:
+    """sha256 of a volume's voxels (C order, its own dtype): the image,
+    not the file, whose gzip header carries a time."""
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(vol).tobytes()).hexdigest()
+
+
 def same_tree(np, a, b) -> bool:
     """Two nested dicts of numpy arrays equal key for key, bit for bit."""
     if isinstance(b, dict):
@@ -1036,6 +1057,7 @@ def phase_completion(torch, tmp: str) -> dict:
                      "launches_expected": want, "outputs": checked}
         vols[name] = {case: nifti.load(os.path.join(out_dir, case, f"{case}-{m}.nii.gz")).dataobj
                       for case, m in cases.items() if m}
+        res[name]["sha256"] = {c: image_sha256(np, v) for c, v in vols[name].items()}
     res["max_abs_diff_a_vs_b"] = max(float(np.abs(vols["complete_a"][c] - vols["complete_b"][c]).max())
                                      for c in vols["complete_a"])
     res["volumes_differ_a_vs_b"] = res["max_abs_diff_a_vs_b"] > 0.0
@@ -1053,6 +1075,219 @@ def phase_completion(torch, tmp: str) -> dict:
         case: check_synthesized(np, os.path.join(in_dir, case),
                                 os.path.join(out_dir, case, f"{case}-{m}.nii.gz"), case)
         for case, m in cases.items() if m}}
+    return res
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def fixture_values(np, prefix: str) -> tuple[dict, set]:
+    """``tests/golden/orbax_tiny.npz``: the leaves of one fixture
+    (``{"a/b": array}``, bfloat16 leaves as their int16 bits under
+    ``"a/b@bfloat16"``) and the paths of its empty nodes."""
+    with np.load(os.path.join(REPO, "tests", "golden", "orbax_tiny.npz")) as z:
+        leaves = {k[len(prefix) + 1:]: z[k] for k in z.files
+                  if k.startswith(prefix + ":") and k != f"{prefix}:empty"}
+        return leaves, set(z[f"{prefix}:empty"].tolist())
+
+
+def check_fixture(torch, np, path: str, prefix: str) -> dict:
+    """A committed tensorstore-written ``.orbax`` read by the port equals
+    its ``.npz`` bit for bit (leaves, dtypes, shapes, empty nodes)."""
+    from fast_cwdm_tpu_torch.training import checkpoints
+
+    t0 = time.perf_counter()
+    tree = checkpoints.load_checkpoint(path)
+    seconds = time.perf_counter() - t0
+    want, empty = fixture_values(np, prefix)
+    got, got_empty = {}, set()
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            if not node:
+                got_empty.add(key)
+            for k, v in node.items():
+                walk(v, f"{key}/{k}" if key else k)
+        elif isinstance(node, torch.Tensor):
+            got[key + "@bfloat16"] = node.view(torch.int16).numpy()
+        else:
+            got[key] = node
+
+    walk(tree, "")
+    bad = sorted(k for k in set(want) | set(got) if k not in want or k not in got
+                 or want[k].dtype != got[k].dtype or want[k].shape != got[k].shape
+                 or want[k].tobytes() != got[k].tobytes())
+    if bad or got_empty != empty:
+        fail(f"{path} differs from its .npz: {bad[:5]}, empty {sorted(got_empty ^ empty)}")
+    return {"leaves": len(got), "bytes": dir_bytes(path), "read_s": seconds}
+
+
+def snapshot_state(loop) -> dict:
+    """A TrainLoop's parameters, EMA shadows, Adam moments and count, on the
+    host."""
+    st = loop.state
+    cpu = lambda d: {k: v.detach().float().cpu().clone() for k, v in d.items()}  # noqa: E731
+    return {"params": cpu(st.params), "ema": [cpu(e) for e in st.ema_params],
+            "mu": cpu(st.opt_state["mu"]), "nu": cpu(st.opt_state["nu"]),
+            "count": int(st.opt_state["count"])}
+
+
+def same_state(torch, a: dict, b: dict) -> bool:
+    same = lambda x, y: x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)  # noqa: E731
+    return (same(a["params"], b["params"]) and same(a["mu"], b["mu"])
+            and same(a["nu"], b["nu"]) and a["count"] == b["count"]
+            and len(a["ema"]) == len(b["ema"]) and all(map(same, a["ema"], b["ema"])))
+
+
+def phase_orbax(torch, tmp: str, comp: dict) -> dict:
+    """The main path from ``.orbax``: (a) the seeded production weights with
+    one EMA shadow written by the port as an Orbax directory with its
+    sidecar and read back bit for bit; (b) the committed fixtures written
+    by the JAX package through tensorstore, read without it, equal to their
+    ``.npz``; (c) ``cli.complete_dataset`` from (a)'s ``.orbax`` with
+    ``fuse_conv`` and dpm++ 10 over phase completion's two cases and
+    seeds: the same images as its run (b) from the ``.ckpt``, by sha256,
+    540 K4b per case (300 wgmma, 240 split-K), through the captured chain;
+    (d) ``cli.train`` with ``--fuse_gn_silu=True`` under
+    ``FAST_CWDM_CKPT_BACKEND=orbax``, 3 steps (every file an Orbax
+    directory), its step checkpoint written as a preemption writes it,
+    then one more step resumed from it: the opt blob it names, and the
+    state restored equal to the state written, bit for bit."""
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.cli import common, complete_dataset
+    from fast_cwdm_tpu_torch.data import nifti
+    from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
+    from fast_cwdm_tpu_torch.training import checkpoints
+    from fast_cwdm_tpu_torch.training.loop import TrainLoop
+
+    # (a)
+    cfg, sd = seeded_production(torch)
+    model, _ = common.build_model_and_diffusion(cfg)
+    params = jax_params_from_state_dict(sd, model)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    path = os.path.join(ckpt_dir, "brats_t1c_BEST_sampled_10.orbax")
+    sidecar = {k: v for k, v in cfg.items() if k not in ("fuse_gn_silu", "fuse_conv")}
+    sidecar.update(contr="t1c", fuse_conv=True)
+    t0 = time.perf_counter()
+    checkpoints.save_checkpoint(path, {"params": params, "ema_params": (params,), "step": 0},
+                                sidecar)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = checkpoints.load_with_ema_probe(path)
+    read_s = time.perf_counter() - t0
+    if not (os.path.isdir(path) and checkpoints.load_checkpoint_config(path) == sidecar
+            and same_tree(np, loaded["params"], params) and len(loaded["ema_params"]) == 1
+            and same_tree(np, loaded["ema_params"][0], params)):
+        fail("the production .orbax did not read back bit for bit")
+    common.load_params(path, model, use_ema=True)
+    if any(not torch.equal(model.state_dict()[k], v) for k, v in sd.items()):
+        fail("the production .orbax did not load into the model bit for bit")
+    del model, loaded, params
+    res = {"production": {"bytes": dir_bytes(path), "write_s": write_s, "read_s": read_s,
+                          "ckpt": comp["ckpt"]}}
+
+    # (b)
+    golden = os.path.join(REPO, "tests", "golden")
+    res["fixtures"] = {name: check_fixture(torch, np, os.path.join(golden, name), prefix)
+                       for name, prefix in (("orbax_tiny.orbax", "ckpt"),
+                                            ("opt_tiny.orbax", "opt"))}
+
+    # (c)
+    in_dir = os.path.join(tmp, "complete_in")
+    cases = {"00001": "t1c", "00002": "t1c", "00003": None}  # phase completion's
+    for k, (case, missing) in enumerate(cases.items()):
+        write_case(os.path.join(in_dir, case), seed=k)
+        if missing:
+            os.remove(os.path.join(in_dir, case, f"BraTS-GLI-{case}-000-{missing}.nii.gz"))
+    n_synth = sum(m is not None for m in cases.values())
+    want = dict(IDLE, haar_dwt3=3 * n_synth, haar_idwt3=n_synth,
+                conv3d_fused_k4b=540 * n_synth, conv3d_wgmma=300 * n_synth,
+                conv3d_splitk=240 * n_synth)
+    out_dir = os.path.join(tmp, "complete_out")
+    reset_counts()
+    got = complete_dataset.main([f"--input_dir={in_dir}", f"--checkpoint_dir={ckpt_dir}",
+                                 "--seed=0", "--sampler=dpm++", "--sampling_steps=10",
+                                 f"--output_dir={out_dir}"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if bad or got["failed"] or sorted(got["seconds"]) != sorted(c for c, m in cases.items() if m):
+        fail(f"complete_dataset from .orbax: launches (got, expected) {bad}, {got}")
+    sha = {case: image_sha256(np, nifti.load(os.path.join(out_dir, case, f"{case}-{m}.nii.gz")).dataobj)
+           for case, m in cases.items() if m}
+    if sha != comp["complete_b"]["sha256"]:
+        fail(f"complete_dataset from .orbax: images {sha} differ from the .ckpt run's "
+             f"{comp['complete_b']['sha256']}")
+    res["complete"] = {"s_per_case": got["seconds"], "launches": counts,
+                       "launches_per_case": {k: v // n_synth for k, v in counts.items()},
+                       "graph": check_graph_counts(volumes=n_synth), "sha256": sha,
+                       "outputs": {case: check_completed(np, in_dir, out_dir, case, m)
+                                   for case, m in cases.items()}}
+
+    # (d)
+    data = os.path.join(tmp, "data")
+    for k in range(2):
+        write_case(os.path.join(data, f"0000{k + 1}"), seed=10 + k)
+    os.environ["OPENAI_LOGDIR"] = log_dir = os.path.join(tmp, "log")
+    os.environ["OPENAI_LOG_FORMAT"] = "log,csv"
+    train_dir = os.path.join(tmp, "ckpt_train")
+    n = 3
+    per_step = {"haar_dwt3": 5, "haar_idwt3": 1, "affine_silu": 71 + REMAT_GN_SITES,
+                "affine_silu_bwd": 71, "conv3d_fused_k4b": 0}
+    states = {}
+
+    def preemption_save(loop):  # what SIGTERM makes the loop write
+        loop.save(n)
+        states["written"] = snapshot_state(loop)
+
+    orig = TrainLoop._apply_resume
+
+    def spy(self):
+        orig(self)
+        states["restored"] = snapshot_state(self)
+        states["resume_step"] = self.resume_step
+
+    os.environ["FAST_CWDM_CKPT_BACKEND"] = "orbax"
+    TrainLoop._apply_resume = spy
+    try:
+        first = run_train(torch, tmp, "orbax_train",
+                          train_flags(data, train_dir, n, fuse_gn_silu=True), n,
+                          on_done=preemption_save)
+        files = sorted(os.listdir(train_dir))
+        step_ckpt = os.path.join(train_dir, checkpoints.step_checkpoint_name(
+            "t1c", n, "sampled", 10))
+        opt_blob = checkpoints.opt_checkpoint_name("t1c", n, "sampled", 10)
+        resumed = run_train(torch, tmp, "orbax_resume",
+                            train_flags(data, train_dir, n + 1, fuse_gn_silu=True)
+                            + [f"--resume_checkpoint={step_ckpt}"], 1)
+    finally:
+        TrainLoop._apply_resume = orig
+        del os.environ["FAST_CWDM_CKPT_BACKEND"]
+    blobs = [f for f in files if not f.endswith((".json", ".txt"))]
+    expected = sorted(["brats_t1c_BEST_sampled_10.orbax", "opt_best_t1c.orbax",
+                       os.path.basename(step_ckpt), opt_blob])
+    if blobs != expected or not all(checkpoints.is_orbax_checkpoint(os.path.join(train_dir, f))
+                                    and os.path.isdir(os.path.join(train_dir, f)) for f in blobs):
+        fail(f"cli.train under FAST_CWDM_CKPT_BACKEND=orbax wrote {files}, expected {expected}")
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        log = f.read()
+    if f"restored the optimizer state from {os.path.join(train_dir, opt_blob)}" not in log:
+        fail(f"the resumed run does not name its .orbax opt blob {opt_blob}")
+    if states.get("resume_step") != n or not same_state(torch, states["written"],
+                                                        states["restored"]):
+        fail("the state restored from the .orbax step checkpoint differs from the state written")
+    for name, r in (("orbax_train", first), ("orbax_resume", resumed)):
+        bad = {k: (r["launches_per_step"][k], v) for k, v in per_step.items()
+               if r["launches_per_step"][k] != v}
+        if bad:
+            fail(f"{name}: launches per step (got, expected) {bad}")
+    del states
+    res["train"] = {"files": files, "opt_blob_resumed": opt_blob, "restored_bit_for_bit": True,
+                    "first": {k: first[k] for k in ("s_per_step_warm", "losses", "launches_per_step")},
+                    "resumed": {k: resumed[k] for k in ("s_per_step_all", "losses",
+                                                        "launches_per_step")}}
     return res
 
 
@@ -1174,10 +1409,11 @@ def train_flags(data_dir: str, ckpt_dir: str, steps: int, **extra) -> list:
     return [f"--{k}={v}" for k, v in flags.items()]
 
 
-def run_train(torch, tmp: str, name: str, argv: list, steps: int) -> dict:
+def run_train(torch, tmp: str, name: str, argv: list, steps: int, on_done=None) -> dict:
     """One ``cli.train`` run on the card: its launches per step, warm
     s/step, peak memory, losses, and how far the parameters moved from the
-    run's own init (the same seed builds the same init)."""
+    run's own init (the same seed builds the same init). ``on_done`` is
+    called with the finished loop, after the counts are read."""
     import contextlib
 
     from fast_cwdm_tpu_torch.cli import train
@@ -1197,6 +1433,8 @@ def run_train(torch, tmp: str, name: str, argv: list, steps: int) -> dict:
     if loop.preempted or loop.state.step != steps or len(losses) != steps \
             or not all(math.isfinite(v) for v in losses):
         fail(f"{name}: cli.train did not run {steps} finite steps: {loop.step_log}")
+    if on_done is not None:
+        on_done(loop)
     torch.manual_seed(0)
     init, _ = create_model_and_diffusion(**loop.config)
     with torch.no_grad():
@@ -1204,7 +1442,8 @@ def run_train(torch, tmp: str, name: str, argv: list, steps: int) -> dict:
                  for k, p in loop.state.params.items()}
     res = {
         "seconds": seconds, "steps": steps,
-        "s_per_step_warm": statistics.median(r["seconds_per_step"] for r in loop.step_log[1:]),
+        "s_per_step_warm": statistics.median(r["seconds_per_step"] for r in loop.step_log[1:])
+        if steps > 1 else None,
         "s_per_step_all": [r["seconds_per_step"] for r in loop.step_log],
         "max_memory_allocated_bytes": peak, "losses": losses,
         "params_changed": sum(v > 0 for v in moved.values()), "params_total": len(moved),
@@ -2587,6 +2826,10 @@ def main(argv=None) -> int:
     emit({"phase": "completion", "gpu": smi, "seconds": time.perf_counter() - t0, **comp})
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        orbax = phase_orbax(torch, tmp, comp)
+    emit({"phase": "orbax", "gpu": smi, "seconds": time.perf_counter() - t0, **orbax})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
         train = phase_training(torch, tmp, args.profile)
     emit({"phase": "training", "gpu": smi, "seconds": time.perf_counter() - t0, **train})
     kern["vjp_kernel"] = train["vjp_kernel"]
@@ -2636,6 +2879,10 @@ def main(argv=None) -> int:
                for run in ("complete_a", "complete_b", "sample_auto")},
             **{f"train_{run}_per_step": train[run]["launches_per_step"][name]
                for run in ("unfused", "fuse_gn_silu")},
+            # phase orbax: complete_dataset from the port's .orbax (fuse_conv
+            # dpm++) per case, cli.train under the orbax backend per step
+            "orbax_complete_per_case": orbax["complete"]["launches_per_case"][name],
+            "orbax_train_per_step": orbax["train"]["first"]["launches_per_step"][name],
             # phase evaluation: run.sh --mode train per step, run.sh --mode
             # complete per case as written (a) and with fuse_conv (b)
             "evaluation_train_per_step": evaluation["train"]["launches_per_step"][name],

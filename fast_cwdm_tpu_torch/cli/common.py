@@ -1,6 +1,7 @@
-"""Synthesis plumbing: config → model/diffusion, weights (``.ckpt`` of the
-JAX package or reference ``.pt``), BEST-checkpoint discovery, the wavelet
-condition, and the reverse chain + postprocess as one callable.
+"""Synthesis plumbing: config → model/diffusion, weights (``.ckpt`` or
+``.orbax`` of the JAX package, or reference ``.pt``), BEST-checkpoint
+discovery, the wavelet condition, and the reverse chain + postprocess as
+one callable.
 
 Port of ``fast_cwdm_tpu/cli/common.py`` (ddpm, ddim and dpm++ samplers).
 Public functions take and return the JAX package's channels-last
@@ -72,17 +73,18 @@ def str2bool(s) -> bool:
 
 
 def load_params(path: str, model: torch.nn.Module, *, use_ema: bool = False) -> torch.nn.Module:
-    """Load a JAX package ``.ckpt`` or reference-format torch ``.pt`` into
-    ``model`` (``strict=True``) and return it. ``use_ema`` that cannot be
-    honoured (no EMA shadows in the file) is reported, never silently
-    ignored."""
+    """Load a JAX package ``.ckpt`` or ``.orbax``, or a reference-format
+    torch ``.pt``, into ``model`` (``strict=True``) and return it.
+    ``use_ema`` that cannot be honoured (no EMA shadows in the file) is
+    reported, never silently ignored."""
     return load_params_ex(path, model, use_ema=use_ema)[0]
 
 
 def load_params_ex(path: str, model: torch.nn.Module, *, use_ema: bool = False):
     """Like :func:`load_params` but returns ``(model, ema_applied)``, so a
-    caller can tell raw weights from the first EMA shadow. A ``.ckpt`` may
-    carry any number of shadows; ``.orbax`` raises ``NotImplementedError``.
+    caller can tell raw weights from the first EMA shadow. A ``.ckpt`` or
+    ``.orbax`` may carry any number of shadows (for ``.orbax``, as many as
+    its metadata holds: the JAX package's ``restore_any``).
     Every parameter of the model is loaded, or the load raises: a missing
     or leftover key never loads partially."""
     if path.endswith(".pt"):

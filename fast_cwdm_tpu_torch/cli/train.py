@@ -8,7 +8,9 @@
 The flags and defaults are the JAX package's (``run.sh``'s TRAIN and
 COMMON bundles run unchanged), plus ``--device`` (default ``cuda``; without
 a GPU it raises unless ``--device cpu``). Checkpoints are the JAX package's
-``.ckpt`` files, so a run resumes in either package. The process exits 143
+``.ckpt`` files, or its ``.orbax`` directories under
+``FAST_CWDM_CKPT_BACKEND=orbax``, so a run resumes in either package. The
+process exits 143
 when SIGTERM preempted the run (a step-stamped checkpoint was written;
 resume with ``--resume_checkpoint``), 0 when it ran to its end.
 

@@ -11,12 +11,20 @@ writes ``opt_best_{contr}.ckpt`` beside each BEST and
 ``opt_{dataset}_{contr}_{step:06d}_{schedule}_{steps}.ckpt`` beside each
 step-stamped checkpoint: ``{"opt_state": optax's adamw tree}``.
 
-Deviations from the JAX package: the format describes itself, so loading
-takes no parameter template and any number of EMA shadows loads (JAX
-probes 0-3); the port writes ``.ckpt`` only and refuses ``.orbax``
-(discovery still finds ``.orbax`` directories, as JAX's does); a
-background write goes through an :class:`AsyncWriter` its caller owns (the
-JAX package keeps one per process).
+Under ``FAST_CWDM_CKPT_BACKEND=orbax`` (:func:`checkpoint_ext`) every one
+of these files is an Orbax checkpoint directory ``….orbax`` instead
+(``training/orbax_io.py``), with its sidecar at ``<path>.json`` beside the
+directory; a path ending in ``.orbax`` (or an Orbax directory) is read and
+written in that format whatever the variable says.
+
+Deviations from the JAX package: both formats describe themselves, so
+loading takes no parameter template and any number of EMA shadows loads
+(JAX probes 0-3), and an ``.orbax`` comes back in the ``.ckpt`` form
+(sequences as maps keyed "0", "1", …; ``EmptyState`` as ``{}``); the
+port's ``.orbax`` chunks are zstd frames of raw blocks, larger on disk than
+Orbax's compressed ones; a background write goes through an
+:class:`AsyncWriter` its caller owns (the JAX package keeps one per
+process).
 """
 
 from __future__ import annotations
@@ -32,13 +40,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from fast_cwdm_tpu_torch.training import serialization
+from fast_cwdm_tpu_torch.training import orbax_io, serialization
+from fast_cwdm_tpu_torch.training.orbax_io import is_orbax_checkpoint
 
-ORBAX_REFUSAL = (
-    "the port reads and writes the JAX package's default .ckpt backend only; "
-    "convert an .orbax checkpoint with the JAX package (FAST_CWDM_CKPT_BACKEND "
-    "unset writes .ckpt)"
-)
+
+def checkpoint_ext() -> str:
+    """The active format: ``.orbax`` under ``FAST_CWDM_CKPT_BACKEND=orbax``,
+    else ``.ckpt`` (the JAX package's rule)."""
+    return ".orbax" if os.environ.get("FAST_CWDM_CKPT_BACKEND") == "orbax" else ".ckpt"
 
 
 # ---------------------------------------------------------------------------
@@ -69,13 +78,6 @@ def save_best_losses(ckpt_dir: str, best: dict[str, float]) -> None:
 # ---------------------------------------------------------------------------
 # Save / load
 # ---------------------------------------------------------------------------
-
-
-def is_orbax_checkpoint(path: str) -> bool:
-    """``.orbax`` by name, or an Orbax checkpoint directory."""
-    return path.endswith(".orbax") or (os.path.isdir(path) and (
-        os.path.exists(os.path.join(path, "_CHECKPOINT_METADATA"))
-        or os.path.exists(os.path.join(path, "_METADATA"))))
 
 
 def _to_host(tree, copy: bool = False):
@@ -129,10 +131,13 @@ class AsyncWriter:
 
 def _write_blob(path: str, host_payload, config: dict[str, Any] | None) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.writelines(serialization.serialize_parts(host_payload))
-    os.replace(tmp, path)
+    if is_orbax_checkpoint(path):
+        orbax_io.save(path, host_payload)
+    else:
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.writelines(serialization.serialize_parts(host_payload))
+        os.replace(tmp, path)
     if config is not None:
         with open(path + ".json", "w") as f:
             json.dump(config, f, indent=2, default=str)
@@ -144,11 +149,10 @@ def save_checkpoint(path: str, payload: dict[str, Any],
     """msgpack-serialize a tree of dicts, lists, tuples, scalars, numpy
     arrays and torch tensors (+ the config sidecar), with the bytes the
     JAX package's ``save_checkpoint`` writes for the same tree (written to
-    ``<path>.tmp``, then renamed). Synchronous, unless ``writer`` is given:
-    then the host copy is made here and the write runs on the writer's
-    thread (after the write before it)."""
-    if is_orbax_checkpoint(path):
-        raise NotImplementedError(f"{path}: {ORBAX_REFUSAL}")
+    ``<path>.tmp``, then renamed); an ``.orbax`` path is written as an
+    Orbax directory (:func:`orbax_io.save`). Synchronous, unless ``writer``
+    is given: then the host copy is made here and the write runs on the
+    writer's thread (after the write before it)."""
     if writer is not None:
         writer.submit(_write_blob, path, _to_host(payload, copy=True), config)
     else:
@@ -157,9 +161,10 @@ def save_checkpoint(path: str, payload: dict[str, Any],
 
 def load_checkpoint(path: str) -> dict[str, Any]:
     """The stored tree: dicts with string keys (a stored tuple comes back
-    keyed ``"0"``, ``"1"``, …), numpy arrays, scalars."""
+    keyed ``"0"``, ``"1"``, …), numpy arrays, scalars; the same for an
+    ``.ckpt`` file and an ``.orbax`` directory of the same payload."""
     if is_orbax_checkpoint(path):
-        raise NotImplementedError(f"{path}: {ORBAX_REFUSAL}")
+        return orbax_io.load(path)
     with open(path, "rb") as f:
         blob = f.read()
     return serialization.msgpack_restore(blob)
@@ -167,12 +172,13 @@ def load_checkpoint(path: str) -> dict[str, Any]:
 
 def load_with_ema_probe(path: str) -> dict[str, Any]:
     """Load a ``{params, ema_params, step}`` checkpoint with any number of
-    EMA shadows: ``ema_params`` comes back as a tuple. A missing file
-    raises as itself; a truncated, corrupt or differently laid out one
-    raises ``ValueError`` ("could not deserialize … incompatible checkpoint
-    layout"), as the JAX package's probe does."""
+    EMA shadows: ``ema_params`` comes back as a tuple. A missing file or
+    ``.orbax`` directory raises as itself (``FileNotFoundError``); a
+    truncated, corrupt or differently laid out one raises ``ValueError``
+    ("could not deserialize … incompatible checkpoint layout"), as the JAX
+    package's probe does."""
     try:
-        state = load_checkpoint(path)  # OSError and the .orbax refusal pass through
+        state = load_checkpoint(path)  # OSError passes through
         ema = state["ema_params"]
         if not (isinstance(state["params"], dict) and isinstance(ema, dict)
                 and list(ema) == [str(i) for i in range(len(ema))]
@@ -201,12 +207,14 @@ def load_checkpoint_config(path: str) -> dict[str, Any] | None:
 
 def best_checkpoint_name(contr: str, sample_schedule: str, diffusion_steps: int,
                          dataset: str = "brats", ext: str | None = None) -> str:
-    return f"{dataset}_{contr}_BEST_{sample_schedule}_{diffusion_steps}{ext or '.ckpt'}"
+    ext = checkpoint_ext() if ext is None else ext
+    return f"{dataset}_{contr}_BEST_{sample_schedule}_{diffusion_steps}{ext}"
 
 
 def step_checkpoint_name(contr: str, step: int, sample_schedule: str, diffusion_steps: int,
                          dataset: str = "brats", ext: str | None = None) -> str:
-    return f"{dataset}_{contr}_{step:06d}_{sample_schedule}_{diffusion_steps}{ext or '.ckpt'}"
+    ext = checkpoint_ext() if ext is None else ext
+    return f"{dataset}_{contr}_{step:06d}_{sample_schedule}_{diffusion_steps}{ext}"
 
 
 def opt_checkpoint_name(contr: str, step: int, sample_schedule: str, diffusion_steps: int,
@@ -214,8 +222,8 @@ def opt_checkpoint_name(contr: str, step: int, sample_schedule: str, diffusion_s
     """The optimizer blob paired with a step-stamped checkpoint, qualified
     by dataset, modality, schedule and steps as the JAX package names it
     (runs share one checkpoint_dir)."""
-    return (f"opt_{dataset}_{contr}_{step:06d}_{sample_schedule}_{diffusion_steps}"
-            f"{'.ckpt' if ext is None else ext}")
+    ext = checkpoint_ext() if ext is None else ext
+    return f"opt_{dataset}_{contr}_{step:06d}_{sample_schedule}_{diffusion_steps}{ext}"
 
 
 def _remove(path: str) -> bool:
@@ -253,7 +261,8 @@ def save_if_best(ckpt_dir: str, contr: str, loss: float, payload: dict[str, Any]
                  writer: AsyncWriter | None = None) -> bool:
     """Keep one best checkpoint per modality: when ``loss`` is finite and
     below the ledger's (or the ledger has none, or a non-finite one), write
-    ``opt_best_{contr}.ckpt`` and the BEST checkpoint with its sidecar,
+    ``opt_best_{contr}`` (removing its sibling in the other format) and the
+    BEST checkpoint with its sidecar, both in the active format,
     then delete the previous BEST and record the loss, in that order, so a
     failed write loses neither the old best nor the ledger. With
     ``writer`` the tensors are copied to the host here and the rest runs
@@ -276,10 +285,15 @@ def save_if_best(ckpt_dir: str, contr: str, loss: float, payload: dict[str, Any]
     host_payload = _to_host(payload, copy)
     host_opt = _to_host(opt_payload, copy) if opt_payload is not None else None
 
+    ext = checkpoint_ext()
+    other = ".ckpt" if ext == ".orbax" else ".orbax"
+
     def job():
         if host_opt is not None:
-            _write_blob(os.path.join(ckpt_dir, f"opt_best_{contr}.ckpt"), host_opt, None)
-            _remove(os.path.join(ckpt_dir, f"opt_best_{contr}.orbax"))  # a stale sibling format
+            _write_blob(os.path.join(ckpt_dir, f"opt_best_{contr}{ext}"), host_opt, None)
+            # a sibling from before a backend switch would pair new params
+            # with stale Adam moments on resume
+            _remove(os.path.join(ckpt_dir, f"opt_best_{contr}{other}"))
         _write_blob(new_main, host_payload, config)
         for old in old_files:
             _remove(old)

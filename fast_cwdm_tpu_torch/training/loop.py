@@ -260,6 +260,7 @@ class TrainLoop:
                     "come from the last BEST save, not from the resumed step")
             tree = ckpt.load_checkpoint(opt_path)["opt_state"]
             self.state.opt_state = self.opt.state_from_tree(tree, self.model, self.device)
+            logger.log(f"restored the optimizer state from {opt_path}")
         else:
             logger.log(f"WARNING: no optimizer state found next to {path}; resuming with a "
                        "FRESH optimizer (Adam moments reset)")

@@ -186,7 +186,7 @@ def test_codec_covers_every_msgpack_form():
 def test_bad_files_raise_as_in_jax(tmp_path):
     """A truncated or corrupt file, or one of another layout, gives the
     ValueError JAX gives; a missing file raises FileNotFoundError; the
-    port refuses .orbax by naming the .ckpt backend."""
+    same holds for an .orbax directory, whose round trip loads."""
     params = _tree()
     good = str(tmp_path / "good.ckpt")
     jckpt.save_checkpoint(good, {"params": params, "ema_params": (params,), "step": 1})
@@ -203,8 +203,18 @@ def test_bad_files_raise_as_in_jax(tmp_path):
     for load in (ckpt.load_with_ema_probe, lambda p: jckpt.load_with_ema_probe(p, params)):
         with pytest.raises(FileNotFoundError):
             load(str(tmp_path / "missing.ckpt"))
-    with pytest.raises(NotImplementedError, match=r"\.ckpt backend"):
-        ckpt.save_checkpoint(str(tmp_path / "x.orbax"), {"params": params})
+    orbax = str(tmp_path / "good.orbax")
+    ckpt.save_checkpoint(orbax, {"params": params, "ema_params": (params,), "step": 1})
+    _assert_same_tree(ckpt.load_with_ema_probe(orbax),
+                      ckpt.load_with_ema_probe(good))
+    with pytest.raises(FileNotFoundError):
+        ckpt.load_with_ema_probe(str(tmp_path / "missing.orbax"))
+    (data_file,) = (tmp_path / "good.orbax" / "d").iterdir()
+    raw = bytearray(data_file.read_bytes())
+    raw[-10] ^= 0xFF  # inside the B+tree node, after the values
+    data_file.write_bytes(bytes(raw))
+    with pytest.raises(ValueError, match="could not deserialize .* incompatible checkpoint layout"):
+        ckpt.load_with_ema_probe(orbax)
 
 
 def test_discovery_matches_jax(tmp_path):
@@ -352,7 +362,8 @@ def test_load_best_synthesis_matches_jax(tmp_path, monkeypatch, sampler, use_ema
 def test_load_params_refuses_what_the_port_lacks(tmp_path, capsys):
     """A .ckpt with parameters the port does not implement raises instead
     of loading partially; use_ema on a file without shadows warns and
-    loads the raw parameters; .orbax is refused."""
+    loads the raw parameters; an .orbax of the same parameters loads them
+    alike, and a missing one raises FileNotFoundError."""
     cfg = common.production_config(**TINY)
     model, sd, jmodel = _seeded(cfg)
     params = bridge.torch_to_flax(sd, jmodel)
@@ -366,5 +377,11 @@ def test_load_params_refuses_what_the_port_lacks(tmp_path, capsys):
     _, applied = common.load_params_ex(path, fresh, use_ema=True)
     assert not applied and "no EMA shadows" in capsys.readouterr().out
     assert all(torch.equal(fresh.state_dict()[k], torch.from_numpy(sd[k])) for k in sd)
-    with pytest.raises(NotImplementedError, match=r"\.ckpt backend"):
-        common.load_params(str(tmp_path / "b.orbax"), fresh)
+    orbax = str(tmp_path / "b.orbax")
+    ckpt.save_checkpoint(orbax, {"params": params, "ema_params": (), "step": 0})
+    other, _ = common.build_model_and_diffusion(cfg)
+    _, applied = common.load_params_ex(orbax, other, use_ema=True)
+    assert not applied and "no EMA shadows" in capsys.readouterr().out
+    assert all(torch.equal(other.state_dict()[k], torch.from_numpy(sd[k])) for k in sd)
+    with pytest.raises(FileNotFoundError):
+        common.load_params(str(tmp_path / "missing.orbax"), fresh)

@@ -16,6 +16,8 @@ from fast_cwdm_tpu.cli import common as jcommon
 from fast_cwdm_tpu.training.bridge import torch_to_flax
 from fast_cwdm_tpu_torch.cli import common, sample
 from fast_cwdm_tpu_torch.data.nifti import Nifti1Image, load, save
+from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
+from fast_cwdm_tpu_torch.training import checkpoints as ckpt
 from fast_cwdm_tpu_torch.utils.testing import seeded_state_dict
 
 torch.set_num_threads(2)
@@ -179,13 +181,28 @@ def test_port_imports_no_jax():
     for f in files:
         for mod in _imports(f):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "msgpack", "fast_cwdm_tpu"), (f, mod)
+            assert root not in ("jax", "jaxlib", "flax", "msgpack", "fast_cwdm_tpu", "orbax",
+                                "tensorstore", "zstandard"), (f, mod)
 
 
 def test_unported_samplers_and_formats_raise(tmp_path):
-    """.ckpt loads since the port reads the JAX package's checkpoints; the
-    .orbax backend is refused by naming the default .ckpt one."""
+    """Both backends of the JAX package load (.ckpt and .orbax, the same
+    weights from either); a missing .orbax raises FileNotFoundError and a
+    corrupt one the ValueError of JAX's layout probe."""
     cfg = common.production_config(**TINY)
     model, diffusion = common.build_model_and_diffusion(cfg)
-    with pytest.raises(NotImplementedError, match=r"\.ckpt backend"):
+    params = jax_params_from_state_dict(model.state_dict(), model)
+    for ext in (".ckpt", ".orbax"):
+        ckpt.save_checkpoint(str(tmp_path / f"x{ext}"), {"params": params, "ema_params": (),
+                                                         "step": 0})
+    a, _ = common.build_model_and_diffusion(cfg)
+    b, _ = common.build_model_and_diffusion(cfg)
+    common.load_params(str(tmp_path / "x.ckpt"), a)
+    common.load_params(str(tmp_path / "x.orbax"), b)
+    assert all(torch.equal(a.state_dict()[k], b.state_dict()[k]) for k in a.state_dict())
+    assert all(torch.equal(a.state_dict()[k], v) for k, v in model.state_dict().items())
+    with pytest.raises(FileNotFoundError):
+        common.load_params(str(tmp_path / "missing.orbax"), model)
+    (tmp_path / "x.orbax" / "_METADATA").write_text("{not json")
+    with pytest.raises(ValueError, match="incompatible checkpoint layout"):
         common.load_params(str(tmp_path / "x.orbax"), model)
