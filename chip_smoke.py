@@ -121,16 +121,34 @@ Phases, each printing one JSON object per line:
               loop bit for bit; then the same methods at a tiny fp32 size,
               card against CPU on the same draws (≤ 1e-4, TF32 off);
 13. distributed — the data axis through ``torch.distributed.run``:
-              (a) ``cli.train`` as one NCCL rank (bf16, fuse_gn_silu, 3
+              (a) ``cli.train`` as one NCCL rank (bf16, fuse_gn_silu, 2
               steps); (b) two gloo ranks sharing the card (fp32, TF32 off,
-              cuDNN deterministic, global batch 2) against one process
-              accumulating the same rows (bit for bit) and one process at
-              batch 2 (losses within 2e-5; Adam's moments and parameters
-              reported); (c) ``make_synthesis_fn(mesh=)`` over two ranks,
+              cuDNN deterministic, global batch 2, 2 steps) against one
+              process accumulating the same rows (bit for bit) and one
+              process at batch 2 (losses within 2e-5; Adam's moments and
+              parameters reported); (c) ``make_synthesis_fn(mesh=)`` over
+              two ranks,
               each row bit for bit its batch-1 synthesis, the difference
               from a batch-2 synthesis reported; per run and rank the
               launches, s/step, the all-reduce's ms and bytes, peak memory
-              and which rank wrote files.
+              and which rank wrote files;
+14. spatial — the sp axis: two gloo ranks as one sp group on the card,
+              each with its Y slab: (a) the fp32 production forward (TF32
+              off) against one process (1e-4 of the output's scale); (b)
+              the bf16 fuse_conv forward (within twice bf16's own error),
+              the K4b launches by route a rank, and every fused-conv shape
+              the halo-extended slabs reach on its routed kernel against
+              the plain version; (c) make_synthesis_fn's fuse_conv dpm++ 10,
+              eager (K1 3, K2 1, K4b 540 a rank; the image finite, in
+              [0,1], zero outside the mask; its difference from the
+              unsharded synthesis reported), s/volume, halo and reduction
+              bytes and ms a forward; (d) ``cli.train --spatial_mesh 2
+              --fuse_gn_silu True``, 3 steps (K1 5, K2 1, K3 83, VJP 71 a
+              step a rank; s/step, memory, halo and all-reduce bytes and
+              ms), and one fp32 step against one process (losses within
+              1e-6, Adam's first moment within 1e-3 of its scale; the
+              parameters reported); K1, K2, K3 and the K3 VJP on the sp
+              slabs' shapes against their plain versions.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits nonzero before
@@ -812,7 +830,7 @@ SYNTH_WANT = {"unfused": {"affine_silu": 0, "conv3d_fused_k4b": 0},
 def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
     """``make_synthesis_fn`` on the case, four variants, each eager
     (``cuda_graph=False``) and graphed: one warm-up call each (the graph's
-    capture), then three timed calls each in turns, on one generator seed;
+    capture), then two timed calls each in turns, on one generator seed;
     host clock from the condition DWTs to the image on the host. The graph
     path's image against the eager one (expected bit for bit), its launches
     per volume, its capture seconds and pool memory. Then one ``devtime``
@@ -836,7 +854,7 @@ def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
                 m, diff, sampler=sampler, sampler_steps=10, device="cuda",
                 cuda_graph=path == "graph")
     names = list(runs)
-    order = names + names + names[::-1] + names
+    order = names + names + names[::-1]
     times, imgs, launches = {name: [] for name in names}, {}, {}
     for k, name in enumerate(order):
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2571,15 +2589,15 @@ def compare_runs(np, a: dict, b: dict, steps: int, lr: float) -> dict:
 
 def dist_two_ranks_vs_one(torch, tmp: str, data: str, env: dict) -> dict:
     """Phase distributed (b): ``cli.train`` as two gloo ranks sharing the
-    card, global batch 2, 3 steps with ``--fuse_gn_silu``, fp32 with TF32
-    off and cuDNN's deterministic algorithms, from the same seeded
-    production weights (``--resume_checkpoint``, so that every layer has a
-    gradient from the first step), against one process on the same global
-    batch 2: (i) with ``--microbatch=1``, which runs each case at batch 1 as
-    a rank does and sums the two gradients once, as the all-reduce does:
-    losses, parameters and Adam's moments the same bits; (ii) at batch 2 in
-    one pass, whose convolutions reduce in another order: losses within
-    2e-5, and Adam's first moment and the parameters reported
+    card, global batch 2, ``DIST_STEPS`` steps with ``--fuse_gn_silu``, fp32
+    with TF32 off and cuDNN's deterministic algorithms, from the same
+    seeded production weights (``--resume_checkpoint``, so that every layer
+    has a gradient from the first step), against one process on the same
+    global batch 2: (i) with ``--microbatch=1``, which runs each case at
+    batch 1 as a rank does and sums the two gradients once, as the
+    all-reduce does: losses, parameters and Adam's moments the same bits;
+    (ii) at batch 2 in one pass, whose convolutions reduce in another order:
+    losses within 2e-5, and Adam's first moment and the parameters reported
     (``compare_runs``; PERF.md §6)."""
     import numpy as np
 
@@ -2626,7 +2644,8 @@ def dist_two_ranks_vs_one(torch, tmp: str, data: str, env: dict) -> dict:
     return out
 
 
-DIST_STEPS = 3  # optimizer steps of each training run of phase distributed
+DIST_STEPS = 2  # optimizer steps of each training run of phase distributed
+SPATIAL_STEPS = 3  # optimizer steps of phase spatial's bf16 training run
 # K1, K2, K3 and its VJP a step of a rank with one case (use_checkpoint)
 DIST_LAUNCHES_PER_STEP = {"haar_dwt3": 5, "haar_idwt3": 1, "affine_silu": 71 + REMAT_GN_SITES,
                           "affine_silu_bwd": 71}
@@ -2720,8 +2739,8 @@ def dist_sharded_synthesis(torch, tmp: str, env: dict) -> dict:
 def phase_distributed(torch, tmp: str) -> dict:
     """The data axis on the card (ROADMAP M8), through torchrun: (a)
     ``cli.train`` as one rank on NCCL, the production config in bf16 with
-    ``--fuse_gn_silu``, 3 steps; (b) two ranks sharing the one card (gloo:
-    NCCL takes one rank per GPU), global batch 2, 3 steps with
+    ``--fuse_gn_silu``, ``DIST_STEPS`` steps; (b) two ranks sharing the
+    one card (gloo: NCCL takes one rank per GPU), global batch 2, with
     ``--fuse_gn_silu``, against one process on the same global batch 2
     (:func:`dist_two_ranks_vs_one`); (c) ``make_synthesis_fn(mesh=)``
     (bf16, fuse_conv, dpm++ 10) over two ranks against each row
@@ -2733,6 +2752,345 @@ def phase_distributed(torch, tmp: str) -> dict:
     return {"a_nccl_world_1": dist_one_nccl_rank(tmp, data, env),
             "b_gloo_world_2": dist_two_ranks_vs_one(torch, tmp, data, env),
             "c_synthesis_gloo_world_2": dist_sharded_synthesis(torch, tmp, env)}
+
+
+SP = 2  # ranks of phase spatial's sp group (gloo, sharing the card)
+BF16_FACTOR = 2.0  # tests/test_torch_unet.py: two bf16 runs, against bf16's own error
+
+
+def spatial_input(torch):
+    """Phase spatial's forward input, (1, 32, 112, 112, 80) NCDHW in
+    channels_last_3d memory, and t."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn((1, *LATENT, 32), generator=g, device="cuda").permute(0, 4, 1, 2, 3)
+    return x, torch.tensor([5], device="cuda")
+
+
+def spatial_model(torch, **overrides):
+    """The seeded production UNet on the card (bf16 unless ``dtype``)."""
+    from fast_cwdm_tpu_torch.cli import common
+
+    cfg, sd = seeded_production(torch, **overrides)
+    model, diffusion = common.build_model_and_diffusion(cfg)
+    model.load_state_dict(sd)
+    return model.cuda().eval(), diffusion
+
+
+def spatial_volumes(torch):
+    """One seeded 224×224×160 case (four modalities, background in t1n)."""
+    g = torch.Generator(device="cuda").manual_seed(32)
+    vols = {m: torch.rand((1, *VOLUME, 1), generator=g, device="cuda")
+            for m in ("t1n", "t1c", "t2w", "t2f")}
+    vols["t1n"][:, :16] = 0.0
+    vols["t1n"][:, :, -24:] = 0.0  # background across the sp boundary's far side
+    return vols
+
+
+def rank_spatial(torch, out_dir: str) -> None:
+    """One rank of phase spatial (a)-(c) under torchrun: its Y slab of the
+    fp32 forward (TF32 off), of the bf16 fuse_conv forward (with the fused
+    convs' shapes and routes and the launches), and the whole image of a
+    sharded fuse_conv dpm++ 10 synthesis, called twice (s/volume, launches,
+    halo and reduction bytes and ms of the second call)."""
+    import collections
+
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.cli import common
+    from fast_cwdm_tpu_torch.models import unet
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
+    from fast_cwdm_tpu_torch.parallel import mesh as pm
+
+    pm.setup_distributed("cuda")
+    mesh = pm.make_mesh(sp=SP)
+    axis, r = mesh.sp_axis, mesh.process_rank
+    y0, y1 = pm.y_slab(mesh, LATENT[1])
+    x, t = spatial_input(torch)
+    xs = x[:, :, :, y0:y1].contiguous(memory_format=torch.channels_last_3d)
+    rec = {"slab": [y0, y1]}
+    model, _ = spatial_model(torch, dtype="float32")
+    with torch.inference_mode(), no_tf32(torch), pm.sp_active(axis):
+        np.save(os.path.join(out_dir, f"a_rank{r}.npy"), model(xs, t).cpu().numpy())
+    del model
+    model, diffusion = spatial_model(torch, fuse_conv=True)
+    shapes = collections.Counter()
+    fused = unet.conv3d_fused
+
+    def recording(xx, w, b, **kw):  # the shapes the slabs give K4b
+        bsz, ci, *sp = xx.shape
+        shapes[json.dumps([bsz, ci, sp, w.shape[-1],
+                           tc.route(xx.dtype, bsz, ci, w.shape[-1], *sp)])] += 1
+        return fused(xx, w, b, **kw)
+
+    unet.conv3d_fused = recording
+    with torch.inference_mode(), pm.sp_active(axis):
+        model(xs, t)  # warm
+        torch.cuda.synchronize()
+        shapes.clear()
+        axis.log.drain(None)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = model(xs, t)
+        torch.cuda.synchronize()
+        rec["b"] = {"ms": (time.perf_counter() - t0) * 1e3, "launches": read_counts(),
+                    "comm": axis.log.drain_by_kind(),
+                    "shapes": [json.loads(k) + [n] for k, n in sorted(shapes.items())]}
+    unet.conv3d_fused = fused
+    np.save(os.path.join(out_dir, f"b_rank{r}.npy"), out.float().cpu().numpy())
+    run = common.make_synthesis_fn(model, diffusion, sampler="dpm++", sampler_steps=10,
+                                   device="cuda", mesh=mesh)
+    vols = spatial_volumes(torch)
+    seconds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        axis.log.drain(None)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cond = common.prepare_condition(vols, "t1c", device="cuda", mesh=mesh)
+        img = run(cond, vols["t1n"], torch.Generator(device="cuda").manual_seed(9))
+        seconds.append(time.perf_counter() - t0)
+    rec["c"] = {"s_per_volume": seconds, "launches": read_counts(),
+                "comm": axis.log.drain_by_kind(), "chain": run.chain is None}
+    np.save(os.path.join(out_dir, f"c_rank{r}.npy"), img)
+    rank_record(torch, out_dir, rec)
+    torch.distributed.destroy_process_group()
+
+
+def spatial_routes(torch, shapes: list) -> list:
+    """Each distinct fused-conv shape the slabs reached (halo-extended Y),
+    on the kernel ``route`` picks, against ``conv3d_fused_plain``."""
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
+
+    out, seen = [], set()
+    g = torch.Generator(device="cuda").manual_seed(33)
+    for bsz, ci, sp, co, kernel, _ in shapes:
+        key = (bsz, ci, tuple(sp), co)
+        if key in seen:
+            continue
+        seen.add(key)
+        x, w, b, gn = conv_inputs(torch, g, bsz, ci, tuple(sp), co, torch.bfloat16)
+        with torch.inference_mode():
+            got = tc.conv3d_fused(x, w, b, gn=gn, block_x=2)
+            ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
+        ratio = tc.tol_ratio(got, ref, x, w, gn)
+        out.append({"shape": [bsz, ci, *sp], "co": co, "kernel": kernel, "tol_ratio": ratio,
+                    "max_abs_err": float((got.float() - ref.float()).abs().max())})
+        if not ratio <= 1.0:
+            fail(f"spatial: the {kernel} kernel at {key} disagrees with its plain version "
+                 f"({ratio} of {CONV_TOL})")
+    return out
+
+
+def spatial_forward_and_synthesis(torch, tmp: str) -> dict:
+    """Phase spatial (a)-(c): two gloo ranks (:func:`rank_spatial`) against
+    one process on the same input, weights and draws."""
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.cli import common
+
+    d = os.path.join(tmp, "spatial_gloo_2")
+    recs = torchrun(tmp, "spatial_gloo_2", SP, ["--rank-spatial", d],
+                    {"FAST_CWDM_DIST_BACKEND": "gloo"}, timeout=600)
+    x, t = spatial_input(torch)
+    model, _ = spatial_model(torch, dtype="float32")
+    with torch.inference_mode(), no_tf32(torch):
+        y32 = model(x, t).cpu().numpy()
+    del model
+    model, diffusion = spatial_model(torch, fuse_conv=True)
+    reset_counts()
+    with torch.inference_mode():
+        y16 = model(x, t).float().cpu().numpy()
+    whole_counts = read_counts()
+    slabs = {k: np.concatenate([np.load(os.path.join(d, f"{k}_rank{r}.npy"))
+                                for r in range(SP)], axis=3) for k in ("a", "b")}
+    scale = float(np.abs(y32).max())
+    a_err = float(np.abs(slabs["a"] - y32).max())
+    bound = BF16_FACTOR * float(np.abs(y16 - y32).max())
+    b_err = float(np.abs(slabs["b"] - y16).max())
+    res = {"a_fp32_forward": {"max_abs_diff": a_err, "max_abs_output": scale,
+                              "tol": 1e-4 * scale},
+           "b_bf16_fuse_conv_forward": {
+               "max_abs_diff": b_err, "tol": bound, "bf16_vs_fp32": bound / BF16_FACTOR,
+               "unsharded_launches": {k: v for k, v in whole_counts.items() if v},
+               "ranks": [{"rank": r["rank"], "ms": r["b"]["ms"], "shapes": r["b"]["shapes"],
+                          "launches": {k: v for k, v in r["b"]["launches"].items() if v},
+                          "comm": r["b"]["comm"]} for r in recs]}}
+    if not a_err <= 1e-4 * scale:
+        fail(f"spatial (a): the sharded fp32 forward differs by {a_err} (scale {scale})")
+    if not b_err <= bound:
+        fail(f"spatial (b): the sharded bf16 forward differs by {b_err} > {bound}")
+    for r in recs:
+        got = r["b"]["launches"]
+        if got["conv3d_fused_k4b"] != 54 or got["conv3d_wgmma"] + got["conv3d_splitk"] \
+                + got["conv3d_mma_sync"] != 54:
+            fail(f"spatial (b): rank {r['rank']} K4b launches {got}")
+    res["b_bf16_fuse_conv_forward"]["routes"] = spatial_routes(
+        torch, [s for r in recs for s in r["b"]["shapes"]])
+    # (c): the unsharded synthesis on the same draws, eager
+    run = common.make_synthesis_fn(model, diffusion, sampler="dpm++", sampler_steps=10,
+                                   device="cuda", cuda_graph=False)
+    vols = spatial_volumes(torch)
+    t0 = time.perf_counter()
+    whole = run(common.prepare_condition(vols, "t1c", device="cuda"), vols["t1n"],
+                torch.Generator(device="cuda").manual_seed(9))
+    whole_s = time.perf_counter() - t0
+    imgs = [np.load(os.path.join(d, f"c_rank{r}.npy")) for r in range(SP)]
+    mask = vols["t1n"][..., 0].cpu().numpy()[:, :, :, :imgs[0].shape[3]]
+    img = imgs[0]
+    if not (all(np.array_equal(img, o) for o in imgs[1:]) and img.shape == whole.shape
+            and np.isfinite(img).all() and img.min() >= 0.0 and img.max() <= 1.0
+            and not np.any(img[mask == 0])):
+        fail("spatial (c): the sharded synthesis is not the same finite [0,1] image on every "
+             "rank, zero outside the mask")
+    diff = np.abs(img - whole)
+    res["c_synthesis_fuse_conv_dpm10"] = {
+        "max_abs_diff_vs_unsharded": float(diff.max()),
+        "mean_abs_diff_vs_unsharded": float(diff.mean()), "unsharded_eager_s": whole_s,
+        "ranks": [{"rank": r["rank"], "s_per_volume": r["c"]["s_per_volume"],
+                   "eager": r["c"]["chain"],
+                   "launches": {k: v for k, v in r["c"]["launches"].items() if v},
+                   "comm_per_forward": {k: [b / 10, ms / 10, n / 10]
+                                        for k, (b, ms, n) in r["c"]["comm"].items()},
+                   "max_memory_allocated_bytes": r["max_memory_allocated_bytes"]}
+                  for r in recs]}
+    for r in recs:
+        got = r["c"]["launches"]
+        if (got["haar_dwt3"], got["haar_idwt3"], got["conv3d_fused_k4b"]) != (3, 1, 540):
+            fail(f"spatial (c): rank {r['rank']} launches {got}")
+    return res
+
+
+def spatial_slab_kernels(torch) -> dict:
+    """K1, K2, K3 and the K3 VJP on the shapes the sp path gives them at
+    ``SP`` ranks, each against its plain version with the tolerance of its
+    unsharded check: K1 on a rank's (224, 224/SP, 160) slab of a volume, K2
+    on its (112, 112/SP, 80, 8) slab of the latent, K3 (bf16
+    channels_last_3d, as ``fuse_gn_silu`` runs it) and its VJP (bf16 and
+    fp32) at every GN+SiLU site of a sharded level, Y halved (levels 0-3;
+    level 4 runs whole, at the shapes phases kernels and training check).
+    Each slab is the rank's part of one seeded tensor, made contiguous as
+    the path makes it."""
+    from fast_cwdm_tpu_torch.ops import elementwise_cuda as ec
+    from fast_cwdm_tpu_torch.ops import wavelet_cuda as wc
+
+    g = torch.Generator(device="cuda").manual_seed(34)
+    out = {}
+    vol = torch.rand((1, *VOLUME), generator=g, device="cuda")
+    lat = torch.randn((1, *LATENT, 8), generator=g, device="cuda")
+    for name, whole, axis, fn, plain in (
+            ("haar_dwt3", vol, 2, wc.haar_dwt3, wc.haar_dwt3_plain),
+            ("haar_idwt3", lat, 2, wc.haar_idwt3, wc.haar_idwt3_plain)):
+        errs = []
+        for r in range(SP):
+            n = whole.shape[axis] // SP
+            x = whole.narrow(axis, r * n, n).contiguous()
+            errs.append({"rank": r, "shape": list(x.shape),
+                         "max_abs_err": float((fn(x) - plain(x)).abs().max())})
+        out[name] = {"tol": 1e-5, "slabs": errs}
+        if not all(e["max_abs_err"] <= 1e-5 for e in errs):
+            fail(f"spatial: {name} on sp slabs disagrees with its plain version: {errs}")
+    k3, vjp = [], []
+    for c, (sx, sy, sz) in GN_SITES:
+        if sy % 2:
+            continue
+        sp = (sx, sy // SP, sz)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((1, *sp, c), generator=g, device="cuda").to(dtype).permute(0, 4, 1, 2, 3)
+            gr = torch.randn((1, *sp, c), generator=g, device="cuda").to(dtype).permute(0, 4, 1, 2, 3)
+            if dtype == torch.float32:  # as phase_vjp_kernel: fp32 contiguous
+                x, gr = x.contiguous(), gr.contiguous()
+            a = torch.randn((1, c), generator=g, device="cuda")
+            b = torch.randn((1, c), generator=g, device="cuda")
+            got, ref = ec.affine_silu_bwd(x, gr, a, b), ec.affine_silu_bwd_plain(x, gr, a, b)
+            vjp.append(dict(c=c, spatial=list(sp), dtype=str(dtype).split(".")[-1],
+                            tol_ratio=vjp_ratio(torch, ec, got, ref, x, gr, a, b)))
+            if dtype == torch.bfloat16:
+                y, yr = ec.affine_silu(x, a, b), ec.affine_silu_plain(x, a, b)
+                k3.append(dict(c=c, spatial=list(sp), tol_ratio=k3_tol_ratio(torch, y, yr, x, a, b),
+                               max_abs_err=float((y.float() - yr.float()).abs().max())))
+            del x, gr, got, ref
+    out["affine_silu"] = {"tol": "1 bf16 ulp of y + 2^-20 (|x a| + |b|)", "checks": k3}
+    out["affine_silu_bwd"] = {"tol": VJP_TOL, "checks": vjp}
+    bad = [c for c in k3 + vjp if not c["tol_ratio"] <= 1.0]
+    if bad:
+        fail(f"spatial: K3 or its VJP on sp slabs disagrees with its plain version: {bad}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase spatial (d)'s fp32 step: Adam's first moment (linear in the
+# gradients) of two ranks against one process, as a share of its largest
+# magnitude. Measured 3.26e-5 on an H100 80GB HBM3 at 700 W; a missing or
+# halved sp gradient sum moves it by a share of the order of 0.1-1.
+ADAM_MU_RTOL = 1e-3
+
+
+def phase_spatial(torch, tmp: str) -> dict:
+    """The sp axis on the card (two gloo ranks share it, so these runs
+    check correctness and cost, not scaling): (a) the fp32 production
+    forward, TF32 off, sharded against one process (within 1e-4 of the
+    output's scale); (b) the bf16 fuse_conv forward (within BF16_FACTOR
+    times bf16's own error), each K4b shape and route the halo-extended
+    slabs reach held against the plain version; (c) the fuse_conv dpm++ 10
+    synthesis, eager, its image checked and its difference from the
+    unsharded one reported; (d) ``cli.train --spatial_mesh 2
+    --fuse_gn_silu True`` (3 steps: launches of K1, K2, K3 and its VJP,
+    s/step, memory, halo and all-reduce bytes and ms) and one fp32 step
+    against one process (losses within 1e-6, Adam's first moment within
+    ``ADAM_MU_RTOL`` of its scale; the parameters reported); and
+    :func:`spatial_slab_kernels`."""
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.cli import common
+    from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
+    from fast_cwdm_tpu_torch.training import checkpoints
+
+    res = spatial_forward_and_synthesis(torch, tmp)
+    res["slab_kernels"] = spatial_slab_kernels(torch)
+    data, env = dist_data(tmp)
+    env = dict(env, FAST_CWDM_DIST_BACKEND="gloo")
+    flags = train_flags(data, os.path.join(tmp, "ckpt_sp"), SPATIAL_STEPS, fuse_gn_silu=True,
+                        spatial_mesh=SP)
+    recs = torchrun(tmp, "train_sp_2", SP, ["--rank-train", os.path.join(tmp, "train_sp_2"),
+                                            "--", *flags], env)
+    res["d_train_fuse_gn_silu"] = check_dist_run("spatial (d)", recs)
+    for r, rec in zip(res["d_train_fuse_gn_silu"]["ranks"], recs):
+        r.update({f"{k}_per_step": [x.get(f"{k}_per_step") for x in rec["step_log"]]
+                  for k in ("halo_ms", "halo_bytes", "sp_reduce_ms", "sp_reduce_bytes",
+                            "sp_gather_ms", "sp_gather_bytes")})
+    # one fp32 step from the seeded weights, two ranks against one process
+    cfg, sd = seeded_production(torch)
+    model, _ = common.build_model_and_diffusion(cfg)
+    seed_ckpt = os.path.join(tmp, "seeded_sp", "seeded_production.ckpt")
+    checkpoints.save_checkpoint(seed_ckpt, {"params": jax_params_from_state_dict(sd, model),
+                                            "ema_params": (), "step": 0})
+    del model, sd
+    exact = dict(fuse_gn_silu=True, dtype="float32", resume_checkpoint=seed_ckpt)
+    recs = torchrun(tmp, "train_sp_fp32", SP, [
+        "--rank-train", os.path.join(tmp, "train_sp_fp32"), "--exact", "--",
+        *train_flags(data, os.path.join(tmp, "ckpt_sp_fp32"), 1, spatial_mesh=SP, **exact)],
+        env)
+    two = adam_state(checkpoints, np, os.path.join(tmp, "ckpt_sp_fp32"))
+    with no_tf32(torch, deterministic=True):
+        one = run_train(torch, tmp, "sp_one_process", train_flags(
+            data, os.path.join(tmp, "ckpt_sp_one"), 1, **exact), 1)
+    losses = [[x["loss"] for x in r["step_log"]] for r in recs]
+    res["d_fp32_step_vs_one_process"] = {
+        "losses_ranks": losses, "losses_one_process": one["losses"],
+        "max_abs_loss_diff": max(abs(a - b) for l in losses for a, b in zip(l, one["losses"])),
+        "loss_tol": 1e-6, "params_tol": "5e-3 lr + 2^-22 |p|, lr 1e-5",
+        "s_per_step_ranks": [[x["seconds_per_step"] for x in r["step_log"]] for r in recs],
+        "s_per_step_one_process": one["s_per_step_all"],
+        **compare_runs(np, two, adam_state(checkpoints, np, os.path.join(tmp, "ckpt_sp_one")),
+                       1, 1e-5)}
+    step = res["d_fp32_step_vs_one_process"]
+    step["adam_mu_rtol"] = ADAM_MU_RTOL
+    if not (step["max_abs_loss_diff"] <= 1e-6
+            and step["adam_mu_max_abs_diff"] <= ADAM_MU_RTOL * step["adam_mu_max_abs"]):
+        fail(f"spatial (d): the fp32 step's loss or Adam's first moment differs from one "
+             f"process: {step}")
+    return res
 
 
 # the conv entries run on one of three hand-written kernels, by
@@ -2768,6 +3126,7 @@ def main(argv=None) -> int:
     # one rank of phase distributed, as torchrun starts it
     ap.add_argument("--rank-train", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--rank-synthesis", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--rank-spatial", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--exact", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("train_argv", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -2793,6 +3152,9 @@ def main(argv=None) -> int:
         return 0
     if args.rank_synthesis:
         rank_synthesis(torch, args.rank_synthesis)
+        return 0
+    if args.rank_spatial:
+        rank_spatial(torch, args.rank_spatial)
         return 0
 
     smi = nvidia_smi()
@@ -2852,6 +3214,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         dist = phase_distributed(torch, tmp)
     emit({"phase": "distributed", "gpu": smi, "seconds": time.perf_counter() - t0, **dist})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spatial = phase_spatial(torch, tmp)
+    emit({"phase": "spatial", "gpu": smi, "seconds": time.perf_counter() - t0, **spatial})
 
     line = []
     for name, (source, replaces, key) in KERNELS.items():
@@ -2901,7 +3267,15 @@ def main(argv=None) -> int:
                for run, key in (("a", "a_nccl_world_1"), ("b", "b_gloo_world_2"))
                for r in dist[key]["ranks"]},
             **{f"distributed_c_rank{r['rank']}": r["launches"].get(name, 0)
-               for r in dist["c_synthesis_gloo_world_2"]["ranks"]}}
+               for r in dist["c_synthesis_gloo_world_2"]["ranks"]},
+            # phase spatial per rank of the sp group: (b) a forward, (c) a
+            # synthesis, (d) a train step
+            **{f"spatial_b_rank{r['rank']}": r["launches"].get(name, 0)
+               for r in spatial["b_bf16_fuse_conv_forward"]["ranks"]},
+            **{f"spatial_c_rank{r['rank']}": r["launches"].get(name, 0)
+               for r in spatial["c_synthesis_fuse_conv_dpm10"]["ranks"]},
+            **{f"spatial_d_rank{r['rank']}_per_step": r["launches_per_step"].get(name, 0)
+               for r in spatial["d_train_fuse_gn_silu"]["ranks"]}}
         if name.startswith("conv3d"):
             line[-1]["launches_by_kernel"] = {
                 kn: conv_counts[f"conv3d_{kn}"] for kn in ("wgmma", "splitk", "mma_sync")}

@@ -24,7 +24,13 @@ from fast_cwdm_tpu_torch.diffusion.graph import CapturedChain
 from fast_cwdm_tpu_torch.models.convert import check_ref_compat, state_dict_from_jax
 from fast_cwdm_tpu_torch.models.factory import create_model_and_diffusion, model_and_diffusion_defaults
 from fast_cwdm_tpu_torch.ops import wavelet as wv
-from fast_cwdm_tpu_torch.parallel.mesh import all_gather_rows, local_batch_rows
+from fast_cwdm_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    all_gather_sp,
+    local_batch_rows,
+    sp_active,
+    y_slab,
+)
 from fast_cwdm_tpu_torch.training import checkpoints as ckpt
 
 PRODUCTION_OVERRIDES = dict(
@@ -107,15 +113,29 @@ def load_params_ex(path: str, model: torch.nn.Module, *, use_ema: bool = False):
 
 
 def prepare_condition(batch: dict, contr: str, wavelet: str = "haar",
-                      device: str | torch.device | None = None) -> torch.Tensor:
+                      device: str | torch.device | None = None, mesh=None) -> torch.Tensor:
     """3 known modalities (B, X, Y, Z, 1) → the 24-channel wavelet condition
-    (B, X/2, Y/2, Z/2, 24), in the reference's concat order, LLL/3."""
+    (B, X/2, Y/2, Z/2, 24), in the reference's concat order, LLL/3.
+
+    ``mesh`` with an sp axis: each rank transforms its data rows' Y slab
+    (kernel K1 on (X, Y/S, Z) slabs), and the slabs and rows are gathered,
+    so that every rank returns the whole condition, as without a mesh."""
     dev = resolve_device(device)
+    sharded = mesh is not None and mesh.sp > 1
+    if sharded:
+        first = np.shape(batch[condition_order(contr)[0]])
+        lo, hi = local_batch_rows(mesh, first[0])
+        y0, y1 = y_slab(mesh, first[2])
+        batch = {m: batch[m][lo:hi, :, y0:y1] for m in condition_order(contr)}
     conds = [
         torch.as_tensor(batch[m], dtype=torch.float32, device=dev)
         for m in condition_order(contr)
     ]
-    return torch.cat([wv.dwt_normalized(c, wavelet) for c in conds], dim=-1)
+    with sp_active(mesh.sp_axis if sharded else None):
+        cond = torch.cat([wv.dwt_normalized(c, wavelet) for c in conds], dim=-1)
+    if sharded:
+        cond = all_gather_rows(mesh, all_gather_sp(cond, 2, mesh.sp_axis))
+    return cond
 
 
 def load_best_synthesis(checkpoint_dir: str, contr: str, *, dataset: str = "brats",
@@ -188,21 +208,33 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, mesh=None,
     from ``generator``, in the same order on both paths.
 
     ``mesh`` (``parallel.mesh.make_mesh()``, one process per GPU): batched
-    serving over the data axis. Every rank is called with the whole batch
-    and synthesizes its rows (``local_batch_rows``): x_T and each step's
-    noise are drawn for the WHOLE batch from ``generator`` (or the given
-    ``noise``/``step_noise`` are sliced) and the rank keeps its rows, so a
-    volume's noise depends on its batch position, not on the mesh. The
-    images are gathered and every rank returns the whole batch, as the JAX
-    package's sharded ``run`` does. The captured chain runs per rank.
+    serving over the data axis, and over the sp axis a Y slab of every
+    volume per rank (the UNet exchanges halos and sums its statistics over
+    the sp group). Every rank is called with the whole batch and
+    synthesizes its rows (``local_batch_rows``) and its Y slab
+    (``y_slab``) of ``cond``, ``mask_vol`` and the noise: x_T and each
+    step's noise are drawn for the WHOLE batch from ``generator`` (or the
+    given ``noise``/``step_noise`` are sliced), so a volume's noise depends
+    on its batch position, not on the mesh. The images are gathered (Y,
+    then rows) and every rank returns the whole batch, as the JAX package's
+    sharded ``run`` does. The captured chain runs per rank of a data mesh;
+    with an sp axis the chain is eager: its gloo collectives cannot be
+    captured in a CUDA graph (``cuda_graph=None`` is then eager and
+    ``cuda_graph=True`` raises ``ValueError``).
     """
     if sampler not in ("ddpm", "ddim", "dpm++"):
         raise ValueError(f"sampler must be ddpm, ddim or dpm++, got {sampler!r}")
     if chunk == "auto":
         chunk = 100 if diffusion.num_timesteps > 200 else None
     dev = resolve_device(device)
+    sp = mesh.sp_axis if mesh is not None else None
     if cuda_graph is None:
-        cuda_graph = dev.type == "cuda"
+        cuda_graph = dev.type == "cuda" and sp is None
+    elif cuda_graph and sp is not None:
+        raise ValueError(
+            "cuda_graph=True with an sp mesh: the halo exchanges and GroupNorm all-reduces "
+            "run between kernels of every forward, and gloo's collectives (host-staged) "
+            "cannot be captured in a CUDA graph; pass cuda_graph=None or False (eager)")
     elif cuda_graph and dev.type != "cuda":
         raise ValueError(f"cuda_graph=True needs a CUDA device, got {dev}")
     model = model.to(dev).eval()
@@ -226,28 +258,32 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, mesh=None,
         shape = (cond.shape[0], *cond.shape[1:-1], diffusion.target_channels)
         if mesh is not None:
             lo, hi = local_batch_rows(mesh, shape[0])
+            y0, y1 = y_slab(mesh, shape[2])  # of the latent; 2·y0, 2·y1 in the image
             if noise is None:
                 noise = torch.randn(shape, generator=generator, device=dev)
             n_steps = diffusion.num_timesteps
             if sampler == "ddpm":
-                step_noise = (_RowsOfGlobalNoise(n_steps, shape, (lo, hi), generator, dev)
-                              if step_noise is None else step_noise[:, lo:hi])
-            cond, mask, noise = cond[lo:hi], mask[lo:hi], noise[lo:hi]
-            shape = (hi - lo, *shape[1:])
+                step_noise = (_RowsOfGlobalNoise(n_steps, shape, (lo, hi, y0, y1), generator,
+                                                 dev)
+                              if step_noise is None else step_noise[:, lo:hi, :, y0:y1])
+            cond, noise = cond[lo:hi, :, y0:y1], noise[lo:hi, :, y0:y1]
+            mask = mask[lo:hi, :, 2 * y0: 2 * y1]
+            shape = (hi - lo, shape[1], y1 - y0, *shape[3:])
         kw = dict(cond=cond, noise=noise, generator=generator)
-        if chain is not None:
-            sample = chain(shape, step_noise=step_noise, chunk=chunk, **kw)
-        elif sampler == "dpm++":
-            sample = diffusion.dpm_solver_pp_loop(model_fn, shape, steps=steps, device=dev,
-                                                  clip_denoised=clip_denoised, **kw)
-        else:
-            kw.update(step_noise=step_noise, device=dev, clip_denoised=clip_denoised)
-            sample = (diffusion.ddim_sample_loop(model_fn, shape, **kw) if sampler == "ddim"
-                      else diffusion.p_sample_loop(model_fn, shape, chunk_size=chunk, **kw))
-        img = torch.clamp(wv.idwt_normalized(sample, 1, diffusion.wavelet), 0.0, 1.0)
+        with sp_active(sp):
+            if chain is not None:
+                sample = chain(shape, step_noise=step_noise, chunk=chunk, **kw)
+            elif sampler == "dpm++":
+                sample = diffusion.dpm_solver_pp_loop(model_fn, shape, steps=steps, device=dev,
+                                                      clip_denoised=clip_denoised, **kw)
+            else:
+                kw.update(step_noise=step_noise, device=dev, clip_denoised=clip_denoised)
+                sample = (diffusion.ddim_sample_loop(model_fn, shape, **kw) if sampler == "ddim"
+                          else diffusion.p_sample_loop(model_fn, shape, chunk_size=chunk, **kw))
+            img = torch.clamp(wv.idwt_normalized(sample, 1, diffusion.wavelet), 0.0, 1.0)
         img = torch.where(mask == 0, 0.0, img)
         if mesh is not None:
-            img = all_gather_rows(mesh, img)
+            img = all_gather_rows(mesh, all_gather_sp(img, 2, sp))
         return img[..., 0].cpu().numpy()[:, :, :, :crop_z]
 
     run.chain = chain
@@ -257,7 +293,8 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, mesh=None,
 class _RowsOfGlobalNoise:
     """The ddpm chain's per-step noise on one rank of a mesh: step k's noise
     is drawn for the whole batch (``shape``) from ``generator``, in step
-    order, and the rank keeps rows ``[lo, hi)``. A sequence of ``n`` steps
+    order, and the rank keeps rows ``[lo, hi)`` and Y ``[y0, y1)``
+    (``rows``). A sequence of ``n`` steps
     whose items are drawn when read, each once and in order, as the chains
     read ``step_noise``; a slice is a view that continues the same draws."""
 
@@ -279,8 +316,9 @@ class _RowsOfGlobalNoise:
             raise IndexError(f"step noise {self.offset + k} read out of order "
                              f"(next is {self._drawn[0]})")
         self._drawn[0] += 1
-        lo, hi = self.rows
-        return torch.randn(self.shape, generator=self.generator, device=self.device)[lo:hi]
+        lo, hi, y0, y1 = self.rows
+        noise = torch.randn(self.shape, generator=self.generator, device=self.device)
+        return noise[lo:hi, :, y0:y1]
 
 
 def subject_id_from_path(path: str) -> str:

@@ -22,12 +22,21 @@ Data parallelism: one process per GPU, started by torchrun,
 
     torchrun --nproc_per_node=N -m fast_cwdm_tpu_torch.cli.train --data_mesh 0 ...
 
-``--batch_size`` is the global batch (a multiple of N); each rank decodes
-its rows of every batch, the gradients are averaged over the ranks, and
-rank 0 writes the checkpoints and the log files (the other ranks log to
-stdout). ``--data_mesh 0`` means every rank; another value must equal the
-number of ranks. ``--spatial_mesh`` > 1 raises ``NotImplementedError``
-(the ``sp`` axis is not ported).
+``--batch_size`` is the global batch (a multiple of the data axis); each
+rank decodes its rows of every batch, the gradients are averaged over the
+data axis, and global rank 0 writes the checkpoints and the log files (the
+other ranks log to stdout). ``--data_mesh 0`` means every rank not taken
+by ``--spatial_mesh``; another value times ``--spatial_mesh`` must equal
+the number of ranks.
+
+``--spatial_mesh S`` splits the Y axis of every volume over S consecutive
+ranks (the ``sp`` axis): each rank trains on its Y slab (224 → 224/S),
+exchanging conv halos and GroupNorm sums with its sp group, and the
+gradients are summed over it. With one GPU, two ranks share it under
+``FAST_CWDM_DIST_BACKEND=gloo``:
+
+    FAST_CWDM_DIST_BACKEND=gloo torchrun --standalone --nproc_per_node=2 \
+        -m fast_cwdm_tpu_torch.cli.train --spatial_mesh 2 ...
 """
 
 from __future__ import annotations
@@ -114,7 +123,12 @@ def main(argv=None):
     )
     from fast_cwdm_tpu_torch.diffusion.resample import create_named_schedule_sampler
     from fast_cwdm_tpu_torch.models.factory import create_model_and_diffusion
-    from fast_cwdm_tpu_torch.parallel.mesh import local_batch_rows, make_mesh, setup_distributed
+    from fast_cwdm_tpu_torch.parallel.mesh import (
+        local_batch_rows,
+        make_mesh,
+        setup_distributed,
+        y_slab,
+    )
     from fast_cwdm_tpu_torch.training.loop import TrainLoop
     from fast_cwdm_tpu_torch.utils import logger
 
@@ -126,7 +140,7 @@ def main(argv=None):
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
-    if mesh.rank == 0:
+    if mesh.process_rank == 0:
         logger.configure()
     else:
         # the other ranks: stdout only, where file sinks would race rank 0's
@@ -158,8 +172,11 @@ def main(argv=None):
     rows = None
     if mesh.size > 1:
         rows = local_batch_rows(mesh, args.batch_size)
-        logger.log(f"data mesh {mesh.shape}: rank {mesh.rank} decodes rows "
+        logger.log(f"data mesh {mesh.shape}: rank {mesh.process_rank} decodes rows "
                    f"[{rows[0]}, {rows[1]}) of each batch of {args.batch_size}")
+    if mesh.sp > 1:
+        logger.log(f"mesh {mesh.shape}: rank {mesh.process_rank} trains on Y slab "
+                   f"{mesh.sp_rank} of {mesh.sp} of every volume")
 
     if args.dataset == "lidc-idri":  # unconditional: batches are plain arrays
         def data():
@@ -174,7 +191,7 @@ def main(argv=None):
                     yield np.stack(buf)
                     buf = []
     elif args.device_cache:
-        if rows is not None:
+        if rows is not None or mesh.sp > 1:
             raise ValueError(
                 "--device_cache is a single-process input path; a data-parallel run feeds "
                 "each rank its rows of every batch (drop the flag or run one rank)")
@@ -187,6 +204,18 @@ def main(argv=None):
             return iterate_batches(dataset, args.batch_size, shuffle=True,
                                    seed=args.seed + next(epoch_counter),
                                    num_workers=args.num_workers, keys=keys, rows=rows)
+
+    if mesh.sp > 1:  # each rank keeps its Y slab of every volume
+        whole = data
+
+        def data():
+            def slab(v):
+                y0, y1 = y_slab(mesh, v.shape[2])
+                return v[:, :, y0:y1]
+
+            for batch in whole():
+                yield ({k: slab(v) for k, v in batch.items()} if isinstance(batch, dict)
+                       else slab(batch))
 
     loop = TrainLoop(
         model=model,

@@ -33,6 +33,7 @@ import torch
 from fast_cwdm_tpu_torch import resolve_device
 from fast_cwdm_tpu_torch.diffusion import dpm, schedules
 from fast_cwdm_tpu_torch.ops import wavelet as wv
+from fast_cwdm_tpu_torch.parallel.mesh import current_sp, global_sum_sp
 
 MODALITIES = ("t1n", "t1c", "t2w", "t2f")
 
@@ -644,7 +645,9 @@ class GaussianDiffusion:
         Returns ``(terms, model_output, model_output_idwt)``:
         ``terms["mse_wav"]`` is the per-subband (8,) MSE (mean over the
         voxels, then the batch) and ``terms["loss_per_sample"]`` the (B,)
-        mean over everything else. The objective is always x0-prediction,
+        mean over everything else. Under an active sp axis the batch holds
+        this rank's Y slabs: the means are the volumes', and the two
+        outputs are slabs. The objective is always x0-prediction,
         so the diffusion must be built with ``MeanType.START_X``.
         """
         if self.mean_type != MeanType.START_X:
@@ -675,11 +678,17 @@ class GaussianDiffusion:
         model_output = model_fn(x_t, self.scale_timesteps(t), **model_kwargs)
         model_output_idwt = wv.idwt_normalized(model_output, 1, self.wavelet)
         sq = (x_start_dwt - model_output) ** 2
-        mse_wav = sq.mean(dim=tuple(range(1, sq.dim() - 1))).mean(dim=0)
-        terms = {
-            "mse_wav": mse_wav,
-            "loss_per_sample": sq.mean(dim=tuple(range(1, sq.dim()))),
-        }
+        if current_sp() is None:
+            mse_wav = sq.mean(dim=tuple(range(1, sq.dim() - 1))).mean(dim=0)
+            per_sample = sq.mean(dim=tuple(range(1, sq.dim())))
+        else:
+            # this rank's Y slab: per-(row, subband) sums and the voxel
+            # count, summed over the sp group (every rank holds the loss)
+            n = torch.full((sq.shape[0], 1), float(sq[0, ..., 0].numel()), device=sq.device)
+            sums = global_sum_sp(torch.cat([sq.sum(dim=tuple(range(1, sq.dim() - 1))), n], 1))
+            per_band = sums[:, :-1] / sums[:, -1:]
+            mse_wav, per_sample = per_band.mean(dim=0), per_band.mean(dim=1)
+        terms = {"mse_wav": mse_wav, "loss_per_sample": per_sample}
         return terms, model_output, model_output_idwt
 
 

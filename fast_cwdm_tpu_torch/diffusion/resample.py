@@ -86,18 +86,21 @@ class LossSecondMomentResampler:
         return t, 1.0 / (self.num_timesteps * p[t])
 
     def update(self, state: LossAwareState, t: torch.Tensor, losses: torch.Tensor,
-               axis_name: str | None = None) -> LossAwareState:
+               axis_name: str | None = None, mesh=None) -> LossAwareState:
         """Record per-example losses at their timesteps, in batch order
         (a full row shifts left and takes the new loss at its end). With
-        ``axis_name`` ("data", the only axis ported) every rank's t and
-        losses are gathered in rank order first, as the JAX package's
-        ``all_gather`` does, so every rank's history stays the same."""
+        ``axis_name`` ("data") every data index's t and losses are gathered
+        in order first (over ``mesh``'s data axis, default
+        ``make_mesh()``), as the JAX package's ``all_gather`` does, so every
+        rank's history stays the same; the ranks of an sp group hold the
+        same rows, t and (volume) losses, and gather nothing among
+        themselves."""
         if axis_name is not None:
             from fast_cwdm_tpu_torch.parallel.mesh import DATA_AXIS, all_gather_rows, make_mesh
 
             if axis_name != DATA_AXIS:
                 raise ValueError(f"axis_name must be {DATA_AXIS!r} or None, got {axis_name!r}")
-            mesh = make_mesh()
+            mesh = mesh or make_mesh()
             t, losses = all_gather_rows(mesh, t), all_gather_rows(mesh, losses)
         hist = state.loss_history.clone()
         counts = state.loss_counts.clone()

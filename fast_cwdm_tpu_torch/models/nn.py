@@ -16,6 +16,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from fast_cwdm_tpu_torch.ops import elementwise_cuda
+from fast_cwdm_tpu_torch.parallel.mesh import (
+    all_reduce_sum_sp,
+    current_sp,
+    global_sum_sp,
+    halo_pad,
+)
 
 
 def timestep_embedding(
@@ -36,8 +42,15 @@ def timestep_embedding(
 
 
 def mean_flat(x: torch.Tensor) -> torch.Tensor:
-    """Mean over all non-batch dims."""
-    return x.mean(dim=tuple(range(1, x.dim())))
+    """Mean over all non-batch dims. Under an active sp axis ``x`` is this
+    rank's slab: the mean of the whole volume, every rank holding it and
+    backpropagating it as a loss (``global_sum_sp``)."""
+    dims = tuple(range(1, x.dim()))
+    if current_sp() is None:
+        return x.mean(dim=dims)
+    sums = global_sum_sp(torch.stack(
+        [x.sum(dim=dims), torch.full(x.shape[:1], float(x[0].numel()), device=x.device)], -1))
+    return sums[..., 0] / sums[..., 1]
 
 
 class GroupNorm32(nn.Module):
@@ -45,7 +58,9 @@ class GroupNorm32(nn.Module):
 
     Statistics mirror the JAX package (`nn.py:79-84`): per-channel
     E[x] and E[x²] over the spatial axes in one pass, group means of the
-    channel means, var = max(E[x²] − E[x]², 0), eps 1e-5. ``act="silu"``
+    channel means, var = max(E[x²] − E[x]², 0), eps 1e-5; under an active
+    sp axis the channel means are the volume's (sums over the slab and the
+    voxel count, summed over the group). ``act="silu"``
     applies SiLU in the same pass through kernel K3 (fp32 SiLU, one cast);
     the caller applies ``F.silu`` itself for the unfused path (bf16 SiLU
     after the cast), as the JAX package does.
@@ -64,8 +79,16 @@ class GroupNorm32(nn.Module):
         spatial = tuple(range(2, x.dim()))
         # a (B, C) input has no spatial axes: its channel means are itself
         # (torch reads an empty ``dim`` as every axis)
-        mean_c = xf.mean(dim=spatial) if spatial else xf  # (B, C)
-        mean_sq_c = (xf * xf).mean(dim=spatial) if spatial else xf * xf
+        if spatial and current_sp() is not None:
+            # this rank's slab: channel sums and the voxel count, summed
+            # over the sp group in one all-reduce
+            count = torch.full((b, 1), float(xf[0, 0].numel()), device=x.device)
+            sums = all_reduce_sum_sp(
+                torch.cat([xf.sum(dim=spatial), (xf * xf).sum(dim=spatial), count], dim=1))
+            mean_c, mean_sq_c = sums[:, :c] / sums[:, -1:], sums[:, c:2 * c] / sums[:, -1:]
+        else:
+            mean_c = xf.mean(dim=spatial) if spatial else xf  # (B, C)
+            mean_sq_c = (xf * xf).mean(dim=spatial) if spatial else xf * xf
         mean = mean_c.reshape(b, g, c // g).mean(dim=-1)  # (B, G)
         mean_sq = mean_sq_c.reshape(b, g, c // g).mean(dim=-1)
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
@@ -90,7 +113,9 @@ class _ComputeDtype:
     bias are cast to ``dtype``; with ``dtype=None`` the compute dtype is the
     promotion of the input's and the weight's (flax ``nn.Conv``: a bf16
     input meets fp32 params in fp32), or the input's with
-    ``follow_input``. Symmetric padding, as torch's."""
+    ``follow_input``. Symmetric padding, as torch's. A 3-D conv under an
+    active sp axis pads Y with its neighbours' planes (``halo_pad``); a 1×1
+    conv stays local."""
 
     def __init__(self, in_ch, out_ch, kernel=3, *, stride=1, groups=1, dtype=None,
                  zero_init=False, follow_input=False):
@@ -107,7 +132,15 @@ class _ComputeDtype:
         dt = self.compute_dtype
         if dt is None:
             dt = x.dtype if self.follow_input else torch.promote_types(x.dtype, self.weight.dtype)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        pad = self.padding[1] if len(self.padding) == 3 else 0
+        if current_sp() is None or not pad:
+            return self._conv_forward(x, w, b)
+        # x is this rank's Y slab: the neighbours' planes as the Y padding
+        # (zeros at the volume's edges), no padding of the conv's own in Y
+        x = halo_pad(x, 3, pad)
+        return F.conv3d(x, w, b, self.stride, (self.padding[0], 0, self.padding[2]),
+                        self.dilation, self.groups)
 
 
 class Conv1d(_ComputeDtype, nn.Conv1d):

@@ -45,6 +45,14 @@ from fast_cwdm_tpu_torch.models.nn import (
 from fast_cwdm_tpu_torch.ops import wavelet as wv
 from fast_cwdm_tpu_torch.ops.wavelet import dtype_scalar
 from fast_cwdm_tpu_torch.ops.conv3d_cuda import conv3d_fused, group_stats, pack_wgmma_weights
+from fast_cwdm_tpu_torch.parallel.mesh import (
+    all_gather_sp,
+    bind_sp,
+    current_sp,
+    halo_exchange,
+    local_slab,
+    sp_active,
+)
 
 
 class Linear(nn.Linear):
@@ -188,12 +196,23 @@ class FusableConv3d(Conv3d):
         if gn is None:
             return super().forward(x)
         dt = self.compute_dtype or x.dtype
-        xx = x.to(dt, memory_format=torch.channels_last_3d)
+        cl = torch.channels_last_3d
+        xx = x.to(dt, memory_format=cl)
+        # under sp: the neighbours' raw planes on the slab's interior sides;
+        # the kernel applies the prologue to them with the volume's
+        # statistics and zero-pads only the volume's edges (the ends of the
+        # extended slab there); the rows computed at the halo planes go
+        ext, lo, hi = halo_exchange(xx, 3, 1)
+        if lo or hi:
+            xx = ext.contiguous(memory_format=cl)
         # OIDHW → DHWIO; the conv casts it to dt (the wgmma and splitk
         # routes read the packed copy instead)
         w = self.weight.permute(2, 3, 4, 1, 0)
-        return conv3d_fused(xx, w, self.bias.to(dt), gn=gn, block_x=2,
-                            w_packed=self.packed_weight)
+        out = conv3d_fused(xx, w, self.bias.to(dt), gn=gn, block_x=2,
+                           w_packed=self.packed_weight)
+        if lo or hi:
+            out = out[:, :, :, lo:out.shape[3] - hi].contiguous(memory_format=cl)
+        return out
 
 
 class ResBlock(nn.Module):
@@ -266,7 +285,9 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(self._forward, x, emb, use_reentrant=False)
+            # the recomputation runs in the backward pass: under the sp axis
+            # of this call, so that it issues the block's collectives again
+            return checkpoint(bind_sp(self._forward), x, emb, use_reentrant=False)
         return self._forward(x, emb)
 
     def _forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -335,6 +356,7 @@ class AttentionBlock(nn.Module):
         return F.linear(x.to(dt), conv.weight[:, :, 0].to(dt), conv.bias.to(dt))
 
     def forward(self, x: torch.Tensor, emb=None) -> torch.Tensor:
+        refuse_sp(self)  # every position attends to every other
         b, c, *spatial = x.shape
         heads = self.heads
         ch = c // heads
@@ -350,6 +372,24 @@ class AttentionBlock(nn.Module):
         a = torch.einsum("bhts,bshc->bthc", weights, v).reshape(b, -1, c)
         out = flat.transpose(1, 2) + self._dense(self.proj_out, a)  # (B, T, C)
         return out.transpose(1, 2).reshape(b, c, *spatial)
+
+
+def refuse_sp(module: nn.Module) -> None:
+    """A module the sp axis does not shard raises under an active one."""
+    if current_sp() is not None:
+        raise NotImplementedError(
+            f"{type(module).__name__} under the sp axis: the sp axis shards UNetModel's "
+            "convolutions, GroupNorms and resampling, which read a slab and its halo")
+
+
+def sp_stays_sharded(block: nn.Module, h: torch.Tensor) -> bool:
+    """The sp axis's one rule for the UNet: a level stays sharded while
+    its slab's Y (``h``'s axis 3) is even, so that a ×2 downsample is local
+    (Haar and average pooling read aligned pairs; a strided conv's halo
+    is one plane). Before a downsampling block whose input slab is odd,
+    the activation is gathered and the deeper levels run whole."""
+    down = isinstance(block, Downsample) or (isinstance(block, ResBlock) and block.down)
+    return not down or h.shape[3] % 2 == 0
 
 
 def embedding(model: nn.Module, timesteps: torch.Tensor,
@@ -384,6 +424,12 @@ class UNetModel(nn.Module):
     downsample factor ds <= ``remat_max_ds`` (0: every ResBlock) instead of
     keeping their activations (``torch.utils.checkpoint``), as the JAX
     package's selective ``nn.remat``; it acts only while autograd records.
+
+    Under an active sp axis (``parallel.mesh.sp_active``) ``x`` is this
+    rank's slab of Y (axis 3) and so is the output: the 3³ convs exchange
+    halos, the GroupNorms sum over the sp group, and the levels below the
+    first odd slab run whole on every rank (:func:`sp_stays_sharded`).
+    Attention does not run under sp.
     """
 
     def __init__(
@@ -514,21 +560,35 @@ class UNetModel(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 y: torch.Tensor | None = None) -> torch.Tensor:
+        axis = current_sp()
+        if axis is not None and self.dims != 3:
+            raise NotImplementedError("the sp axis shards the Y axis of 3-D volumes (dims=3)")
         emb = embedding(self, timesteps, y).to(self.dtype or x.dtype)
 
+        # under sp, x is this rank's Y slab; a level stays sharded while
+        # its slab can be halved (:func:`sp_stays_sharded`), the deeper
+        # levels run whole on every rank of the group
+        sharded = axis is not None
         h = self.input_blocks[0][0](x)
-        hs = [h]
+        hs = [(h, sharded)]
         for layers in self.input_blocks[1:]:
-            for layer in layers:
+            if sharded and not sp_stays_sharded(layers[0], h):
+                h, sharded = all_gather_sp(h, 3, axis), False
+            with sp_active(axis if sharded else None):
+                for layer in layers:
+                    h = layer(h, emb)
+            hs.append((h, sharded))
+        with sp_active(axis if sharded else None):
+            for layer in self.middle_block:
                 h = layer(h, emb)
-            hs.append(h)
-        for layer in self.middle_block:
-            h = layer(h, emb)
         for layers in self.output_blocks:
-            skip = hs.pop()
+            skip, skip_sharded = hs.pop()
+            if skip_sharded and not sharded:  # the decoder's first sharded level
+                h, sharded = local_slab(h, 3, axis), True
             h = (h + skip) / 2.0 if self.additive_skips else torch.cat([h, skip], dim=1)
-            for layer in layers:
-                h = layer(h, emb)
+            with sp_active(axis if sharded else None):
+                for layer in layers:
+                    h = layer(h, emb)
 
         norm, _, conv = self.out
         h = norm(h, act="silu") if self.fuse_gn_silu else F.silu(norm(h))
@@ -582,6 +642,7 @@ class SuperResModel(UNetModel):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 low_res: torch.Tensor | None = None,
                 y: torch.Tensor | None = None) -> torch.Tensor:
+        refuse_sp(self)  # the resize reads whole axes
         up = resize_linear(low_res, tuple(x.shape[2:]))
         return super().forward(torch.cat([x, up], dim=1), timesteps, y)
 
@@ -686,6 +747,7 @@ class EncoderUNetModel(nn.Module):
                                      nn.SiLU(), Linear(2048, out_channels))
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        refuse_sp(self)
         emb = embedding(self, timesteps)
         spatial = tuple(range(2, x.dim()))
         keep = self.pool != "adaptive"

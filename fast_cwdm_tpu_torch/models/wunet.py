@@ -40,6 +40,7 @@ from fast_cwdm_tpu_torch.models.unet import (
     _down_window,
     embedding,
     nearest_upsample,
+    refuse_sp,
 )
 from fast_cwdm_tpu_torch.ops import wavelet as wv
 
@@ -336,6 +337,7 @@ class WavUNetModel(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 y: torch.Tensor | None = None) -> torch.Tensor:
+        refuse_sp(self)
         emb = embedding(self, timesteps, y).to(self.dtype or x.dtype)
         nrb = self.num_res_blocks
 

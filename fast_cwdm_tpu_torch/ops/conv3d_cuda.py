@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from fast_cwdm_tpu_torch.ops import _build
+from fast_cwdm_tpu_torch.parallel.mesh import all_reduce_sum_sp, current_sp
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _CL = torch.channels_last_3d
@@ -50,12 +51,21 @@ def group_stats(x: torch.Tensor, num_groups: int) -> tuple[torch.Tensor, torch.T
     *spatial), fp32 (B, C). The JAX package's reduction: one mean over the
     voxels and the group's channels of x and of x², var = max(E[x²] −
     E[x]², 0), rsqrt(var + 1e-5) (not ``GroupNorm32``'s mean of channel
-    means)."""
+    means). Under an active sp axis (``parallel.mesh.current_sp``) ``x`` is
+    this rank's slab: Σx, Σx² and the voxel count of the slab are summed
+    over the sp group in one all-reduce, so every rank gets the volume's
+    statistics."""
     b, c = x.shape[:2]
     g = num_groups
     xf = x.float().movedim(1, -1).reshape(b, -1, g, c // g)
-    mean = xf.mean(dim=(1, 3))
-    mean_sq = (xf * xf).mean(dim=(1, 3))
+    if current_sp() is None:
+        mean = xf.mean(dim=(1, 3))
+        mean_sq = (xf * xf).mean(dim=(1, 3))
+    else:
+        count = torch.full((b, 1), float(xf.shape[1] * xf.shape[3]), device=x.device)
+        sums = all_reduce_sum_sp(torch.cat([xf.sum(dim=(1, 3)), (xf * xf).sum(dim=(1, 3)),
+                                            count], dim=1))
+        mean, mean_sq = sums[:, :g] / sums[:, -1:], sums[:, g:2 * g] / sums[:, -1:]
     inv = torch.rsqrt(torch.clamp(mean_sq - mean * mean, min=0.0) + 1e-5)
     return mean.repeat_interleave(c // g, dim=1), inv.repeat_interleave(c // g, dim=1)
 

@@ -6,6 +6,12 @@ subband order is LLL, LLH, LHL, LHH, HLL, HLH, HHL, HHH, i.e. band index =
 4*high(X) + 2*high(Y) + high(Z). Haar runs as paired sums and differences; Daubechies-N as banded
 decimated matrices with zero-boundary truncation.
 
+Under an active sp axis (``parallel.mesh.current_sp``) a tensor is one
+rank's slab of the Y axis (``-3`` here): Haar reads and writes aligned
+pairs, so it is local on a slab whose Y offset and length are even (the
+forward transforms check it); a longer filter would need its neighbours'
+planes and raises ``NotImplementedError``.
+
 Single-channel Haar transforms of fp32 tensors route to the hand-written
 CUDA kernels K1/K2 (``ops/wavelet_cuda.py``), which take their plain torch
 versions for CPU tensors. ``impl="xla"`` keeps the name of the JAX option
@@ -19,6 +25,8 @@ import math
 
 import numpy as np
 import torch
+
+from fast_cwdm_tpu_torch.parallel.mesh import current_sp
 
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 LLL_SCALE = 3.0
@@ -156,8 +164,26 @@ def idwt2(bands: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:
     return _axis_up(_axis_up(ll, lh, -2, wavelet), _axis_up(hl, hh, -2, wavelet), -3, wavelet)
 
 
+def _sp_local(wavelet: str, n_y: int | None = None) -> None:
+    """Under an active sp axis: refuse a wavelet longer than Haar, and (for
+    a forward transform, ``n_y`` the slab's Y) a slab whose Y offset or
+    length is odd. Nothing without one."""
+    axis = current_sp()
+    if axis is None:
+        return
+    if wavelet not in HAAR:
+        raise NotImplementedError(
+            f"wavelet {wavelet!r} under the sp axis: a filter longer than Haar needs halo "
+            "planes from the neighbouring slabs (ROADMAP §1: dbN wavelets under sp)")
+    if n_y is not None and (n_y % 2 or axis.rank * n_y % 2):
+        raise ValueError(
+            f"Haar under sp needs a Y slab with an even offset and length; slab {axis.rank} of "
+            f"{axis.size} has length {n_y} at offset {axis.rank * n_y}")
+
+
 def dwt3(x: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:
     """``(..., X, Y, Z, C)`` → ``(..., X/2, Y/2, Z/2, 8, C)`` (plain torch)."""
+    _sp_local(wavelet, x.shape[-3])
     parts = [x]
     for axis in (-4, -3, -2):
         parts = [b for p in parts for b in _axis_down(p, axis, wavelet)]
@@ -166,6 +192,7 @@ def dwt3(x: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:
 
 def idwt3(bands: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:
     """Inverse of :func:`dwt3`: ``(..., X, Y, Z, 8, C)`` → ``(..., 2X, 2Y, 2Z, C)``."""
+    _sp_local(wavelet)
     parts = [bands[..., i, :] for i in range(8)]
     for axis in (-2, -3, -4):
         parts = [
@@ -197,6 +224,7 @@ def dwt3_flat(x: torch.Tensor, wavelet: str = "haar", impl: str = "auto") -> tor
             "the CUDA DWT kernel is single-channel only "
             f"(got C={x.shape[-1]}); use impl='auto' or 'xla'"
         )
+    _sp_local(wavelet, x.shape[-3])
     if impl == "pallas" or (
         impl == "auto" and _kernel_eligible(x, x.shape, wavelet, x.shape[-1])
     ):
@@ -218,6 +246,7 @@ def idwt3_flat(
             "the CUDA IDWT kernel is single-channel only "
             f"(got channels={channels}); use impl='auto' or 'xla'"
         )
+    _sp_local(wavelet)
     if channels == 1 and (
         impl == "pallas"
         or (

@@ -1,15 +1,24 @@
-"""Data parallelism over ``torch.distributed`` (the ``data`` axis of the
-JAX package's ``parallel/mesh.py``) and the multi-process dry run."""
+"""Data and spatial parallelism over ``torch.distributed`` (the ``data`` and
+``sp`` axes of the JAX package's ``parallel/mesh.py``) and the
+multi-process dry run."""
 
 from fast_cwdm_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,
     SPATIAL_AXIS,
     TENSOR_AXIS,
     DataMesh,
+    SpAxis,
+    all_gather_sp,
+    all_reduce_sum_sp,
+    current_sp,
+    global_sum_sp,
+    halo_exchange,
     local_batch_rows,
     local_batch_size,
+    local_slab,
     make_hybrid_mesh,
     make_mesh,
     setup_distributed,
     shard_batch,
+    sp_active,
 )

@@ -1,14 +1,15 @@
-"""Multi-process dry run of the data-parallel path on the CPU (the
-counterpart of ``__graft_entry__.py::dryrun_multichip``).
+"""Multi-process dry run of the data- and spatially-parallel path on the
+CPU (the counterpart of ``__graft_entry__.py::dryrun_multichip``).
 
-    python -m fast_cwdm_tpu_torch.parallel.dryrun [N]   # default 2 ranks
+    python -m fast_cwdm_tpu_torch.parallel.dryrun [N [SP]]   # default 2 ranks, sp 1
 
 :func:`dryrun_multichip` starts ``n`` processes on this host, each a rank
-of one ``gloo`` process group on the CPU (:func:`start_ranks`), and each
-runs one data-parallel train step of the JAX dry run's tiny UNet (16³
-images, 32 base channels, two ResBlocks a level) on its rows of a global
-batch of ``n``, then a sharded synthesis of that batch. The ranks must
-agree on the loss and hold the same parameters bit for bit afterwards.
+of one ``gloo`` process group on the CPU (:func:`start_ranks`), on a mesh
+of ``{"data": n // sp, "sp": sp}``, and each runs one train step of the
+JAX dry run's tiny UNet (16³ images, 32 base channels, two ResBlocks a
+level) on its rows and Y slab of a global batch of ``n // sp``, then a
+sharded synthesis of that batch. The ranks must agree on the loss and
+hold the same parameters bit for bit afterwards.
 
 :func:`start_ranks` and :func:`wait_ranks` are the launcher the tests and
 ``scripts/scaling_bench.py`` use as well: torchrun's environment
@@ -124,7 +125,7 @@ def _worker() -> None:
     from fast_cwdm_tpu_torch.training.train import StepRNG, make_optimizer, make_train_step
 
     setup_distributed("cpu")
-    mesh = make_mesh()
+    mesh = make_mesh(sp=int(sys.argv[2]))
     model = tiny_unet()
     diffusion = GaussianDiffusion.named("linear", 10, "sampled", mode="i2i")
     opt = make_optimizer(1e-4, lr_anneal_steps=100)
@@ -137,21 +138,25 @@ def _worker() -> None:
                           StepRNG.seeded(1, "cpu"))
     loss = float(metrics["loss"])
     synth = make_synthesis_fn(model, diffusion, crop_z=s, mesh=mesh, device="cpu")
-    out = synth(prepare_condition(batch, "t1c", device="cpu"), batch["t1n"],
+    out = synth(prepare_condition(batch, "t1c", device="cpu", mesh=mesh), batch["t1n"],
                 torch.Generator().manual_seed(2))
     print(RESULT + json.dumps({
-        "rank": mesh.rank, "mesh": mesh.shape, "loss": loss, "step": state.step,
+        "rank": mesh.process_rank, "mesh": mesh.shape, "loss": loss, "step": state.step,
         "params": params_digest(state.params.values()),
         "synthesis_shape": list(out.shape), "synthesis_finite": bool(np.isfinite(out).all()),
         "synthesis": hashlib.sha256(out.tobytes()).hexdigest()}), flush=True)
     dist.destroy_process_group()
 
 
-def dryrun_multichip(n: int = 2, timeout: float = 120.0) -> dict:
-    """Run the dry run over ``n`` gloo ranks on the CPU; returns rank 0's
-    record after checking that every rank agrees (loss, parameters and the
-    gathered synthesis, bit for bit) and that the loss is finite."""
-    argv = ["-m", "fast_cwdm_tpu_torch.parallel.dryrun", "--worker"]
+def dryrun_multichip(n: int = 2, timeout: float = 120.0, sp: int = 1) -> dict:
+    """Run the dry run over ``n`` gloo ranks on the CPU, ``sp`` of them per
+    sp group (the JAX dry run's ``make_mesh(data=n // sp, sp=sp)``); returns
+    rank 0's record after checking that every rank agrees (loss,
+    parameters and the gathered synthesis, bit for bit) and that the loss
+    is finite."""
+    if n % sp:
+        raise ValueError(f"{n} ranks do not split into sp groups of {sp}")
+    argv = ["-m", "fast_cwdm_tpu_torch.parallel.dryrun", "--worker", str(sp)]
     recs = results(wait_ranks(start_ranks(n, argv), timeout))
     first = recs[0]
     for r in recs:
@@ -160,15 +165,16 @@ def dryrun_multichip(n: int = 2, timeout: float = 120.0) -> dict:
                 raise RuntimeError(f"ranks disagree on {k}: {[x[k] for x in recs]}")
     if not math.isfinite(first["loss"]):
         raise RuntimeError(f"non-finite loss {first['loss']}")
-    if first["step"] != 1 or not first["synthesis_finite"] \
-            or first["synthesis_shape"] != [n, 16, 16, 16]:
+    if first["mesh"] != {"data": n // sp, "sp": sp} or first["step"] != 1 \
+            or not first["synthesis_finite"] or first["synthesis_shape"] != [n // sp, 16, 16, 16]:
         raise RuntimeError(f"dry run record off: {first}")
     print(f"dryrun_multichip OK: mesh={first['mesh']} loss={first['loss']:.5f}")
     return first
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--worker"]:
+    if sys.argv[1:2] == ["--worker"]:
         _worker()
     else:
-        dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 2)
+        dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 2,
+                         sp=int(sys.argv[2]) if len(sys.argv) > 2 else 1)

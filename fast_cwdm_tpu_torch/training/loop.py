@@ -17,14 +17,16 @@ first save;
 Checkpoints hold the JAX package's trees (parameters under its names,
 optax's adamw state), so a run resumes across the two packages.
 
-Data parallelism (``mesh``, one process per GPU under ``torchrun``): the
-data source yields this rank's rows of each global batch of
-``batch_size``; the step averages the gradients over the ranks. On log
-and save steps the per-sample metrics are gathered across the ranks
-(collective: every rank fetches at the same steps); the SIGTERM flag is
-agreed every step, so that a signal to any subset of ranks stops every
-rank after the same step; checkpoints, BEST, the ledger and the log files
-are written by rank 0 alone.
+Data and spatial parallelism (``mesh``, one process per GPU under
+``torchrun``): the data source yields this rank's rows of each global
+batch of ``batch_size`` and, under sp, its Y slab of every volume; the
+step sums the gradients over sp and averages them over data. On log and
+save steps the image panels are gathered over the sp group and the
+per-sample metrics across the data axis (collective: every rank fetches
+at the same steps); the SIGTERM flag is agreed over the world every step,
+so that a signal to any subset of ranks stops every rank after the same
+step; checkpoints, BEST, the ledger and the log files are written by
+global rank 0 alone.
 """
 
 from __future__ import annotations
@@ -120,8 +122,8 @@ class TrainLoop:
         self.device = resolve_device(device)
         # default: the process group's data axis (one rank without torchrun)
         self.mesh = mesh if mesh is not None else pmesh.make_mesh()
-        # rank 0 writes every file; the others compute and log to stdout
-        self.writer_rank = self.mesh.rank == 0
+        # global rank 0 writes every file; the others compute and log to stdout
+        self.writer_rank = self.mesh.process_rank == 0
         self.model = model.to(self.device)
         self.diffusion = diffusion
         self.data_factory = data if callable(data) else (lambda: data)
@@ -269,9 +271,11 @@ class TrainLoop:
 
     # ------------------------------------------------------------------
     def _fetch(self, metrics: dict) -> dict:
-        """Metrics to the host (numpy), the per-sample ones gathered across
-        the ranks (collective)."""
-        return pmesh.gather_metrics(self.mesh, metrics, PER_SAMPLE_METRIC_KEYS)
+        """Metrics to the host (numpy): the image panels' Y gathered over the
+        sp group, the per-sample ones across the data axis (collective)."""
+        y_axis = {k: 2 for k in IMAGE_METRIC_KEYS}
+        y_axis.update({k: 1 for k in metrics if k.startswith("source/")})
+        return pmesh.gather_metrics(self.mesh, metrics, PER_SAMPLE_METRIC_KEYS, y_axis)
 
     def _preempt_agreed(self, preempted: list) -> bool:
         """Whether any rank was sent SIGTERM. Delivery is per process: a
@@ -292,12 +296,20 @@ class TrainLoop:
         try:
             prev_handler = signal.signal(signal.SIGTERM,
                                          lambda signum, frame: preempted.append(signum))
+            # signal.signal makes SIGTERM interrupt system calls (EINTR),
+            # which native code (the collectives' library) need not retry:
+            # restart them instead (the handler only records the signal)
+            signal.siginterrupt(signal.SIGTERM, False)
             installed = True
         except ValueError:  # not the main thread
             pass
         try:
             state = self._run_loop(preempted)
             self.writer.wait()
+            # one all-reduce as a barrier: no rank returns before rank 0's
+            # files are written, so a caller that reads them next (a
+            # resume) finds them on every rank
+            pmesh.any_rank(self.mesh, False)
             return state
         finally:
             if installed:
@@ -356,13 +368,13 @@ class TrainLoop:
                 loss = float(m["loss"])
                 now = time.perf_counter()
                 n_win = step - window_step
-                comm = self.step_fn.comm.drain()
                 rec = {"step": step, "loss": loss, "seconds_per_step": (now - window_t0) / n_win}
-                if comm:
-                    rec["allreduce_ms_per_step"] = sum(ms for _, ms in comm) / n_win
-                    rec["allreduce_bytes_per_step"] = sum(b for b, _ in comm) / n_win
-                    logger.logkv("time/allreduce_ms", rec["allreduce_ms_per_step"])
-                    logger.logkv("comm/allreduce_bytes", rec["allreduce_bytes_per_step"])
+                # the gradient all-reduce and the sp collectives, by kind
+                for kind, (n_bytes, ms, _) in self.step_fn.comm.drain_by_kind().items():
+                    rec[f"{kind}_ms_per_step"] = ms / n_win
+                    rec[f"{kind}_bytes_per_step"] = n_bytes / n_win
+                    logger.logkv(f"time/{kind}_ms", rec[f"{kind}_ms_per_step"])
+                    logger.logkv(f"comm/{kind}_bytes", rec[f"{kind}_bytes_per_step"])
                 self.step_log.append(rec)
                 window_t0, window_step = now, step
                 if not np.isfinite(loss):

@@ -191,11 +191,17 @@ def make_train_step(
     override the sampler's and the noise generator's draws. The model is
     put in training mode (dropout on).
 
-    ``mesh``: the data axis. ``batch`` is then this rank's rows of the
-    global batch (``mesh.size`` times as many), and ``t`` / ``noise_img``,
-    given or drawn, are the global batch's, of which the step takes its
-    rows. The all-reduces' bytes and milliseconds go to ``step.comm``
-    (a :class:`~fast_cwdm_tpu_torch.parallel.mesh.CommLog`).
+    ``mesh``: the data and sp axes. ``batch`` is then this rank's rows of
+    the global batch (``mesh.size`` times as many) and, under sp, its Y
+    slab of every volume (``shard_batch``); ``t`` / ``noise_img``, given or
+    drawn, are the global batch's (whole volumes), of which the step takes
+    its rows and slab, so the ranks of an sp group use the same t and the
+    same noise. Under sp every rank backpropagates the volumes' loss
+    through its slab (its gradients are its slab's share); the one
+    all-reduce sums them over sp and averages over data. The collectives'
+    bytes and milliseconds go to ``step.comm`` (a
+    :class:`~fast_cwdm_tpu_torch.parallel.mesh.CommLog`, by kind: the
+    gradient all-reduce, and the sp halos, reductions and gathers).
 
     ``accum_steps``: the batch is split into that many microbatches run
     one after another (one microbatch's activations live at a time), the
@@ -233,7 +239,8 @@ def make_train_step(
             "case's seg labels; unconditional batches are plain arrays)"
         )
     dropout_on = _has_dropout(model)
-    dp = mesh is not None and mesh.group is not None
+    dp = mesh is not None and mesh.world is not None
+    sp = mesh.sp_axis if mesh is not None else None
     comm = pmesh.CommLog()
 
     def model_fn(x, tt):
@@ -260,6 +267,8 @@ def make_train_step(
                 # empty-mask samples contribute exactly 0
                 s = (diff2 * mask).sum(dims)
                 c = mask.sum(dims)
+                if pmesh.current_sp() is not None:  # the volume's masked mean
+                    s, c = pmesh.global_sum_sp(torch.stack([s, c])).unbind(0)
                 return (w_t * s / torch.clamp(c, min=1.0)).mean()
 
             if lesion_weight:
@@ -308,9 +317,11 @@ def make_train_step(
         target = batch[contr] if isinstance(batch, dict) else batch
         bsz, dev = target.shape[0], target.device
         # the global batch's t and noise, drawn alike on every rank; this
-        # rank's rows of them
+        # rank's rows (and Y slab) of them
         gbsz = bsz * mesh.size if dp else bsz
         lo, hi = pmesh.local_batch_rows(mesh, gbsz) if dp else (0, bsz)
+        ny = target.shape[2] * (sp.size if sp else 1)
+        y0, y1 = pmesh.y_slab(sp, ny)
         if t is None:
             if loss_aware:
                 t, _ = sampler.sample(rng.t if rng else None, gbsz, state.sampler_state)
@@ -320,18 +331,21 @@ def make_train_step(
         if noise_img is None:
             # the full batch's noise in one draw (sliced per microbatch
             # under accumulation), so accum_steps does not change it
-            noise_img = torch.randn((gbsz, *target.shape[1:]),
+            noise_img = torch.randn((gbsz, target.shape[1], ny, *target.shape[3:]),
                                     generator=rng.noise if rng else None,
                                     dtype=target.dtype, device=dev)
-        noise_img = noise_img[lo:hi]
-        if dropout_on:
-            seed = int(torch.randint(2**62, (1,), generator=rng.dropout if rng else None))
-            devices = [dev] if dev.type == "cuda" else []
-            with torch.random.fork_rng(devices=devices, device_type=dev.type):
-                torch.manual_seed(seed)
+        noise_img = noise_img[lo:hi, :, y0:y1]
+        with pmesh.sp_active(sp):
+            if dropout_on:
+                seed = int(torch.randint(2**62, (1,), generator=rng.dropout if rng else None))
+                devices = [dev] if dev.type == "cuda" else []
+                with torch.random.fork_rng(devices=devices, device_type=dev.type):
+                    torch.manual_seed(seed)
+                    loss, terms, accum = forward_backward(state, batch, t, noise_img, bsz)
+            else:
                 loss, terms, accum = forward_backward(state, batch, t, noise_img, bsz)
-        else:
-            loss, terms, accum = forward_backward(state, batch, t, noise_img, bsz)
+        if sp is not None:
+            sp.log.move_to(comm)
         grads = {}
         for k, p in state.params.items():
             gk = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -346,7 +360,7 @@ def make_train_step(
                 terms[k] = terms[k].reshape(1).clone()
             pmesh.all_reduce_mean_(
                 mesh, [*grads.values(), loss, terms["mse_wav"], *(terms[k] for k in means)],
-                comm)
+                comm, replicated=2 + len(means))
             loss = loss[0]
             for k in means:
                 terms[k] = terms[k][0]
@@ -356,7 +370,7 @@ def make_train_step(
         if loss_aware:
             state.sampler_state = sampler.update(
                 state.sampler_state, t, terms["loss_per_sample"],
-                axis_name=pmesh.DATA_AXIS if dp else None)
+                axis_name=pmesh.DATA_AXIS if dp else None, mesh=mesh)
         metrics = {"loss": loss, "mse_wav": terms["mse_wav"],
                    "loss_per_sample": terms["loss_per_sample"], "t": t,
                    **{k: terms[k] for k in IMAGE_METRIC_KEYS}}

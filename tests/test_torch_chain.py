@@ -31,7 +31,7 @@ from fast_cwdm_tpu_torch.diffusion import dpm, graph
 from fast_cwdm_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from fast_cwdm_tpu_torch.models.unet import UNetModel
 from fast_cwdm_tpu_torch.ops import wavelet as wv
-from fast_cwdm_tpu_torch.parallel.mesh import make_mesh
+from fast_cwdm_tpu_torch.parallel.mesh import DataMesh, SpAxis, make_mesh
 from fast_cwdm_tpu_torch.utils import devtime, profiling
 from fast_cwdm_tpu_torch.utils.testing import seeded_state_dict
 
@@ -289,9 +289,13 @@ def test_make_synthesis_fn_chunk_values_agree_with_jax():
 
 def test_make_synthesis_fn_refuses_mesh_and_cpu_graphs():
     d, _ = _diffusions()
-    # a mesh with an sp axis (spatial sharding, not ported) cannot be built
-    with pytest.raises(NotImplementedError, match="M8"):
+    # a mesh with an sp axis needs as many ranks: one process cannot build it
+    with pytest.raises(ValueError, match="not divisible by sp"):
         common.make_synthesis_fn(_Smooth(), d, device="cpu", mesh=make_mesh(data=-1, sp=2))
+    # an sp mesh's chain is eager: its collectives cannot be captured
+    sp_mesh = DataMesh({"data": 1, "sp": 2}, None, 0, SpAxis(None, 2, 0))
+    with pytest.raises(ValueError, match="cannot be captured in a CUDA graph"):
+        common.make_synthesis_fn(_Smooth(), d, device="cpu", mesh=sp_mesh, cuda_graph=True)
     with pytest.raises(ValueError, match="cuda_graph=True needs a CUDA device"):
         common.make_synthesis_fn(_Smooth(), d, device="cpu", cuda_graph=True)
     with pytest.raises(ValueError, match="sampler"):

@@ -111,7 +111,10 @@ def _core(workdir):
     out = {"shape": mesh.shape, "rank": mesh.rank, "size": mesh.size,
            "rows": {b: pm.local_batch_rows(mesh, b) for b in (2, 4, 8)},
            "hybrid": pm.make_hybrid_mesh().shape, "refusals": {}}
-    for name, fn in (("sp", lambda: pm.make_mesh(sp=2)), ("tp", lambda: pm.make_mesh(tp=2)),
+    sp_mesh = pm.make_mesh(sp=2)
+    out["sp_mesh"] = [sp_mesh.shape, sp_mesh.rank, sp_mesh.sp_rank, sp_mesh.group is None]
+    for name, fn in (("sp", lambda: pm.make_mesh(data=2, sp=2)),
+                     ("tp", lambda: pm.make_mesh(tp=2)),
                      ("data", lambda: pm.make_mesh(data=3)),
                      ("rows", lambda: pm.local_batch_rows(mesh, 3))):
         try:
@@ -250,16 +253,19 @@ def _close_params(ours: dict, jtree, jmodel):
 
 
 def test_mesh_object_and_refusals_in_one_process(monkeypatch):
-    """Without torchrun: a data axis of 1, no group, rank 0; sp/tp raise
-    NotImplementedError naming the ROADMAP item; a data size other than
-    the world raises."""
+    """Without torchrun: a data axis of 1, no group, rank 0; tp raises
+    NotImplementedError naming the ROADMAP item; an sp axis or a data size
+    the one rank cannot hold raises ValueError."""
     mesh = pmesh.make_mesh()
     assert mesh.shape == {"data": 1, "sp": 1} and mesh.group is None and mesh.rank == 0
     assert pmesh.make_hybrid_mesh() == mesh and pmesh.make_mesh(data=1) == mesh
     assert pmesh.local_batch_rows(mesh, 3) == (0, 3)
-    for kw in (dict(sp=2), dict(tp=2), dict(data=2, sp=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 M8"):
-            pmesh.make_mesh(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 M8"):
+        pmesh.make_mesh(tp=2)
+    with pytest.raises(ValueError, match="not divisible by sp"):
+        pmesh.make_mesh(sp=2)
+    with pytest.raises(ValueError, match="exceeds"):
+        pmesh.make_mesh(data=2, sp=2)
     with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
         pmesh.make_mesh(data=2)
     x = torch.arange(6.0).reshape(3, 2)
@@ -306,8 +312,9 @@ def test_two_ranks_mesh_rows_and_shard_batch(core):
         assert rec["shard"] == rec["shard_local"] == rows.tolist()
         assert rec["gathered"] == [0.0, 1.0] and rec["any"] == [True, False]
         ref = rec["refusals"]
-        assert ref["sp"][0] == ref["tp"][0] == "NotImplementedError"
-        assert "M8" in ref["sp"][1] and "M8" in ref["tp"][1]
+        assert rec["sp_mesh"] == [{"data": 1, "sp": 2}, 0, rank, True]
+        assert ref["sp"][0] == "ValueError" and "exceeds" in ref["sp"][1]
+        assert ref["tp"][0] == "NotImplementedError" and "M8" in ref["tp"][1]
         assert ref["data"][0] == "ValueError" and "2 rank(s)" in ref["data"][1]
         assert ref["rows"][0] == "ValueError" and "not divisible" in ref["rows"][1]
 
@@ -485,12 +492,13 @@ from fast_cwdm_tpu_torch.training.loop import TrainLoop
 from fast_cwdm_tpu_torch.utils import logger
 
 pm.setup_distributed("cpu")
-mesh = pm.make_mesh()
-logger.configure(os.path.join(sys.argv[1], f"log{mesh.rank}"), ["log"])
+mesh = pm.make_mesh(sp=int(sys.argv[2]))
+logger.configure(os.path.join(sys.argv[1], f"log{mesh.process_rank}"), ["log"])
 rng = np.random.default_rng(0)
 batch = {m: rng.random((2, 8, 8, 8, 1), dtype=np.float32) for m in ("t1n", "t1c", "t2w", "t2f")}
 lo, hi = pm.local_batch_rows(mesh, 2)
-local = {k: v[lo:hi] for k, v in batch.items()}
+y0, y1 = pm.y_slab(mesh, 8)
+local = {k: v[lo:hi, :, y0:y1] for k, v in batch.items()}
 
 def data():
     while True:
@@ -501,7 +509,7 @@ loop = TrainLoop(model=tiny_unet(8), diffusion=GaussianDiffusion.named("linear",
                  sample_schedule="sampled", diffusion_steps=10, checkpoint_dir=sys.argv[1],
                  device="cpu", prefetch=0, mesh=mesh)
 loop.run_loop()
-print("RESULT " + json.dumps({"rank": mesh.rank, "step": loop.state.step,
+print("RESULT " + json.dumps({"rank": mesh.process_rank, "step": loop.state.step,
                               "preempted": loop.preempted}), flush=True)
 """
 
@@ -511,9 +519,19 @@ def test_sigterm_to_one_rank_stops_both_and_rank_0_saves(tmp_path):
     logged a step: the flag is agreed within a step, both ranks return
     preempted after the same step and exit 0, and rank 0 has written that
     step's checkpoint and optimizer blob."""
+    _sigterm_to_rank_1(tmp_path, sp=1)
+
+
+def test_sigterm_to_one_rank_of_an_sp_group_stops_both_and_rank_0_saves(tmp_path):
+    """The same with the two ranks as one sp group (``make_mesh(sp=2)``,
+    whose groups start gloo threads of their own), each with its Y slab."""
+    _sigterm_to_rank_1(tmp_path, sp=2)
+
+
+def _sigterm_to_rank_1(tmp_path, sp: int) -> None:
     script = tmp_path / "child.py"
     script.write_text(_SIGTERM_CHILD)
-    procs = dryrun.start_ranks(2, [str(script), str(tmp_path)])
+    procs = dryrun.start_ranks(2, [str(script), str(tmp_path), str(sp)])
     lines = [[], []]
 
     def drain(i):
@@ -550,6 +568,57 @@ def test_sigterm_to_one_rank_stops_both_and_rank_0_saves(tmp_path):
     stamped = [f for f in os.listdir(tmp_path)
                if f.startswith("brats_t1n_") and f.endswith(".ckpt")]
     assert len(stamped) == 1, stamped
+
+
+_RETURN_CHILD = r"""
+import json, os, sys, time
+import numpy as np, torch
+torch.set_num_threads(1)
+from fast_cwdm_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from fast_cwdm_tpu_torch.parallel import mesh as pm
+from fast_cwdm_tpu_torch.parallel.dryrun import tiny_unet
+from fast_cwdm_tpu_torch.training import checkpoints as ckpt
+from fast_cwdm_tpu_torch.training.loop import TrainLoop
+from fast_cwdm_tpu_torch.utils import logger
+
+submit = ckpt.AsyncWriter.submit
+def slow(self, fn, *args):  # rank 0's writes land 3 s late
+    submit(self, lambda *a: (time.sleep(3.0), fn(*a)), *args)
+ckpt.AsyncWriter.submit = slow
+pm.setup_distributed("cpu")
+mesh = pm.make_mesh()
+logger.configure(os.path.join(sys.argv[1], f"log{mesh.rank}"), ["log"])
+rng = np.random.default_rng(0)
+batch = {m: rng.random((2, 8, 8, 8, 1), dtype=np.float32) for m in ("t1n", "t1c", "t2w", "t2f")}
+lo, hi = pm.local_batch_rows(mesh, 2)
+local = {k: v[lo:hi] for k, v in batch.items()}
+
+def data():
+    while True:
+        yield local
+
+loop = TrainLoop(model=tiny_unet(8), diffusion=GaussianDiffusion.named("linear", 10, "sampled"),
+                 data=data, batch_size=2, log_interval=1, save_interval=2, lr_anneal_steps=2,
+                 contr="t1n", sample_schedule="sampled", diffusion_steps=10,
+                 checkpoint_dir=sys.argv[1], device="cpu", prefetch=0, mesh=mesh)
+loop.run_loop()
+print("RESULT " + json.dumps({"rank": mesh.rank, "files": sorted(os.listdir(sys.argv[1]))}),
+      flush=True)
+"""
+
+
+def test_no_rank_returns_before_rank_0s_checkpoint_is_written(tmp_path):
+    """Two TrainLoop ranks with a BEST at their last step and rank 0's
+    write slowed by 3 s: when ``run_loop`` returns, each rank finds the
+    BEST and its optimizer blob on disk, so a resume that follows reads
+    the same checkpoint on every rank (rank 1 used to return at once and
+    start afresh)."""
+    script = tmp_path / "child.py"
+    script.write_text(_RETURN_CHILD)
+    recs = dryrun.results(dryrun.wait_ranks(dryrun.start_ranks(2, [str(script), str(tmp_path)]),
+                                            TIMEOUT))
+    for rec in recs:
+        assert {"brats_t1n_BEST_sampled_10.ckpt", "opt_best_t1n.ckpt"} <= set(rec["files"]), rec
 
 
 def test_dryrun_multichip_two_ranks():

@@ -379,10 +379,10 @@ def test_cli_train_on_a_synthetic_tree_then_sample(tmp_path, monkeypatch):
               torch.Generator().manual_seed(0))
     assert out.shape == (1, 8, 8, 155) and np.isfinite(out).all()
     # one process is a data axis of 1: --data_mesh=2 needs torchrun's two
-    # ranks; the sp axis is not ported
+    # ranks, and --spatial_mesh=2 two ranks as well
     with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
         cli_train.main(argv + ["--data_mesh=2"])
-    with pytest.raises(NotImplementedError, match="M8"):
+    with pytest.raises(ValueError, match="not divisible by sp"):
         cli_train.main(argv + ["--spatial_mesh=2"])
     # the dataset kept in device memory: the same steps from the same seed
     cached = cli_train.main(argv + ["--device_cache=True", f"--checkpoint_dir={tmp_path / 'ck2'}"])
