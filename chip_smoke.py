@@ -93,7 +93,20 @@ Phases, each printing one JSON object per line:
               equal to the JAX records within 1e-12), and ``ssim3d`` /
               ``psnr`` on the card against the CPU (≤ 1e-10) with both
               times;
-11. models  — the rest of the network surface: (a) ``cli.train`` with
+11. probes  — on evaluation's trees and BEST, at production width: the
+              native decoder (built, every val volume bit for bit the numpy
+              float32 path, ms per case of it, of that path and of the
+              float64 reader, ``ThreadedLoader`` cases/s with it and under
+              ``FAST_CWDM_NATIVE=0``, its decode count, the decode's share
+              of ``evaluate_cases``); then each ported probe through its
+              ``main``: ``probe_elementwise`` (A, B, C), ``probe_lane_ceiling``
+              (cuDNN and K4b at six channel pairs, K4b at the new shapes
+              against plain, the fold), ``probe_batch2`` (four legs, all
+              complete), ``probe_core_inference`` (GT rows equal to
+              PROBE_core_inference_r05.json's within 1e-6) and
+              ``probe_regression`` (4 steps, completion, downstream chain);
+              the K1/K2/K3/K4b launches of each;
+12. models  — the rest of the network surface: (a) ``cli.train`` with
               run.sh's flags and ``--use_freq=True --channel_mult=1,2,2,4``
               (the 54,285,640-parameter WavUNet) on two 240×240×155
               cases, 3 steps and a BEST (K1 5, K2 1 per step), then
@@ -113,16 +126,16 @@ Phases, each printing one JSON object per line:
               and WavUNet, the WavUNet's double run, the encoder's three
               pools, SuperResModel, both gating blocks) on the card
               against the CPU (≤ 1e-4, TF32 off);
-12. diffusion_api — the rest of ``GaussianDiffusion`` at the production
+13. diffusion_api — the rest of ``GaussianDiffusion`` at the production
               config (bf16, fuse_conv, 10-step schedule): sample_known, the
               ancestral interpolation, ddim_sample_loop_known, a
               ddim_reverse_sample round trip, calc_bpd_loop (59 forwards,
               3,186 K4b launches), each progressive generator against its
               loop bit for bit; then the same methods at a tiny fp32 size,
               card against CPU on the same draws (≤ 1e-4, TF32 off);
-13. distributed — the data axis through ``torch.distributed.run``:
+14. distributed — the data axis through ``torch.distributed.run``:
               (a) ``cli.train`` as one NCCL rank (bf16, fuse_gn_silu, 2
-              steps); (b) two gloo ranks sharing the card (fp32, TF32 off,
+              steps), running beside (b) and (c); (b) two gloo ranks sharing the card (fp32, TF32 off,
               cuDNN deterministic, global batch 2, 2 steps) against one
               process accumulating the same rows (bit for bit) and one
               process at batch 2 (losses within 2e-5; Adam's moments and
@@ -132,7 +145,7 @@ Phases, each printing one JSON object per line:
               from a batch-2 synthesis reported; per run and rank the
               launches, s/step, the all-reduce's ms and bytes, peak memory
               and which rank wrote files;
-14. spatial — the sp axis: two gloo ranks as one sp group on the card,
+15. spatial — the sp axis: two gloo ranks as one sp group on the card,
               each with its Y slab: (a) the fp32 production forward (TF32
               off) against one process (1e-4 of the output's scale); (b)
               the bf16 fuse_conv forward (within twice bf16's own error),
@@ -143,7 +156,7 @@ Phases, each printing one JSON object per line:
               [0,1], zero outside the mask; its difference from the
               unsharded synthesis reported), s/volume, halo and reduction
               bytes and ms a forward; (d) ``cli.train --spatial_mesh 2
-              --fuse_gn_silu True``, 3 steps (K1 5, K2 1, K3 83, VJP 71 a
+              --fuse_gn_silu True`` beside (a)-(c), 3 steps (K1 5, K2 1, K3 83, VJP 71 a
               step a rank; s/step, memory, halo and all-reduce bytes and
               ms), and one fp32 step against one process (losses within
               1e-6, Adam's first moment within 1e-3 of its scale; the
@@ -159,9 +172,11 @@ present or the package is missing.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -580,16 +595,24 @@ def takers(tc, torch, bsz, ci, co, sp) -> list:
     return out
 
 
-def seeded_production(torch, **overrides) -> tuple[dict, dict]:
-    """The production config and its seeded weights (a torch state_dict),
-    checked to be the 81,511,048-parameter model."""
-    from fast_cwdm_tpu_torch.cli import common
+@functools.lru_cache(maxsize=1)
+def seeded_arrays(shapes: tuple) -> dict:
+    """``seeded_state_dict`` of ``(name, shape)`` pairs, made once per
+    process (~4 s of host time for the production UNet)."""
     from fast_cwdm_tpu_torch.utils.testing import seeded_state_dict
+
+    return seeded_state_dict(dict(shapes))
+
+
+def seeded_production(torch, **overrides) -> tuple[dict, dict]:
+    """The production config and its seeded weights (a torch state_dict of
+    fresh tensors), checked to be the 81,511,048-parameter model."""
+    from fast_cwdm_tpu_torch.cli import common
 
     cfg = common.production_config(sample_schedule="sampled", diffusion_steps=10, **overrides)
     model, _ = common.build_model_and_diffusion(cfg)
-    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    sd = {k: torch.from_numpy(v) for k, v in seeded_state_dict(shapes).items()}
+    shapes = tuple((k, tuple(v.shape)) for k, v in model.state_dict().items())
+    sd = {k: torch.from_numpy(v.copy()) for k, v in seeded_arrays(shapes).items()}
     n = sum(v.numel() for v in sd.values())
     if n != 81_511_048:
         fail(f"production UNet has {n} parameters, expected 81,511,048")
@@ -620,7 +643,8 @@ def profile_device(torch, fn) -> dict:
         kind = next((k for k, keys in kinds if any(w in name.lower() for w in keys)), "other")
         sums[kind] = sums.get(kind, 0.0) + ms
     return {"wall_ms": res["wall_ms"], "device_ms": res["total_ms"],
-            "busy_share": res["busy_share"],
+            "busy_share": res["busy_share"], "source": res.get("source"),
+            "records_missing": res.get("records_missing"),
             "by_kind_ms": dict(sorted(sums.items(), key=lambda kv: -kv[1])),
             "top_kernels": [dict(ms=ms, name=k[:90]) for k, ms in list(res["ops"].items())[:12]]}
 
@@ -689,23 +713,49 @@ def phase_forward(torch, profile: bool = False) -> dict:
 
 def write_case(case_dir: str, seed: int = 0) -> None:
     """Four 240×240×155 modalities inside an ellipsoidal 'brain', zero
-    outside, in BraTS file naming."""
+    outside, in BraTS file naming: :func:`case_files` of ``seed`` copied
+    under the case's names (copies, not links: a writer of one case's file
+    must not reach the other cases)."""
+    import shutil
+
+    os.makedirs(case_dir, exist_ok=True)
+    base = os.path.basename(case_dir)
+    for m in ("t1n", "t1c", "t2w", "t2f"):
+        shutil.copyfile(os.path.join(case_files(seed), f"{m}.nii.gz"),
+                        os.path.join(case_dir, f"BraTS-GLI-{base}-000-{m}.nii.gz"))
+
+
+@functools.lru_cache(maxsize=None)
+def cases_root() -> tempfile.TemporaryDirectory:
+    return tempfile.TemporaryDirectory(prefix="chip_smoke_cases_")
+
+
+@functools.lru_cache(maxsize=None)
+def case_files(seed: int) -> str:
+    """The directory of ``seed``'s four volumes, made once per run (~7 s of
+    host time a case)."""
+    case_dir = os.path.join(cases_root().name, str(seed))
+    make_case(case_dir, seed)
+    return case_dir
+
+
+def make_case(case_dir: str, seed: int) -> None:
+    """:func:`write_case`'s four volumes of ``seed``, as ``<modality>.nii.gz``."""
     import numpy as np
 
     from fast_cwdm_tpu_torch.data.nifti import Nifti1Image, save
 
-    os.makedirs(case_dir, exist_ok=True)
+    os.makedirs(case_dir)
     rng = np.random.default_rng(seed)
     gx, gy, gz = np.meshgrid(
         *(np.linspace(-1, 1, n, dtype=np.float32) for n in (240, 240, 155)), indexing="ij"
     )
     brain = (gx / 0.7) ** 2 + (gy / 0.8) ** 2 + (gz / 0.85) ** 2 < 1.0
-    base = os.path.basename(case_dir)
     for k, m in enumerate(("t1n", "t1c", "t2w", "t2f")):
         tissue = 300 + 200 * np.sin(3 * gx + k) * np.cos(2 * gy - k) + 50 * gz
         vol = np.where(brain, tissue + 20 * rng.standard_normal(brain.shape), 0.0)
         save(Nifti1Image(np.maximum(vol, 0).astype(np.float32), np.eye(4)),
-             os.path.join(case_dir, f"BraTS-GLI-{base}-000-{m}.nii.gz"))
+             os.path.join(case_dir, f"{m}.nii.gz"))
 
 
 def reset_counts():
@@ -830,7 +880,7 @@ SYNTH_WANT = {"unfused": {"affine_silu": 0, "conv3d_fused_k4b": 0},
 def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
     """``make_synthesis_fn`` on the case, four variants, each eager
     (``cuda_graph=False``) and graphed: one warm-up call each (the graph's
-    capture), then two timed calls each in turns, on one generator seed;
+    capture), then one timed call each, on one generator seed;
     host clock from the condition DWTs to the image on the host. The graph
     path's image against the eager one (expected bit for bit), its launches
     per volume, its capture seconds and pool memory. Then one ``devtime``
@@ -854,7 +904,7 @@ def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
                 m, diff, sampler=sampler, sampler_steps=10, device="cuda",
                 cuda_graph=path == "graph")
     names = list(runs)
-    order = names + names + names[::-1]
+    order = names + names[::-1]
     times, imgs, launches = {name: [] for name in names}, {}, {}
     for k, name in enumerate(order):
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1953,6 +2003,278 @@ def phase_evaluation(torch, tmp: str) -> dict:
     return res
 
 
+# phase probes: on phase evaluation's trees and BEST (the 4-step
+# production model, sampled 10), so the JAX record's t = 999..50 become
+# the sampled-10 process's 9..0
+PROBE_RECORD = "PROBE_core_inference_r05.json"
+PROBE_KERNELS = ("haar_dwt3", "haar_idwt3", "affine_silu", "conv3d_fused_k4b")
+PROBE_TIMESTEPS = ("9", "8", "6", "4", "2", "0")
+REGRESSION_STEPS = 4  # probe_regression's training, cut from 5,000
+
+
+def probe_launches(counts: dict) -> dict:
+    """K1, K2, K3 and K4b of a launch-count dict (0 where absent)."""
+    return {k: counts.get(k, 0) for k in PROBE_KERNELS}
+
+
+def native_decoder(tmp: str, evaluation: dict) -> dict:
+    """The native decoder built and used: every val modality decoded by
+    ``load_preprocessed`` bit for bit equal to the numpy float32 path, ms
+    per case of the decoder and that path, and of the float64 reader
+    (``FAST_CWDM_NATIVE=0``) on the first volume; ``ThreadedLoader``'s
+    cases/s over the six cases with the decoder and under
+    ``FAST_CWDM_NATIVE=0``, one turn each, the decoder's count of
+    volumes beside each; the decode's
+    share of ``evaluate_cases`` (its two ``nifti.load`` per case against
+    phase evaluation's s/case)."""
+    from fast_cwdm_tpu_torch.data import brats, native, nifti
+    from fast_cwdm_tpu_torch.data.loader import ThreadedLoader
+
+    if not native.available():
+        fail("the native decoder did not build (g++ -O3 -shared -fPIC fastnifti.cpp)")
+    res = {}
+    work = os.path.join(tmp, "qb")
+    val = brats.BRATSVolumes(os.path.join(work, "val"))
+    paths = [d[m] for d in val.database for m in brats.MODALITIES]
+    ms = {"native": [], "numpy_float32": [], "numpy_float64": []}
+    before = native.load_volume.decodes
+    for i, p in enumerate(paths):
+        t0 = time.perf_counter()
+        a = brats.load_preprocessed(p)
+        t1 = time.perf_counter()
+        b = brats.pad_crop(brats.clip_and_normalize_float32(brats._load_float32(p)))
+        t2 = time.perf_counter()
+        if a.tobytes() != b.tobytes():
+            fail(f"the native decoder and the numpy float32 path differ on {p}")
+        ms["native"].append((t1 - t0) * 1e3)
+        ms["numpy_float32"].append((t2 - t1) * 1e3)
+        if i == 0:  # the float64 reader, timed on the first volume only
+            brats.preprocess_volume(nifti.load(p).get_fdata())
+            ms["numpy_float64"].append((time.perf_counter() - t2) * 1e3)
+    res["volumes_bit_for_bit"] = len(paths)
+    res["native_decodes"] = native.load_volume.decodes - before
+    if res["native_decodes"] != len(paths):
+        fail(f"load_preprocessed decoded {res['native_decodes']} of {len(paths)} volumes natively")
+    res["ms_per_case"] = {k: 4 * statistics.median(v) for k, v in ms.items()}  # 4 volumes
+    res["ms_per_volume_all"] = ms
+
+    ds = brats.BRATSVolumes(os.path.join(work, "val"))
+    ds.database += brats.BRATSVolumes(os.path.join(work, "train")).database
+    workers = os.cpu_count() or 1
+    loader = {"cases": len(ds), "workers": workers, "native": [], "numpy": [],
+              "native_decodes": {"native": [], "numpy": []}}
+    saved = os.environ.get("FAST_CWDM_NATIVE")
+    try:
+        for setting in ("native", "numpy"):
+            os.environ["FAST_CWDM_NATIVE"] = "1" if setting == "native" else "0"
+            before = native.load_volume.decodes
+            t0 = time.perf_counter()
+            n = sum(1 for _ in ThreadedLoader(ds, num_workers=workers))
+            loader[setting].append(n / (time.perf_counter() - t0))
+            loader["native_decodes"][setting].append(native.load_volume.decodes - before)
+    finally:
+        if saved is None:
+            os.environ.pop("FAST_CWDM_NATIVE", None)
+        else:
+            os.environ["FAST_CWDM_NATIVE"] = saved
+    if loader["native_decodes"] != {"native": [4 * len(ds)], "numpy": [0]}:
+        fail(f"ThreadedLoader's decodes: {loader['native_decodes']}")
+    res["loader_cases_per_s"] = loader
+
+    samp = os.path.join(tmp, "sampled")
+    decode, decode_native = [], []
+    for case in sorted(os.listdir(samp)):
+        pair = [os.path.join(samp, case, f) for f in ("sample.nii.gz", "target.nii.gz")]
+        t0 = time.perf_counter()
+        for p in pair:
+            nifti.load(p).get_fdata()
+        t1 = time.perf_counter()
+        for p in pair:
+            native.load_volume(p)
+        decode.append(t1 - t0)
+        decode_native.append(time.perf_counter() - t1)
+    per_case = evaluation["sample_evaluate"]["evaluate_s_per_case"]
+    res["evaluate_cases_decode"] = {
+        "s_per_case_nifti_load": statistics.median(decode),
+        "s_per_case_native": statistics.median(decode_native),
+        "evaluate_s_per_case": per_case,
+        "share": statistics.median(decode) / per_case}
+    return res
+
+
+def phase_probes(torch, tmp: str, evaluation: dict) -> dict:
+    """The JAX package's five probes, ported, at the production width on
+    phase evaluation's trees (two train and four val 240×240×155 phantoms)
+    and BEST, and the native decoder; each probe through its ``main`` as a
+    user runs it, with the K1/K2/K3/K4b launches of its run:
+    ``probe_elementwise`` (A: K3 against plain at the level-0 shape, B: the
+    forward unfused and fused, C: the 100-step chain with K3 if B wins),
+    ``probe_lane_ceiling`` (cuDNN at six channel pairs and K4b on its
+    route at each, then every lane shape not in phase kernels held against
+    the plain version; the fold's parity), ``probe_batch2`` (four legs, each
+    must complete), ``probe_core_inference`` (its GT rows against the
+    committed JAX record within 1e-6; K1 5, K2 7 a case) and
+    ``probe_regression`` (4 training steps with the lesion term, the
+    completion and the downstream chain in phase evaluation's
+    ``downstream_bench`` workdir, whose real leg it reuses; its GT region
+    means equal to that run's)."""
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
+    from fast_cwdm_tpu_torch.scripts import probe_batch2 as pb
+    from fast_cwdm_tpu_torch.scripts import probe_core_inference as pci
+    from fast_cwdm_tpu_torch.scripts import probe_elementwise as pe
+    from fast_cwdm_tpu_torch.scripts import probe_lane_ceiling as pl
+    from fast_cwdm_tpu_torch.scripts import probe_regression as pr
+    from fast_cwdm_tpu_torch.scripts import quality_bench
+
+    work = os.path.join(tmp, "qb")
+    train_dir, val_dir = os.path.join(work, "train"), os.path.join(work, "val")
+    ckpt_dir = quality_bench.ckpt_dir_for(quality_bench.parse_args([f"--workdir={work}"]),
+                                          "sampled", 10)
+    from fast_cwdm_tpu_torch.utils.devtime import devtime
+
+    res, seconds, launches, fallbacks = {}, {}, {}, {}
+
+    def run(name, fn):
+        reset_counts()
+        before = devtime.fallbacks
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = probe_launches(read_counts())
+        # devtime calls whose trace held no kernel (timed by CUDA events)
+        fallbacks[name] = devtime.fallbacks - before
+        torch.cuda.empty_cache()
+        return out
+
+    t0 = time.perf_counter()
+    res["native"] = native_decoder(tmp, evaluation)
+    seconds["native"] = time.perf_counter() - t0
+
+    # probe_elementwise: A a K3 launch a call, B 71 a fused forward, C the
+    # chain's; devtime(events=True) makes 7 calls (a warm-up, 3 on the host
+    # clock, 3 behind a spin of the card)
+    calls = 7
+    el = run("elementwise", lambda: pe.main(["--walls", "2"]))
+    k3_a = el["A"]["A/k3_affine_silu"]["launches"].get("affine_silu", 0)
+    k3_b = el["B"]["launches"]["fuse_gn_silu=True"].get("affine_silu", 0)
+    if (k3_a != calls or el["A"]["A/plain_affine_silu"]["launches"]
+            or k3_b != 71 * calls
+            or el["B"]["launches"]["fuse_gn_silu=False"].get("affine_silu", 0)):
+        fail(f"probe_elementwise launches: {el['A']} {el['B']['launches']}")
+    if el["B"]["delta_ms"] > 0 and not (el["C"] and el["C"]["finite"]
+                                        and el["C"]["launches"].get("affine_silu", 0)):
+        fail(f"probe_elementwise C: {el['C']}")
+    res["elementwise"] = el
+
+    # probe_lane_ceiling; then K4b at the lane shapes phase kernels does not
+    # check, against the plain version (these launches are not counted)
+    lane = run("lane_ceiling", lambda: pl.main([]))
+    for ci, co in pl.PAIRS:
+        k = lane[f"conv_{ci}->{co}"].get("k4b")
+        if not k or k["route"] != "wgmma" or k["launches"].get("conv3d_fused_k4b") != calls:
+            fail(f"probe_lane_ceiling K4b at {ci}->{co}: {k}")
+    g = torch.Generator(device="cuda").manual_seed(14)
+    checked = {(ci, sp, co) for _, b, ci, sp, co in CONV_SHAPES if b == 1}
+    lane_checks = []
+    with torch.inference_mode():
+        for ci, co in pl.PAIRS:
+            if (ci, LATENT, co) in checked:
+                continue
+            x, w, b, gn = conv_inputs(torch, g, 1, ci, LATENT, co, torch.bfloat16)
+            y = tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=tc.pack_wgmma_weights(w))
+            ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
+            lane_checks.append({"ci": ci, "co": co, "tol_ratio": tc.tol_ratio(y, ref, x, w, gn),
+                                "max_abs_err": float((y.float() - ref.float()).abs().max())})
+            del x, w, b, gn, y, ref
+    if not all(c["tol_ratio"] <= 1.0 for c in lane_checks):
+        fail(f"K4b at the lane shapes disagrees with the plain version: {lane_checks}")
+    lane["k4b_vs_plain"] = lane_checks
+    res["lane_ceiling"] = lane
+
+    # probe_batch2: every leg completes on 80 GB
+    rows = run("batch2", lambda: pb.main(["--iters", "1"]))  # 3 steps a leg
+    bad = [r for r in rows if "error" in r or not math.isfinite(r["loss"])
+           or not (r["launches"].get("haar_dwt3") and r["launches"].get("haar_idwt3"))]
+    if len(rows) != 4 or bad:
+        fail(f"probe_batch2: {rows}")
+    res["batch2"] = rows
+
+    # probe_core_inference on evaluation's BEST and val phantoms
+    out = os.path.join(tmp, "probe_core_inference.json")
+    core = run("core_inference", lambda: pci.main(
+        ["--checkpoint_dir", ckpt_dir, "--val_dir", val_dir, "--out", out,
+         "--timesteps", *PROBE_TIMESTEPS]))
+    n_cases = len(core["gt"])
+    want = dict.fromkeys(PROBE_KERNELS, 0)
+    want.update(haar_dwt3=5 * n_cases, haar_idwt3=(len(PROBE_TIMESTEPS) + 1) * n_cases)
+    if launches["core_inference"] != want:
+        fail(f"probe_core_inference launches {launches['core_inference']}, expected {want}")
+    if len(core["rows"]) != (len(PROBE_TIMESTEPS) + 1) * n_cases or not all(
+            math.isfinite(r["healthy_mae"]) and all(
+                r[k] is None or math.isfinite(r[k]) for k in ("et", "ncr", "edema"))
+            for r in core["rows"]):
+        fail(f"probe_core_inference rows: {core['rows']}")
+    with open(os.path.join(REPO, PROBE_RECORD)) as f:
+        record = {r["case"]: r for r in json.load(f)["gt"]}
+    from fast_cwdm_tpu_torch.data import brats
+
+    gt = {"vs_record": {}, "host_numpy_order_vs_record": {}}
+    for row in core["gt"]:
+        case_dir = os.path.join(val_dir, row["case"])
+        x = brats.load_preprocessed(pci._find(case_dir, "t1c"))[..., 0]
+        seg = brats.load_seg(pci._find(case_dir, "seg"))[..., 0]
+        rec = record[row["case"]]
+        gt["vs_record"][row["case"]] = {k: row[k] - rec[k] for k in ("et", "ncr", "edema")}
+        # the same means in this host's numpy order (fault 6): reported only
+        gt["host_numpy_order_vs_record"][row["case"]] = {
+            name: float(x[seg == lbl].mean()) - rec[name] for lbl, name in pci.RAW_REGIONS.items()}
+    worst = max(abs(d) for v in gt["vs_record"].values() for d in v.values())
+    gt["max_abs_diff_vs_record"] = worst
+    gt["host_numpy_order_max_abs_diff"] = max(
+        abs(d) for v in gt["host_numpy_order_vs_record"].values() for d in v.values())
+    gt["summation_order"] = "numpy 2.0's float32 pairwise order (data/reduce.py)"
+    if sorted(record) != sorted(gt["vs_record"]) or not worst <= 1e-6:
+        fail(f"probe_core_inference GT rows differ from {PROBE_RECORD}: {gt}")
+    core["gt_check"] = gt
+    res["core_inference"] = core
+
+    # probe_regression: 4 steps with the lesion term (K1 5, K2 1 a step:
+    # its IDWT and that IDWT's VJP on K1), the completion (K1 3, K2 1 a val
+    # case) and the downstream chain, in phase evaluation's downstream_bench
+    # workdir: its resumable stages reuse the real leg segmented there
+    rep = run("regression", lambda: pr.main(
+        ["--workdir", os.path.join(tmp, "downstream"), "--data_dir", train_dir,
+         "--val_dir", val_dir, "--train_steps", str(REGRESSION_STEPS), "--log_interval", "1",
+         "--save_interval", str(REGRESSION_STEPS), "--lesion_weight", "0.5",
+         "--out", os.path.join(tmp, "probe_regression.json")]))
+    want = dict.fromkeys(PROBE_KERNELS, 0)
+    want.update(haar_dwt3=5 * REGRESSION_STEPS + 3 * n_cases,
+                haar_idwt3=REGRESSION_STEPS + n_cases)
+    if launches["regression"] != want:
+        fail(f"probe_regression launches {launches['regression']}, expected {want}")
+    down = evaluation["downstream"]
+    real, reg = rep["legs"]["real"], rep["legs"]["regression"]
+    means = list(reg["region_means"]["mean"].values()) + [rep["train"]["final"]["loss"]]
+    if (real["dice_mean"] != down["real"]["dice_mean"]
+            or rep["gt_region_means"] != down["gt_region_means"] or reg["n"] != n_cases
+            or not all(v is not None and math.isfinite(v) for v in means)):
+        fail(f"probe_regression report: {rep}")
+    res["regression"] = {k: rep[k] for k in ("legs", "agreement", "gt_region_means", "train",
+                                             "config")}
+    timed = ([v["ms"] for v in el["A"].values()] + list(el["B"]["forward_ms"].values())
+             + [lane[k]["ms"] for k in lane if k.startswith("conv_")]
+             + [lane[k]["k4b"]["ms"] for k in lane if k.startswith("conv_")]
+             + [lane[k] for k in ("fold_plain_ms", "fold_full_ms", "fold_steady_ms")]
+             + [r["ms_per_step"] for r in rows])
+    if not all(ms > 0 for ms in timed):
+        fail(f"a probe leg measured no device time: {timed}")
+    res["launches"] = launches
+    res["devtime_event_fallbacks"] = fallbacks
+    res["seconds_by_probe"] = seconds
+    return res
+
+
 # phase models: the WavUNet at run.sh's COMMON widths with four levels
 # (five would halve the 112×112×80 latent to an odd size and raise, as in
 # the JAX package), and the production UNet with attention at ds 8 and 16
@@ -1965,8 +2287,8 @@ ATTENTION_FLAGS = dict(bottleneck_attention=True, attention_resolutions="14,7", 
 
 def eager_vs_graph(torch, np, model, diffusion, batch, sampler: str) -> dict:
     """``make_synthesis_fn`` eager and graphed on one case and one seed: a
-    first call each (the graph's capture), then two timed calls each in
-    turns (e, g, g, e); the images of the two paths, expected bit for bit,
+    first call each (the graph's capture), then one timed call each
+    (g, e); the images of the two paths, expected bit for bit,
     and s/volume (host clock, condition DWTs to the image on the host)."""
     from fast_cwdm_tpu_torch.cli import common
 
@@ -1974,7 +2296,7 @@ def eager_vs_graph(torch, np, model, diffusion, batch, sampler: str) -> dict:
                                         device="cuda", cuda_graph=p == "graph")
             for p in ("eager", "graph")}
     imgs, times = {}, {p: [] for p in runs}
-    for k, p in enumerate(("eager", "graph", "eager", "graph", "graph", "eager")):
+    for k, p in enumerate(("eager", "graph", "graph", "eager")):
         gen = torch.Generator(device="cuda").manual_seed(0)
         t0 = time.perf_counter()
         img = runs[p](common.prepare_condition(batch, "t1c", device="cuda"), batch["t1n"], gen)
@@ -2413,6 +2735,13 @@ def torchrun(tmp: str, name: str, n: int, child: list, env: dict, timeout: int =
     """``python -m torch.distributed.run --standalone --nproc_per_node=n
     chip_smoke.py <child>``: n ranks on this host, each writing its record
     to ``tmp/name/rank{r}.json``; returns the records in rank order."""
+    return torchrun_finish(torchrun_start(tmp, name, n, child, env), timeout)
+
+
+def torchrun_start(tmp: str, name: str, n: int, child: list, env: dict) -> tuple:
+    """Start :func:`torchrun`'s job in a session of its own and return at
+    once; :func:`torchrun_finish` waits for it, :func:`torchrun_stop` ends
+    it."""
     import torch
 
     torch.cuda.empty_cache()  # the ranks share the card with this process
@@ -2420,12 +2749,35 @@ def torchrun(tmp: str, name: str, n: int, child: list, env: dict, timeout: int =
     os.makedirs(out_dir, exist_ok=True)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={n}", os.path.join(REPO, "chip_smoke.py"), *child]
-    with open(os.path.join(tmp, f"{name}.log"), "w") as log:
-        proc = subprocess.run(cmd, env=dict(os.environ, **env), stdout=log, stderr=log,
-                              timeout=timeout, cwd=REPO)
-    if proc.returncode != 0:
-        with open(os.path.join(tmp, f"{name}.log")) as f:
-            fail(f"torchrun {name} exited {proc.returncode}:\n{f.read()[-4000:]}")
+    log_path = os.path.join(tmp, f"{name}.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, env=dict(os.environ, **env), stdout=log, stderr=log,
+                                cwd=REPO, start_new_session=True)
+    return name, n, proc, log_path, out_dir
+
+
+def torchrun_stop(job: tuple) -> None:
+    """Kill a job of :func:`torchrun_start` that is still running, its ranks
+    with it."""
+    proc = job[2]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def torchrun_finish(job: tuple, timeout: int = 300) -> list:
+    """Wait for a job of :func:`torchrun_start`; its ranks' records in rank
+    order. Fails on a nonzero exit or at ``timeout`` seconds."""
+    name, n, proc, log_path, out_dir = job
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = f"nothing (killed at {timeout} s)"
+    finally:
+        torchrun_stop(job)
+    if rc != 0:
+        with open(log_path) as f:
+            fail(f"torchrun {name} exited {rc}:\n{f.read()[-4000:]}")
     recs = []
     for r in range(n):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -2679,14 +3031,15 @@ def dist_data(tmp: str) -> tuple[str, dict]:
     return data, {"OPENAI_LOGDIR": os.path.join(tmp, "log"), "OPENAI_LOG_FORMAT": "log,csv"}
 
 
-def dist_one_nccl_rank(tmp: str, data: str, env: dict) -> dict:
+def dist_one_nccl_rank(tmp: str, data: str, env: dict) -> tuple:
     """Phase distributed (a): ``cli.train`` as one NCCL rank, the
-    production config in bf16 with ``--fuse_gn_silu``."""
+    production config in bf16 with ``--fuse_gn_silu``, started (a job of
+    :func:`torchrun_start`, logging to a directory of its own)."""
     flags = train_flags(data, os.path.join(tmp, "ckpt_a"), DIST_STEPS, fuse_gn_silu=True,
                         data_mesh=0)
-    recs = torchrun(tmp, "train_nccl_1", 1, ["--rank-train", os.path.join(tmp, "train_nccl_1"),
-                                              "--", *flags], env)
-    return check_dist_run("(a)", recs)
+    return torchrun_start(tmp, "train_nccl_1", 1,
+                          ["--rank-train", os.path.join(tmp, "train_nccl_1"), "--", *flags],
+                          dict(env, OPENAI_LOGDIR=os.path.join(tmp, "log_a")))
 
 
 def dist_sharded_synthesis(torch, tmp: str, env: dict) -> dict:
@@ -2747,11 +3100,18 @@ def phase_distributed(torch, tmp: str) -> dict:
     synthesized alone (:func:`dist_sharded_synthesis`). Per run: launches per kernel and rank, s/step, the all-reduce's
     ms and bytes per step, peak memory per rank, only rank 0 writing
     files, the same parameters on every rank. Two ranks on one card check
-    correctness; they do not show scaling."""
+    correctness; they do not show scaling. (a) runs beside (b) and (c), to
+    hide its start-up: the card is shared, so the times of (a), (b) and (c)
+    are taken under each other's load."""
     data, env = dist_data(tmp)
-    return {"a_nccl_world_1": dist_one_nccl_rank(tmp, data, env),
-            "b_gloo_world_2": dist_two_ranks_vs_one(torch, tmp, data, env),
-            "c_synthesis_gloo_world_2": dist_sharded_synthesis(torch, tmp, env)}
+    job = dist_one_nccl_rank(tmp, data, env)
+    try:
+        b = dist_two_ranks_vs_one(torch, tmp, data, env)
+        c = dist_sharded_synthesis(torch, tmp, env)
+        a = check_dist_run("(a)", torchrun_finish(job))
+    finally:
+        torchrun_stop(job)
+    return {"a_nccl_world_1": a, "b_gloo_world_2": b, "c_synthesis_gloo_world_2": c}
 
 
 SP = 2  # ranks of phase spatial's sp group (gloo, sharing the card)
@@ -3046,14 +3406,20 @@ def phase_spatial(torch, tmp: str) -> dict:
     from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
     from fast_cwdm_tpu_torch.training import checkpoints
 
-    res = spatial_forward_and_synthesis(torch, tmp)
-    res["slab_kernels"] = spatial_slab_kernels(torch)
     data, env = dist_data(tmp)
     env = dict(env, FAST_CWDM_DIST_BACKEND="gloo")
     flags = train_flags(data, os.path.join(tmp, "ckpt_sp"), SPATIAL_STEPS, fuse_gn_silu=True,
                         spatial_mesh=SP)
-    recs = torchrun(tmp, "train_sp_2", SP, ["--rank-train", os.path.join(tmp, "train_sp_2"),
-                                            "--", *flags], env)
+    # (d)'s bf16 run beside (a)-(c) and the slab kernels, to hide its
+    # start-up (their times are taken under each other's load)
+    job = torchrun_start(tmp, "train_sp_2", SP, ["--rank-train", os.path.join(tmp, "train_sp_2"),
+                                                 "--", *flags], env)
+    try:
+        res = spatial_forward_and_synthesis(torch, tmp)
+        res["slab_kernels"] = spatial_slab_kernels(torch)
+        recs = torchrun_finish(job)
+    finally:
+        torchrun_stop(job)
     res["d_train_fuse_gn_silu"] = check_dist_run("spatial (d)", recs)
     for r, rec in zip(res["d_train_fuse_gn_silu"]["ranks"], recs):
         r.update({f"{k}_per_step": [x.get(f"{k}_per_step") for x in rec["step_log"]]
@@ -3201,7 +3567,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         evaluation = phase_evaluation(torch, tmp)
-    emit({"phase": "evaluation", "gpu": smi, "seconds": time.perf_counter() - t0, **evaluation})
+        emit({"phase": "evaluation", "gpu": smi, "seconds": time.perf_counter() - t0,
+              **evaluation})
+        t0 = time.perf_counter()
+        probes = phase_probes(torch, tmp, evaluation)  # on evaluation's trees and BEST
+    emit({"phase": "probes", "gpu": smi, "seconds": time.perf_counter() - t0, **probes})
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         models = phase_models(torch, tmp)
@@ -3275,7 +3645,9 @@ def main(argv=None) -> int:
             **{f"spatial_c_rank{r['rank']}": r["launches"].get(name, 0)
                for r in spatial["c_synthesis_fuse_conv_dpm10"]["ranks"]},
             **{f"spatial_d_rank{r['rank']}_per_step": r["launches_per_step"].get(name, 0)
-               for r in spatial["d_train_fuse_gn_silu"]["ranks"]}}
+               for r in spatial["d_train_fuse_gn_silu"]["ranks"]},
+            # phase probes: each probe's whole run
+            **{f"probes_{probe}": n.get(name, 0) for probe, n in probes["launches"].items()}}
         if name.startswith("conv3d"):
             line[-1]["launches_by_kernel"] = {
                 kn: conv_counts[f"conv3d_{kn}"] for kn in ("wgmma", "splitk", "mma_sync")}

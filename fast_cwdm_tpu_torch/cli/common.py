@@ -63,6 +63,26 @@ def production_config(**overrides) -> dict:
     return cfg
 
 
+def flagship(in_channels: int = 32, model_channels: int = 64, *,
+             device: str | torch.device | None = None, **overrides) -> torch.nn.Module:
+    """The production cWDM UNet (81,511,048 parameters; the counterpart of
+    the JAX package's ``__graft_entry__._flagship``) on ``device`` (default
+    ``cuda``), in the model's own initialisation; ``overrides`` set runtime
+    choices such as ``dtype`` (a torch dtype), ``fuse_gn_silu``,
+    ``fuse_conv``, ``use_checkpoint`` and ``remat_max_ds`` (the class
+    default 0, as JAX's); any other ``UNetModel`` argument (a narrower
+    ``num_res_blocks`` or ``channel_mult`` for a CPU check) as well."""
+    from fast_cwdm_tpu_torch.models.unet import UNetModel
+
+    dev = resolve_device(device)
+    kw = dict(image_size=112, in_channels=in_channels, model_channels=model_channels,
+              out_channels=8, num_res_blocks=2, attention_resolutions=(),
+              channel_mult=(1, 2, 2, 4, 4), dims=3, num_groups=32, resblock_updown=True,
+              bottleneck_attention=False, resample_2d=False)
+    kw.update(overrides)
+    return UNetModel(**kw).to(dev)
+
+
 def build_model_and_diffusion(cfg: dict):
     """``(model on the CPU, diffusion)`` for a config dict: a
     ``WavUNetModel`` with ``use_freq``, else a ``UNetModel`` (attention and

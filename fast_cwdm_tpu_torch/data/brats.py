@@ -8,11 +8,12 @@ Preprocessing: quantile clip (0.001/0.999) → min-max to [0,1] → zero-pad Z
 
 The JAX package preprocesses on one of two paths: its C++ decoder
 (``data/native/fastnifti.cpp``, in float32, the default wherever it
-builds) or its numpy reader (float64, where the decoder does not build);
-the two differ in the last float32 bit. ``load_preprocessed`` takes the
-default one: the float32 arithmetic of the C++ path, operation for
-operation in numpy (bit for bit). Only a datatype the decoder does not
-read takes the float64 path, as in the JAX package.
+builds) or its numpy reader (float64, under ``FAST_CWDM_NATIVE=0`` or where
+the decoder does not build); the two differ in the last float32 bit.
+``load_preprocessed`` takes the same paths with the port's copy of the
+decoder (``data/native``), and where that copy cannot build, the decoder's
+float32 arithmetic operation for operation in numpy (bit for bit), so that
+the default is the JAX package's default on every host.
 """
 
 from __future__ import annotations
@@ -105,12 +106,30 @@ def preprocess_volume(vol: np.ndarray) -> np.ndarray:
 
 
 def load_preprocessed(path: str) -> np.ndarray:
-    """Load and preprocess one modality volume on the JAX package's default
-    path (float32, as its C++ decoder); a datatype that decoder does not
-    read takes the float64 numpy path."""
-    vol = _load_float32(path)
-    if vol is not None:
-        return pad_crop(clip_and_normalize_float32(vol))
+    """Load and preprocess one modality volume, as the JAX package's
+    ``load_preprocessed`` does:
+
+    - by default, the native decoder (``data/native``: decode and fused
+      clip/normalize in C++, float32; the ctypes call releases the GIL, so
+      ``ThreadedLoader`` decodes cases on every core);
+    - under ``FAST_CWDM_NATIVE=0``, or for a file the decoder does not read
+      (a datatype or byte order it lacks), the float64 numpy reader;
+    - where the decoder cannot be built, its float32 arithmetic in numpy:
+      the same bits as the decoder, so the same as the JAX package's default
+      (its decoder), whereas the JAX package itself then takes its float64
+      reader. Under ``FAST_CWDM_NATIVE=0`` both packages take the float64
+      reader."""
+    if os.environ.get("FAST_CWDM_NATIVE", "1") != "0":
+        from fast_cwdm_tpu_torch.data import native
+
+        if native.available():
+            res = native.load_volume(path)
+            if res is not None:
+                return pad_crop(native.clip_and_normalize_inplace(res[0]))
+        else:
+            vol = _load_float32(path)
+            if vol is not None:
+                return pad_crop(clip_and_normalize_float32(vol))
     return preprocess_volume(nifti.load(path).get_fdata())
 
 

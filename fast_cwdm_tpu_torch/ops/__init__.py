@@ -57,3 +57,11 @@ def set_launch_counts(counts: dict[str, int]) -> None:
             h[k] = value
         else:
             setattr(h, k, value)
+
+
+def launches_since(before: dict[str, int]) -> dict[str, int]:
+    """The counters that moved since ``before`` (a :func:`launch_counts`),
+    by how much: the launches of the work in between (none on the CPU,
+    where the plain versions run)."""
+    now = launch_counts()
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}

@@ -40,8 +40,10 @@ staged through host memory here).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import contextvars
+import gc
 import os
 import signal
 import time
@@ -225,6 +227,24 @@ class DataMesh:
 _MESHES: dict = {}
 
 
+def _release_groups() -> None:
+    """At interpreter exit (registered by the first mesh over a process
+    group): take the process groups out of every cached mesh, destroy the
+    default group if it is still up, and free the groups while Python
+    still runs. A gloo group that a caller's mesh or training loop keeps to
+    the end is otherwise freed during interpreter finalization, which can
+    abort the process ("terminate called without an active exception")."""
+    for mesh in _MESHES.values():
+        object.__setattr__(mesh, "group", None)
+        object.__setattr__(mesh, "world", None)
+        if mesh.sp_axis is not None:
+            object.__setattr__(mesh.sp_axis, "group", None)
+    _MESHES.clear()
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    gc.collect()
+
+
 def make_mesh(data: int = -1, sp: int = 1, tp: int = 1) -> DataMesh:
     """The ``(data, sp)`` mesh of the process group. ``data=-1`` is the
     world size over ``sp``; ``data·sp`` must be the world size (one process
@@ -276,6 +296,9 @@ def make_mesh(data: int = -1, sp: int = 1, tp: int = 1) -> DataMesh:
     mesh = DataMesh({DATA_AXIS: data, SPATIAL_AXIS: sp}, data_group, rank // sp,
                     SpAxis(sp_group, sp, rank % sp) if sp > 1 else None,
                     dist.group.WORLD if up else None, rank)
+    if up:
+        atexit.unregister(_release_groups)  # registered once
+        atexit.register(_release_groups)
     _MESHES[key] = mesh
     return mesh
 

@@ -373,11 +373,34 @@ def test_devtime_result_keys():
     calls = []
     res = devtime.devtime(lambda a: calls.append(a) or torch.ones(4) * a, 2.0, iters=2,
                           detail=True)
-    assert set(res) == {"total_ms", "wall_ms", "busy_share", "ops"}
+    # on a card, also the CUDA-event time, the port's kernels missing from
+    # the trace and the source of total_ms
+    card = {"events_ms", "records_missing", "source"} if torch.cuda.is_available() else set()
+    assert set(res) == {"total_ms", "wall_ms", "busy_share", "ops"} | card
     assert len(calls) == 3 and res["wall_ms"] > 0.0
     if not torch.cuda.is_available():
         assert res["total_ms"] == 0.0 and res["busy_share"] == 0.0 and res["ops"] == {}
-    assert set(devtime.devtime(lambda: None, iters=1)) == {"total_ms", "wall_ms", "busy_share"}
+    assert set(devtime.devtime(lambda: None, iters=1)) == {"total_ms", "wall_ms", "busy_share"} | card
+
+
+def test_devtime_finds_kernel_records_missing_from_a_trace():
+    """A trace that holds fewer records of a port kernel than its wrapper
+    launched is caught, by counter; graph replays (no launches counted) and
+    other kernels are not."""
+    records = {"void affine_silu_kernel<__nv_bfloat16, 8>(...)": 70,
+               "void affine_silu_bwd_rows<float, 4>(...)": 3,
+               "void affine_silu_bwd_reduce(...)": 3,
+               "void conv3d_splitk_kernel<2, true>(Args)": 4,
+               "void conv3d_splitk_reduce<false, false>(RArgs)": 4,
+               "void conv3d_bf16_kernel<true, false, false>(Args)": 1,
+               "void conv3d_f32_kernel<true, false, false>(Args)": 1,
+               "ampere_bf16_s16816gemm": 9}
+    launched = {"affine_silu": 71, "affine_silu_bwd": 3, "conv3d_splitk": 4,
+                "conv3d_mma_sync": 2, "conv3d_fused_k4b": 6, "haar_dwt3": 1}
+    assert devtime.missing_records(launched, records) == {"affine_silu": [70, 71],
+                                                           "haar_dwt3": [0, 1]}
+    assert devtime.missing_records({}, records) == {}
+    assert devtime.missing_records({"conv3d_wgmma": 1}, {}) == {"conv3d_wgmma": [0, 1]}
 
 
 def test_step_timer_report_equals_jax():
