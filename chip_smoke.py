@@ -133,35 +133,61 @@ Phases, each printing one JSON object per line:
               3,186 K4b launches), each progressive generator against its
               loop bit for bit; then the same methods at a tiny fp32 size,
               card against CPU on the same draws (≤ 1e-4, TF32 off);
-14. distributed — the data axis through ``torch.distributed.run``:
-              (a) ``cli.train`` as one NCCL rank (bf16, fuse_gn_silu, 2
-              steps), running beside (b) and (c); (b) two gloo ranks sharing the card (fp32, TF32 off,
-              cuDNN deterministic, global batch 2, 2 steps) against one
-              process accumulating the same rows (bit for bit) and one
-              process at batch 2 (losses within 2e-5; Adam's moments and
-              parameters reported); (c) ``make_synthesis_fn(mesh=)`` over
-              two ranks,
-              each row bit for bit its batch-1 synthesis, the difference
-              from a batch-2 synthesis reported; per run and rank the
-              launches, s/step, the all-reduce's ms and bytes, peak memory
-              and which rank wrote files;
-15. spatial — the sp axis: two gloo ranks as one sp group on the card,
-              each with its Y slab: (a) the fp32 production forward (TF32
-              off) against one process (1e-4 of the output's scale); (b)
-              the bf16 fuse_conv forward (within twice bf16's own error),
-              the K4b launches by route a rank, and every fused-conv shape
-              the halo-extended slabs reach on its routed kernel against
-              the plain version; (c) make_synthesis_fn's fuse_conv dpm++ 10,
-              eager (K1 3, K2 1, K4b 540 a rank; the image finite, in
-              [0,1], zero outside the mask; its difference from the
-              unsharded synthesis reported), s/volume, halo and reduction
-              bytes and ms a forward; (d) ``cli.train --spatial_mesh 2
-              --fuse_gn_silu True`` beside (a)-(c), 3 steps (K1 5, K2 1, K3 83, VJP 71 a
-              step a rank; s/step, memory, halo and all-reduce bytes and
-              ms), and one fp32 step against one process (losses within
-              1e-6, Adam's first moment within 1e-3 of its scale; the
-              parameters reported); K1, K2, K3 and the K3 VJP on the sp
-              slabs' shapes against their plain versions.
+14. distributed — the data axis through ``torch.distributed.run``,
+              every rank reading the seeded weights from one ``.ckpt`` the
+              script writes once for phases 14-16: (a) ``cli.train`` as one
+              NCCL rank (bf16, fuse_gn_silu, 2 steps), running beside one
+              gloo job of two ranks sharing the card that runs (b) then
+              (c) in each rank: (b) fp32, TF32 off, cuDNN deterministic,
+              global batch 2, 2 steps, against one process accumulating
+              the same rows (bit for bit) and one process at batch 2
+              (losses within 2e-5; Adam's moments and parameters
+              reported); (c) ``make_synthesis_fn(mesh=)``, each row bit for
+              bit its batch-1 synthesis, the difference from a batch-2
+              synthesis reported; per run and rank the launches, s/step,
+              the all-reduce's ms and bytes, peak memory and which rank
+              wrote files;
+15. spatial — the sp axis: one gloo job of two ranks as one sp group on
+              the card, each with its Y slab: (a) the fp32 production
+              forward (TF32 off) against one process (1e-4 of the output's
+              scale); (b) the bf16 fuse_conv forward (within twice bf16's
+              own error), the K4b launches by route a rank, and every
+              fused-conv shape the halo-extended slabs reach on its routed
+              kernel against the plain version; (c) make_synthesis_fn's
+              fuse_conv dpm++ 10, eager, one call (K1 3, K2 1, K4b 540 a
+              rank; the image finite, in [0,1], zero outside the mask; its
+              difference from the unsharded synthesis reported), s/volume,
+              halo and reduction bytes and ms a forward; (d) ``cli.train
+              --spatial_mesh 2 --fuse_gn_silu True``, 3 steps (K1 5, K2 1,
+              K3 83, VJP 71 a step a rank; s/step, memory, halo and
+              all-reduce bytes and ms), and one fp32 step against one
+              process (losses within 1e-6, Adam's first moment within 1e-3
+              of its scale; the parameters reported); K1, K2, K3 and the K3
+              VJP on the sp slabs' shapes against their plain versions;
+16. tensor  — the tp axis: one gloo job of two ranks as one tp group on
+              the card, started beside phase spatial (the times of both
+              are taken under each other's load), each holding its
+              slices of the parameters
+              ``param_spec`` shards (40,780,680 of 81,511,048): (a) the
+              fp32 forward against one process (1e-4 of the output's
+              scale); (b) the bf16 fuse_conv forward (within twice bf16's
+              own error), 54 K4b a rank by route, every Co/2 shape on its
+              routed kernel against the plain version, timed beside cuDNN
+              and the bound; (c) make_synthesis_fn's fuse_conv dpm++ 10,
+              eager (K1 3, K2 1, K4b 540 a rank; the same finite [0,1]
+              image on both ranks, zero outside the mask; its difference
+              from the unsharded one, s/volume, the tp gathers' bytes, ms
+              and calls a forward); (d) one fp32 step of ``cli.train
+              --tensor_mesh 2 --fuse_gn_silu True`` against phase
+              spatial's one process (losses within 1e-6, Adam's first
+              moment within 1e-3 of its scale, replicated parameters the
+              same bits on both ranks; its BEST and optimizer blob are the
+              bytes one process writes for the ranks' slices concatenated,
+              and load into one process bit for bit; K1 5, K2 1, K3 83,
+              VJP 71 a step; s/step, peak memory a rank beside one
+              process's, the tp collectives' bytes and ms). Each torchrun
+              job's ``cold_start_s`` (launch until its last rank is past
+              set-up) is printed after the phase.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits nonzero before
@@ -2731,29 +2757,41 @@ def phase_diffusion_api(torch) -> dict:
     return res
 
 
-def torchrun(tmp: str, name: str, n: int, child: list, env: dict, timeout: int = 300) -> list:
+# seconds from each torchrun job's launch until its last rank was past
+# set-up (process group and CUDA context), by job, from the ranks' clocks
+COLD_STARTS: dict = {}
+
+
+def torchrun(tmp: str, name: str, n: int, child: list, env: dict, timeout: int = 300,
+             config: dict | None = None) -> list:
     """``python -m torch.distributed.run --standalone --nproc_per_node=n
     chip_smoke.py <child>``: n ranks on this host, each writing its record
     to ``tmp/name/rank{r}.json``; returns the records in rank order."""
-    return torchrun_finish(torchrun_start(tmp, name, n, child, env), timeout)
+    return torchrun_finish(torchrun_start(tmp, name, n, child, env, config), timeout)
 
 
-def torchrun_start(tmp: str, name: str, n: int, child: list, env: dict) -> tuple:
+def torchrun_start(tmp: str, name: str, n: int, child: list, env: dict,
+                   config: dict | None = None) -> tuple:
     """Start :func:`torchrun`'s job in a session of its own and return at
-    once; :func:`torchrun_finish` waits for it, :func:`torchrun_stop` ends
-    it."""
+    once (``config``, where given, is written to ``tmp/name/config.json``
+    for the ranks first); :func:`torchrun_finish` waits for it,
+    :func:`torchrun_stop` ends it."""
     import torch
 
     torch.cuda.empty_cache()  # the ranks share the card with this process
     out_dir = os.path.join(tmp, name)
     os.makedirs(out_dir, exist_ok=True)
+    if config is not None:
+        with open(os.path.join(out_dir, "config.json"), "w") as f:
+            json.dump(config, f)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={n}", os.path.join(REPO, "chip_smoke.py"), *child]
     log_path = os.path.join(tmp, f"{name}.log")
+    launched = time.time()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(cmd, env=dict(os.environ, **env), stdout=log, stderr=log,
                                 cwd=REPO, start_new_session=True)
-    return name, n, proc, log_path, out_dir
+    return name, n, proc, log_path, out_dir, launched
 
 
 def torchrun_stop(job: tuple) -> None:
@@ -2768,7 +2806,7 @@ def torchrun_stop(job: tuple) -> None:
 def torchrun_finish(job: tuple, timeout: int = 300) -> list:
     """Wait for a job of :func:`torchrun_start`; its ranks' records in rank
     order. Fails on a nonzero exit or at ``timeout`` seconds."""
-    name, n, proc, log_path, out_dir = job
+    name, n, proc, log_path, out_dir, launched = job
     try:
         rc = proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -2782,46 +2820,102 @@ def torchrun_finish(job: tuple, timeout: int = 300) -> list:
     for r in range(n):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             recs.append(json.load(f))
+    COLD_STARTS[name] = max(r["ready_at"] for r in recs) - launched
     return recs
 
 
+def rank_fields(torch) -> dict:
+    """This rank's place: rank, world, backend, device."""
+    return dict(rank=int(os.environ["RANK"]), world=int(os.environ["WORLD_SIZE"]),
+                backend=os.environ.get("FAST_CWDM_DIST_BACKEND", "nccl"),
+                device=torch.cuda.current_device())
+
+
+def rank_ready(torch) -> float:
+    """Set this rank up (its process group, pinned to its GPU, and the CUDA
+    context); the host clock's time when that is done."""
+    from fast_cwdm_tpu_torch.parallel.mesh import setup_distributed
+
+    setup_distributed("cuda")
+    torch.cuda.synchronize()
+    return time.time()
+
+
 def rank_record(torch, out_dir: str, rec: dict) -> None:
-    rank = int(os.environ["RANK"])
-    rec.update(rank=rank, world=int(os.environ["WORLD_SIZE"]),
-               backend=os.environ.get("FAST_CWDM_DIST_BACKEND", "nccl"),
-               device=torch.cuda.current_device(), launches=read_counts(),
+    rec.update(rank_fields(torch), launches=read_counts(),
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+    with open(os.path.join(out_dir, f"rank{rec['rank']}.json"), "w") as f:
         json.dump(rec, f)
 
 
-def rank_train(torch, out_dir: str, exact: bool, argv: list) -> None:
-    """One rank of ``cli.train`` under torchrun: its step log (loss, s/step,
-    all-reduce ms and bytes), launches, peak memory, which of its calls
-    wrote checkpoint files, and a digest of its parameters."""
+_WRITES: list = []  # the checkpoint writes of this process's cli.train runs
+
+
+def train_record(torch, exact: bool, argv: list, on_done=None) -> dict:
+    """One ``cli.train`` run in this rank (exact: as no_tf32(deterministic=
+    True), for the run): its step log (loss, s/step, collectives' ms and
+    bytes), launches, peak memory, which of its calls wrote checkpoint
+    files, and a digest of this rank's parameters; ``on_done`` is called
+    with the finished loop."""
+    import contextlib
+    import gc
     import hashlib
 
     from fast_cwdm_tpu_torch.cli import train
     from fast_cwdm_tpu_torch.training import checkpoints
 
-    if exact:  # as no_tf32(deterministic=True), for the life of the rank
-        no_tf32(torch, deterministic=True).__enter__()
-    writes = []
-    for name in ("save_checkpoint", "save_if_best"):
-        def wrapped(*a, _f=getattr(checkpoints, name), _n=name, **kw):
-            writes.append(_n)
-            return _f(*a, **kw)
-        setattr(checkpoints, name, wrapped)
+    if not hasattr(checkpoints.save_if_best, "smoke_wrapped"):
+        for name in ("save_checkpoint", "save_if_best"):
+            def wrapped(*a, _f=getattr(checkpoints, name), _n=name, **kw):
+                _WRITES.append(_n)
+                return _f(*a, **kw)
+            wrapped.smoke_wrapped = True
+            setattr(checkpoints, name, wrapped)
+    first = len(_WRITES)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    loop = train.main(argv)
-    torch.cuda.synchronize()
+    with no_tf32(torch, deterministic=True) if exact else contextlib.nullcontext():
+        loop = train.main(argv)
+        torch.cuda.synchronize()
     h = hashlib.sha256()
     for p in loop.state.params.values():
         h.update(p.detach().float().cpu().numpy().tobytes())
-    rank_record(torch, out_dir, {"step_log": loop.step_log, "steps": loop.state.step,
-                                 "preempted": loop.preempted, "writes": writes,
-                                 "params_sha256": h.hexdigest()})
+    rec = {"step_log": loop.step_log, "steps": loop.state.step, "preempted": loop.preempted,
+           "writes": _WRITES[first:], "params_sha256": h.hexdigest(), **rank_fields(torch),
+           "launches": read_counts(), "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if on_done is not None:
+        on_done(loop)
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def production_model(torch, seed_ckpt: str, **overrides):
+    """The production UNet (the production config with ``overrides``) with
+    the seeded weights read from ``seed_ckpt``, on the card, in eval mode,
+    and its diffusion."""
+    from fast_cwdm_tpu_torch.cli import common
+
+    cfg = common.production_config(sample_schedule="sampled", diffusion_steps=10, **overrides)
+    model, diffusion = common.build_model_and_diffusion(cfg)
+    common.load_params(seed_ckpt, model)
+    return model.cuda().eval(), diffusion
+
+
+def write_seeded_ckpt(torch, path: str) -> str:
+    """The seeded production weights as a JAX-layout ``.ckpt`` at ``path``
+    (no EMA shadow, step 0), written once for every multi-rank phase: the
+    ranks read it instead of seeding 81.5 M parameters each."""
+    from fast_cwdm_tpu_torch.cli import common
+    from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
+    from fast_cwdm_tpu_torch.training import checkpoints
+
+    cfg, sd = seeded_production(torch)
+    model, _ = common.build_model_and_diffusion(cfg)
+    checkpoints.save_checkpoint(path, {"params": jax_params_from_state_dict(sd, model),
+                                       "ema_params": (), "step": 0})
+    return path
 
 
 DIST_CASES = 2  # synthetic 240×240×155 cases of the distributed phase
@@ -2839,29 +2933,26 @@ def dist_synthesis_inputs(torch):
     return common.prepare_condition(vols, "t1c", device="cuda"), vols["t1n"]
 
 
-def dist_synthesis_fn(torch, mesh=None):
+def dist_synthesis_fn(torch, seed_ckpt: str, mesh=None):
     """The production UNet (seeded, bf16, fuse_conv) as make_synthesis_fn's
     dpm++ 10 chain, sharded over ``mesh`` or not."""
     from fast_cwdm_tpu_torch.cli import common
 
-    cfg, sd = seeded_production(torch, fuse_conv=True)
-    model, diffusion = common.build_model_and_diffusion(cfg)
-    model.load_state_dict(sd)
+    model, diffusion = production_model(torch, seed_ckpt, fuse_conv=True)
     return common.make_synthesis_fn(model, diffusion, sampler="dpm++", sampler_steps=10,
                                     device="cuda", mesh=mesh)
 
 
-def rank_synthesis(torch, out_dir: str) -> None:
-    """One rank of ``make_synthesis_fn(mesh=)``: the whole batch (written
+def synthesis_record(torch, out_dir: str, seed_ckpt: str) -> dict:
+    """``make_synthesis_fn(mesh=)`` in this rank: the whole batch (written
     by every rank, to check they agree), launches, seconds of a first and
     a second call, peak memory."""
     import numpy as np
 
-    from fast_cwdm_tpu_torch.parallel.mesh import local_batch_rows, make_mesh, setup_distributed
+    from fast_cwdm_tpu_torch.parallel.mesh import local_batch_rows, make_mesh
 
-    setup_distributed("cuda")
     mesh = make_mesh()
-    run = dist_synthesis_fn(torch, mesh)
+    run = dist_synthesis_fn(torch, seed_ckpt, mesh)
     cond, mask = dist_synthesis_inputs(torch)
     seconds = []
     for _ in range(2):
@@ -2871,21 +2962,29 @@ def rank_synthesis(torch, out_dir: str) -> None:
         img = run(cond, mask, torch.Generator(device="cuda").manual_seed(9))
         seconds.append(time.perf_counter() - t0)
     np.save(os.path.join(out_dir, f"synth_rank{mesh.rank}.npy"), img)
-    rank_record(torch, out_dir, {"s_per_call": seconds, "shape": list(img.shape),
-                                 "rows": list(local_batch_rows(mesh, DIST_CASES))})
-    torch.distributed.destroy_process_group()
+    return {"s_per_call": seconds, "shape": list(img.shape),
+            "rows": list(local_batch_rows(mesh, DIST_CASES)), **rank_fields(torch),
+            "launches": read_counts(), "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def rank_distributed(torch, out_dir: str, config: dict) -> dict:
+    """One rank of phase distributed's gloo job: (b) ``cli.train`` exact,
+    then (c) the sharded synthesis, in one process."""
+    b = train_record(torch, True, config["train_argv"])
+    return {"b": b, "c": synthesis_record(torch, out_dir, config["seed"])}
 
 
 def dist_run_summary(recs: list) -> dict:
-    """Per rank: launches per step, s/step (warm median), all-reduce ms and
-    bytes per step, peak memory."""
+    """Per rank: launches per step, s/step (warm median; None for a run of
+    one step), all-reduce ms and bytes per step, peak memory."""
     out = []
     for r in recs:
         log = r["step_log"]
         out.append({
             "rank": r["rank"], "world": r["world"], "backend": r["backend"],
             "device": r["device"], "losses": [x["loss"] for x in log],
-            "s_per_step_warm": statistics.median(x["seconds_per_step"] for x in log[1:]),
+            "s_per_step_warm": statistics.median(x["seconds_per_step"] for x in log[1:])
+            if len(log) > 1 else None,
             "s_per_step_all": [x["seconds_per_step"] for x in log],
             "allreduce_ms_per_step": [x.get("allreduce_ms_per_step") for x in log],
             "allreduce_bytes_per_step": [x.get("allreduce_bytes_per_step") for x in log],
@@ -2939,7 +3038,7 @@ def compare_runs(np, a: dict, b: dict, steps: int, lr: float) -> dict:
                 q: float(np.quantile(rms, q)) for q in (0.0, 0.5, 0.9, 1.0)} if beyond else {}}
 
 
-def dist_two_ranks_vs_one(torch, tmp: str, data: str, env: dict) -> dict:
+def dist_two_ranks_vs_one(torch, tmp: str, data: str, recs: list, flags: dict) -> dict:
     """Phase distributed (b): ``cli.train`` as two gloo ranks sharing the
     card, global batch 2, ``DIST_STEPS`` steps with ``--fuse_gn_silu``, fp32
     with TF32 off and cuDNN's deterministic algorithms, from the same
@@ -2950,27 +3049,13 @@ def dist_two_ranks_vs_one(torch, tmp: str, data: str, env: dict) -> dict:
     all-reduce does: losses, parameters and Adam's moments the same bits;
     (ii) at batch 2 in one pass, whose convolutions reduce in another order:
     losses within 2e-5, and Adam's first moment and the parameters reported
-    (``compare_runs``; PERF.md §6)."""
+    (``compare_runs``; PERF.md §6). ``recs``: the ranks' records of the
+    run, made in the gloo job of :func:`phase_distributed` with ``flags``."""
     import numpy as np
 
-    from fast_cwdm_tpu_torch.cli import common
-    from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
     from fast_cwdm_tpu_torch.training import checkpoints
 
     steps, lr = DIST_STEPS, 1e-5
-    cfg, sd = seeded_production(torch)
-    model, _ = common.build_model_and_diffusion(cfg)
-    seed_ckpt = os.path.join(tmp, "seeded", "seeded_production.ckpt")
-    checkpoints.save_checkpoint(seed_ckpt, {"params": jax_params_from_state_dict(sd, model),
-                                            "ema_params": (), "step": 0})
-    del model, sd
-    flags = dict(fuse_gn_silu=True, batch_size=2, dtype="float32",
-                 resume_checkpoint=seed_ckpt, data_mesh=0)
-    recs = torchrun(tmp, "train_gloo_2", 2, ["--rank-train", os.path.join(tmp, "train_gloo_2"),
-                                              "--exact", "--",
-                                              *train_flags(data, os.path.join(tmp, "ckpt_two"),
-                                                           steps, **flags)],
-                    dict(env, FAST_CWDM_DIST_BACKEND="gloo"))
     out = check_dist_run("(b)", recs)
     two = adam_state(checkpoints, np, os.path.join(tmp, "ckpt_two"))
     for name, extra in (("one_process_microbatch_1", {"microbatch": 1}),
@@ -3004,21 +3089,23 @@ DIST_LAUNCHES_PER_STEP = {"haar_dwt3": 5, "haar_idwt3": 1, "affine_silu": 71 + R
 GRAD_BYTES = 4 * 81_511_048  # the float32 gradients of the production UNet
 
 
-def check_dist_run(name: str, recs: list) -> dict:
+def check_dist_run(name: str, recs: list, allreduce_bytes: int = GRAD_BYTES + 4 * 9,
+                   same_params: bool = True) -> dict:
     """A training run's ranks: K1, K2, K3 and its VJP each step, one
-    all-reduce of the gradients and the 9 loss floats a step, rank 0 alone
-    writing files, the same parameters on every rank."""
+    all-reduce of ``allreduce_bytes`` a step (the gradients and the 9 loss
+    floats), rank 0 alone writing files, and (``same_params``) the same
+    parameters on every rank."""
     summary = dist_run_summary(recs)
     for r in summary["ranks"]:
         got = {k: r["launches_per_step"].get(k, 0) for k in DIST_LAUNCHES_PER_STEP}
         if got != DIST_LAUNCHES_PER_STEP:
             fail(f"{name}: rank {r['rank']} launches per step {got}, "
                  f"expected {DIST_LAUNCHES_PER_STEP}")
-        if r["allreduce_bytes_per_step"][-1] != GRAD_BYTES + 4 * 9:
+        if r["allreduce_bytes_per_step"][-1] != allreduce_bytes:
             fail(f"{name}: all-reduce bytes {r['allreduce_bytes_per_step']}")
     if not summary["ranks"][0]["writes"] or any(r["writes"] for r in summary["ranks"][1:]):
         fail(f"{name}: files written by {[r['writes'] for r in summary['ranks']]}")
-    if len({r["params_sha256"] for r in summary["ranks"]}) != 1:
+    if same_params and len({r["params_sha256"] for r in summary["ranks"]}) != 1:
         fail(f"{name}: the ranks' parameters differ")
     return summary
 
@@ -3042,7 +3129,7 @@ def dist_one_nccl_rank(tmp: str, data: str, env: dict) -> tuple:
                           dict(env, OPENAI_LOGDIR=os.path.join(tmp, "log_a")))
 
 
-def dist_sharded_synthesis(torch, tmp: str, env: dict) -> dict:
+def dist_sharded_synthesis(torch, tmp: str, recs: list, seed_ckpt: str) -> dict:
     """Phase distributed (c): ``make_synthesis_fn(mesh=)`` (bf16,
     fuse_conv, dpm++ 10) over two gloo ranks on the card. Held: both ranks
     return the same whole batch, each row equal bit for bit to that row
@@ -3050,16 +3137,14 @@ def dist_sharded_synthesis(torch, tmp: str, env: dict) -> dict:
     a rank. Reported: its difference from the batch synthesized at batch 2
     in one process, where 100 of the 540 convs route to the wgmma kernel
     instead of split-K and the random-weight chain carries the bf16
-    differences through 10 steps."""
+    differences through 10 steps. ``recs``: the ranks' records of it, made
+    in the gloo job of :func:`phase_distributed`."""
     import numpy as np
 
-    recs = torchrun(tmp, "synth_gloo_2", 2, ["--rank-synthesis",
-                                              os.path.join(tmp, "synth_gloo_2")],
-                    dict(env, FAST_CWDM_DIST_BACKEND="gloo"))
-    imgs = [np.load(os.path.join(tmp, "synth_gloo_2", f"synth_rank{r}.npy")) for r in range(2)]
+    imgs = [np.load(os.path.join(tmp, "dist_gloo_2", f"synth_rank{r}.npy")) for r in range(2)]
     if not np.array_equal(imgs[0], imgs[1]):
         fail("(c) the two ranks returned different batches")
-    run = dist_synthesis_fn(torch)
+    run = dist_synthesis_fn(torch, seed_ckpt)
     cond, mask = dist_synthesis_inputs(torch)
     reset_counts()
     t0 = time.perf_counter()
@@ -3089,7 +3174,7 @@ def dist_sharded_synthesis(torch, tmp: str, env: dict) -> dict:
     return out
 
 
-def phase_distributed(torch, tmp: str) -> dict:
+def phase_distributed(torch, tmp: str, seed_ckpt: str) -> dict:
     """The data axis on the card (ROADMAP M8), through torchrun: (a)
     ``cli.train`` as one rank on NCCL, the production config in bf16 with
     ``--fuse_gn_silu``, ``DIST_STEPS`` steps; (b) two ranks sharing the
@@ -3097,21 +3182,30 @@ def phase_distributed(torch, tmp: str) -> dict:
     ``--fuse_gn_silu``, against one process on the same global batch 2
     (:func:`dist_two_ranks_vs_one`); (c) ``make_synthesis_fn(mesh=)``
     (bf16, fuse_conv, dpm++ 10) over two ranks against each row
-    synthesized alone (:func:`dist_sharded_synthesis`). Per run: launches per kernel and rank, s/step, the all-reduce's
+    synthesized alone (:func:`dist_sharded_synthesis`); (b) and (c) in one
+    gloo job, each rank running (b) then (c). Per run: launches per kernel and rank, s/step, the all-reduce's
     ms and bytes per step, peak memory per rank, only rank 0 writing
     files, the same parameters on every rank. Two ranks on one card check
-    correctness; they do not show scaling. (a) runs beside (b) and (c), to
-    hide its start-up: the card is shared, so the times of (a), (b) and (c)
-    are taken under each other's load."""
+    correctness; they do not show scaling. (a) runs beside the gloo job,
+    to hide its start-up: the card is shared, so the times of (a), (b) and
+    (c) are taken under each other's load."""
     data, env = dist_data(tmp)
+    flags = dict(fuse_gn_silu=True, batch_size=2, dtype="float32",
+                 resume_checkpoint=seed_ckpt, data_mesh=0)
     job = dist_one_nccl_rank(tmp, data, env)
     try:
-        b = dist_two_ranks_vs_one(torch, tmp, data, env)
-        c = dist_sharded_synthesis(torch, tmp, env)
+        recs = torchrun(tmp, "dist_gloo_2", 2, ["--rank-job", "distributed",
+                                                 os.path.join(tmp, "dist_gloo_2")],
+                        dict(env, FAST_CWDM_DIST_BACKEND="gloo"), timeout=600, config={
+                            "seed": seed_ckpt, "train_argv": train_flags(
+                                data, os.path.join(tmp, "ckpt_two"), DIST_STEPS, **flags)})
+        b = dist_two_ranks_vs_one(torch, tmp, data, [r["b"] for r in recs], flags)
+        c = dist_sharded_synthesis(torch, tmp, [r["c"] for r in recs], seed_ckpt)
         a = check_dist_run("(a)", torchrun_finish(job))
     finally:
         torchrun_stop(job)
-    return {"a_nccl_world_1": a, "b_gloo_world_2": b, "c_synthesis_gloo_world_2": c}
+    return {"a_nccl_world_1": a, "b_gloo_world_2": b, "c_synthesis_gloo_world_2": c,
+            "cold_start_s": {k: COLD_STARTS[k] for k in ("train_nccl_1", "dist_gloo_2")}}
 
 
 SP = 2  # ranks of phase spatial's sp group (gloo, sharing the card)
@@ -3126,16 +3220,6 @@ def spatial_input(torch):
     return x, torch.tensor([5], device="cuda")
 
 
-def spatial_model(torch, **overrides):
-    """The seeded production UNet on the card (bf16 unless ``dtype``)."""
-    from fast_cwdm_tpu_torch.cli import common
-
-    cfg, sd = seeded_production(torch, **overrides)
-    model, diffusion = common.build_model_and_diffusion(cfg)
-    model.load_state_dict(sd)
-    return model.cuda().eval(), diffusion
-
-
 def spatial_volumes(torch):
     """One seeded 224×224×160 case (four modalities, background in t1n)."""
     g = torch.Generator(device="cuda").manual_seed(32)
@@ -3146,122 +3230,206 @@ def spatial_volumes(torch):
     return vols
 
 
-def rank_spatial(torch, out_dir: str) -> None:
-    """One rank of phase spatial (a)-(c) under torchrun: its Y slab of the
-    fp32 forward (TF32 off), of the bf16 fuse_conv forward (with the fused
-    convs' shapes and routes and the launches), and the whole image of a
-    sharded fuse_conv dpm++ 10 synthesis, called twice (s/volume, launches,
-    halo and reduction bytes and ms of the second call)."""
-    import collections
+class record_fused_shapes:
+    """Inside the block, count the shapes and routes K4b is given
+    (``[B, Ci, [X, Y, Z], Co, route]`` as JSON → launches)."""
 
+    def __init__(self):
+        import collections
+
+        self.shapes = collections.Counter()
+
+    def __enter__(self):
+        from fast_cwdm_tpu_torch.models import unet
+        from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
+
+        self.fused = fused = unet.conv3d_fused
+
+        def recording(xx, w, b, **kw):
+            bsz, ci, *sp = xx.shape
+            self.shapes[json.dumps([bsz, ci, sp, w.shape[-1],
+                                    tc.route(xx.dtype, bsz, ci, w.shape[-1], *sp)])] += 1
+            return fused(xx, w, b, **kw)
+
+        unet.conv3d_fused = recording
+        return self
+
+    def __exit__(self, *exc):
+        from fast_cwdm_tpu_torch.models import unet
+
+        unet.conv3d_fused = self.fused
+
+    def table(self) -> list:
+        return [json.loads(k) + [n] for k, n in sorted(self.shapes.items())]
+
+
+def timed_forward(torch, model, x, t, axis) -> tuple:
+    """One bf16 forward after a warm one: its output, and its ms, launches,
+    collectives by kind and the K4b shapes and routes it reached."""
+    torch.cuda.synchronize()
+    with record_fused_shapes() as rec:
+        model(x, t)  # warm
+        torch.cuda.synchronize()
+        rec.shapes.clear()
+        axis.log.drain(None)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = model(x, t)
+        torch.cuda.synchronize()
+    return out, {"ms": (time.perf_counter() - t0) * 1e3, "launches": read_counts(),
+                 "comm": axis.log.drain_by_kind(), "shapes": rec.table()}
+
+
+def spatial_record(torch, out_dir: str, seed_ckpt: str) -> dict:
+    """Phase spatial (a)-(c) in this rank: its Y slab of the fp32 forward
+    (TF32 off), of the bf16 fuse_conv forward (with the fused convs' shapes
+    and routes and the launches), and the whole image of a sharded
+    fuse_conv dpm++ 10 synthesis (s/volume, launches, halo and reduction
+    bytes and ms)."""
     import numpy as np
 
     from fast_cwdm_tpu_torch.cli import common
-    from fast_cwdm_tpu_torch.models import unet
-    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
     from fast_cwdm_tpu_torch.parallel import mesh as pm
 
-    pm.setup_distributed("cuda")
     mesh = pm.make_mesh(sp=SP)
     axis, r = mesh.sp_axis, mesh.process_rank
     y0, y1 = pm.y_slab(mesh, LATENT[1])
     x, t = spatial_input(torch)
     xs = x[:, :, :, y0:y1].contiguous(memory_format=torch.channels_last_3d)
     rec = {"slab": [y0, y1]}
-    model, _ = spatial_model(torch, dtype="float32")
+    model, _ = production_model(torch, seed_ckpt, dtype="float32")
     with torch.inference_mode(), no_tf32(torch), pm.sp_active(axis):
         np.save(os.path.join(out_dir, f"a_rank{r}.npy"), model(xs, t).cpu().numpy())
     del model
-    model, diffusion = spatial_model(torch, fuse_conv=True)
-    shapes = collections.Counter()
-    fused = unet.conv3d_fused
-
-    def recording(xx, w, b, **kw):  # the shapes the slabs give K4b
-        bsz, ci, *sp = xx.shape
-        shapes[json.dumps([bsz, ci, sp, w.shape[-1],
-                           tc.route(xx.dtype, bsz, ci, w.shape[-1], *sp)])] += 1
-        return fused(xx, w, b, **kw)
-
-    unet.conv3d_fused = recording
+    model, diffusion = production_model(torch, seed_ckpt, fuse_conv=True)
     with torch.inference_mode(), pm.sp_active(axis):
-        model(xs, t)  # warm
-        torch.cuda.synchronize()
-        shapes.clear()
-        axis.log.drain(None)
-        reset_counts()
-        t0 = time.perf_counter()
-        out = model(xs, t)
-        torch.cuda.synchronize()
-        rec["b"] = {"ms": (time.perf_counter() - t0) * 1e3, "launches": read_counts(),
-                    "comm": axis.log.drain_by_kind(),
-                    "shapes": [json.loads(k) + [n] for k, n in sorted(shapes.items())]}
-    unet.conv3d_fused = fused
+        out, rec["b"] = timed_forward(torch, model, xs, t, axis)
     np.save(os.path.join(out_dir, f"b_rank{r}.npy"), out.float().cpu().numpy())
     run = common.make_synthesis_fn(model, diffusion, sampler="dpm++", sampler_steps=10,
                                    device="cuda", mesh=mesh)
     vols = spatial_volumes(torch)
-    seconds = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        axis.log.drain(None)
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        cond = common.prepare_condition(vols, "t1c", device="cuda", mesh=mesh)
-        img = run(cond, vols["t1n"], torch.Generator(device="cuda").manual_seed(9))
-        seconds.append(time.perf_counter() - t0)
-    rec["c"] = {"s_per_volume": seconds, "launches": read_counts(),
-                "comm": axis.log.drain_by_kind(), "chain": run.chain is None}
+    torch.cuda.synchronize()
+    axis.log.drain(None)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cond = common.prepare_condition(vols, "t1c", device="cuda", mesh=mesh)
+    img = run(cond, vols["t1n"], torch.Generator(device="cuda").manual_seed(9))
+    rec["c"] = {"s_per_volume": [time.perf_counter() - t0], "launches": read_counts(),
+                "comm": axis.log.drain_by_kind(), "chain": run.chain is None,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     np.save(os.path.join(out_dir, f"c_rank{r}.npy"), img)
-    rank_record(torch, out_dir, rec)
-    torch.distributed.destroy_process_group()
+    return rec
 
 
-def spatial_routes(torch, shapes: list) -> list:
-    """Each distinct fused-conv shape the slabs reached (halo-extended Y),
-    on the kernel ``route`` picks, against ``conv3d_fused_plain``."""
+def rank_spatial(torch, out_dir: str, config: dict) -> dict:
+    """One rank of phase spatial's gloo job: (a)-(c), then (d)'s bf16
+    ``cli.train --spatial_mesh`` run and its exact fp32 step, in one
+    process."""
+    rec = spatial_record(torch, out_dir, config["seed"])
+    torch.cuda.empty_cache()
+    rec["d"] = train_record(torch, False, config["bf16_argv"])
+    rec["d_fp32"] = train_record(torch, True, config["fp32_argv"])
+    return rec
+
+
+def slice_routes(torch, F, shapes: list, phase: str, timed: bool = False) -> list:
+    """Each distinct fused-conv shape a sharded path reached (sp: halo-
+    extended Y; tp: Co over tp), on the kernel ``route`` picks, against
+    ``conv3d_fused_plain``; with ``timed``, the routed kernel's ms beside
+    cuDNN's (``F.conv3d`` bf16 channels_last_3d, the conv alone) and the
+    bound."""
     from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
 
     out, seen = [], set()
     g = torch.Generator(device="cuda").manual_seed(33)
-    for bsz, ci, sp, co, kernel, _ in shapes:
+    for bsz, ci, sp, co, kernel, n in shapes:
         key = (bsz, ci, tuple(sp), co)
         if key in seen:
             continue
         seen.add(key)
         x, w, b, gn = conv_inputs(torch, g, bsz, ci, tuple(sp), co, torch.bfloat16)
+        wp = tc.pack_wgmma_weights(w) if kernel in ("wgmma", "splitk") else None
         with torch.inference_mode():
-            got = tc.conv3d_fused(x, w, b, gn=gn, block_x=2)
+            got = tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp)
             ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
         ratio = tc.tol_ratio(got, ref, x, w, gn)
-        out.append({"shape": [bsz, ci, *sp], "co": co, "kernel": kernel, "tol_ratio": ratio,
-                    "max_abs_err": float((got.float() - ref.float()).abs().max())})
+        row = {"shape": [bsz, ci, *sp], "co": co, "kernel": kernel, "tol_ratio": ratio,
+               "max_abs_err": float((got.float() - ref.float()).abs().max()),
+               "per_forward": n}
+        if timed:
+            w_lib = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            b_lib = b.to(torch.bfloat16)
+            nb, fl = conv_cost(x, co)
+            row["bound_ms"], row["bound_by"] = bound_ms(nb, fl, PEAK_BF16_FLOPS)
+            row["ms"] = time_ms(torch, lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2,
+                                                               w_packed=wp), reps=10)
+            row["cudnn_ms"] = time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1),
+                                      reps=10)
+        out.append(row)
+        del x, w, b, gn, got, ref
         if not ratio <= 1.0:
-            fail(f"spatial: the {kernel} kernel at {key} disagrees with its plain version "
+            fail(f"{phase}: the {kernel} kernel at {key} disagrees with its plain version "
                  f"({ratio} of {CONV_TOL})")
+    torch.cuda.empty_cache()
     return out
 
 
-def spatial_forward_and_synthesis(torch, tmp: str) -> dict:
-    """Phase spatial (a)-(c): two gloo ranks (:func:`rank_spatial`) against
-    one process on the same input, weights and draws."""
-    import numpy as np
-
+def spatial_references(torch, seed_ckpt: str) -> dict:
+    """The one-process references of phases spatial and tensor on the same
+    input, weights and draws: the fp32 forward (TF32 off), the bf16
+    fuse_conv forward with its launches, and the fuse_conv dpm++ 10
+    synthesis, eager, with its seconds."""
     from fast_cwdm_tpu_torch.cli import common
 
-    d = os.path.join(tmp, "spatial_gloo_2")
-    recs = torchrun(tmp, "spatial_gloo_2", SP, ["--rank-spatial", d],
-                    {"FAST_CWDM_DIST_BACKEND": "gloo"}, timeout=600)
     x, t = spatial_input(torch)
-    model, _ = spatial_model(torch, dtype="float32")
+    model, _ = production_model(torch, seed_ckpt, dtype="float32")
     with torch.inference_mode(), no_tf32(torch):
         y32 = model(x, t).cpu().numpy()
     del model
-    model, diffusion = spatial_model(torch, fuse_conv=True)
+    model, diffusion = production_model(torch, seed_ckpt, fuse_conv=True)
     reset_counts()
     with torch.inference_mode():
         y16 = model(x, t).float().cpu().numpy()
-    whole_counts = read_counts()
+    counts = read_counts()
+    run = common.make_synthesis_fn(model, diffusion, sampler="dpm++", sampler_steps=10,
+                                   device="cuda", cuda_graph=False)
+    vols = spatial_volumes(torch)
+    t0 = time.perf_counter()
+    whole = run(common.prepare_condition(vols, "t1c", device="cuda"), vols["t1n"],
+                torch.Generator(device="cuda").manual_seed(9))
+    ref = {"y32": y32, "y16": y16, "launches": {k: v for k, v in counts.items() if v},
+           "whole": whole, "whole_s": time.perf_counter() - t0,
+           "mask": vols["t1n"][..., 0].cpu().numpy()}
+    del model, run
+    torch.cuda.empty_cache()
+    return ref
+
+
+def check_synthesis_image(np, phase: str, imgs: list, ref: dict) -> dict:
+    """A sharded synthesis: the same finite [0,1] image on every rank, zero
+    outside the mask; its difference from the unsharded one."""
+    img = imgs[0]
+    mask = ref["mask"][:, :, :, :img.shape[3]]
+    if not (all(np.array_equal(img, o) for o in imgs[1:]) and img.shape == ref["whole"].shape
+            and np.isfinite(img).all() and img.min() >= 0.0 and img.max() <= 1.0
+            and not np.any(img[mask == 0])):
+        fail(f"{phase} (c): the sharded synthesis is not the same finite [0,1] image on every "
+             "rank, zero outside the mask")
+    diff = np.abs(img - ref["whole"])
+    return {"max_abs_diff_vs_unsharded": float(diff.max()),
+            "mean_abs_diff_vs_unsharded": float(diff.mean()), "unsharded_eager_s": ref["whole_s"]}
+
+
+def spatial_forward_and_synthesis(torch, F, tmp: str, recs: list, ref: dict) -> dict:
+    """Phase spatial (a)-(c): the two gloo ranks' records
+    (:func:`spatial_record`) against one process on the same input,
+    weights and draws (``ref``, :func:`spatial_references`)."""
+    import numpy as np
+
+    d = os.path.join(tmp, "spatial_gloo_2")
+    y32, y16 = ref["y32"], ref["y16"]
     slabs = {k: np.concatenate([np.load(os.path.join(d, f"{k}_rank{r}.npy"))
                                 for r in range(SP)], axis=3) for k in ("a", "b")}
     scale = float(np.abs(y32).max())
@@ -3272,7 +3440,7 @@ def spatial_forward_and_synthesis(torch, tmp: str) -> dict:
                               "tol": 1e-4 * scale},
            "b_bf16_fuse_conv_forward": {
                "max_abs_diff": b_err, "tol": bound, "bf16_vs_fp32": bound / BF16_FACTOR,
-               "unsharded_launches": {k: v for k, v in whole_counts.items() if v},
+               "unsharded_launches": ref["launches"],
                "ranks": [{"rank": r["rank"], "ms": r["b"]["ms"], "shapes": r["b"]["shapes"],
                           "launches": {k: v for k, v in r["b"]["launches"].items() if v},
                           "comm": r["b"]["comm"]} for r in recs]}}
@@ -3285,34 +3453,17 @@ def spatial_forward_and_synthesis(torch, tmp: str) -> dict:
         if got["conv3d_fused_k4b"] != 54 or got["conv3d_wgmma"] + got["conv3d_splitk"] \
                 + got["conv3d_mma_sync"] != 54:
             fail(f"spatial (b): rank {r['rank']} K4b launches {got}")
-    res["b_bf16_fuse_conv_forward"]["routes"] = spatial_routes(
-        torch, [s for r in recs for s in r["b"]["shapes"]])
-    # (c): the unsharded synthesis on the same draws, eager
-    run = common.make_synthesis_fn(model, diffusion, sampler="dpm++", sampler_steps=10,
-                                   device="cuda", cuda_graph=False)
-    vols = spatial_volumes(torch)
-    t0 = time.perf_counter()
-    whole = run(common.prepare_condition(vols, "t1c", device="cuda"), vols["t1n"],
-                torch.Generator(device="cuda").manual_seed(9))
-    whole_s = time.perf_counter() - t0
+    res["b_bf16_fuse_conv_forward"]["routes"] = slice_routes(
+        torch, F, [s for r in recs for s in r["b"]["shapes"]], "spatial")
     imgs = [np.load(os.path.join(d, f"c_rank{r}.npy")) for r in range(SP)]
-    mask = vols["t1n"][..., 0].cpu().numpy()[:, :, :, :imgs[0].shape[3]]
-    img = imgs[0]
-    if not (all(np.array_equal(img, o) for o in imgs[1:]) and img.shape == whole.shape
-            and np.isfinite(img).all() and img.min() >= 0.0 and img.max() <= 1.0
-            and not np.any(img[mask == 0])):
-        fail("spatial (c): the sharded synthesis is not the same finite [0,1] image on every "
-             "rank, zero outside the mask")
-    diff = np.abs(img - whole)
     res["c_synthesis_fuse_conv_dpm10"] = {
-        "max_abs_diff_vs_unsharded": float(diff.max()),
-        "mean_abs_diff_vs_unsharded": float(diff.mean()), "unsharded_eager_s": whole_s,
+        **check_synthesis_image(np, "spatial", imgs, ref),
         "ranks": [{"rank": r["rank"], "s_per_volume": r["c"]["s_per_volume"],
                    "eager": r["c"]["chain"],
                    "launches": {k: v for k, v in r["c"]["launches"].items() if v},
                    "comm_per_forward": {k: [b / 10, ms / 10, n / 10]
                                         for k, (b, ms, n) in r["c"]["comm"].items()},
-                   "max_memory_allocated_bytes": r["max_memory_allocated_bytes"]}
+                   "max_memory_allocated_bytes": r["c"]["max_memory_allocated_bytes"]}
                   for r in recs]}
     for r in recs:
         got = r["c"]["launches"]
@@ -3386,7 +3537,7 @@ def spatial_slab_kernels(torch) -> dict:
 ADAM_MU_RTOL = 1e-3
 
 
-def phase_spatial(torch, tmp: str) -> dict:
+def phase_spatial(torch, F, tmp: str, seed_ckpt: str, ref: dict) -> dict:
     """The sp axis on the card (two gloo ranks share it, so these runs
     check correctness and cost, not scaling): (a) the fp32 production
     forward, TF32 off, sharded against one process (within 1e-4 of the
@@ -3395,67 +3546,310 @@ def phase_spatial(torch, tmp: str) -> dict:
     slabs reach held against the plain version; (c) the fuse_conv dpm++ 10
     synthesis, eager, its image checked and its difference from the
     unsharded one reported; (d) ``cli.train --spatial_mesh 2
-    --fuse_gn_silu True`` (3 steps: launches of K1, K2, K3 and its VJP,
-    s/step, memory, halo and all-reduce bytes and ms) and one fp32 step
-    against one process (losses within 1e-6, Adam's first moment within
-    ``ADAM_MU_RTOL`` of its scale; the parameters reported); and
-    :func:`spatial_slab_kernels`."""
+    --fuse_gn_silu True`` (``SPATIAL_STEPS`` steps: launches of K1, K2, K3
+    and its VJP, s/step, memory, halo and all-reduce bytes and ms) and one
+    fp32 step against one process (losses within 1e-6, Adam's first moment
+    within ``ADAM_MU_RTOL`` of its scale; the parameters reported); all in
+    one gloo job, each rank running (a)-(c), then (d)'s two runs; and
+    :func:`spatial_slab_kernels` while it runs. Phase tensor's job runs
+    beside it all (:func:`tensor_start`): the times of both are taken under
+    each other's load. ``ref``: the one-process references
+    (:func:`spatial_references`); the one-process fp32 step is added to it
+    for phase tensor."""
     import numpy as np
 
-    from fast_cwdm_tpu_torch.cli import common
-    from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
     from fast_cwdm_tpu_torch.training import checkpoints
 
     data, env = dist_data(tmp)
     env = dict(env, FAST_CWDM_DIST_BACKEND="gloo")
-    flags = train_flags(data, os.path.join(tmp, "ckpt_sp"), SPATIAL_STEPS, fuse_gn_silu=True,
-                        spatial_mesh=SP)
-    # (d)'s bf16 run beside (a)-(c) and the slab kernels, to hide its
-    # start-up (their times are taken under each other's load)
-    job = torchrun_start(tmp, "train_sp_2", SP, ["--rank-train", os.path.join(tmp, "train_sp_2"),
-                                                 "--", *flags], env)
+    exact = dict(fuse_gn_silu=True, dtype="float32", resume_checkpoint=seed_ckpt)
+    d = os.path.join(tmp, "spatial_gloo_2")
+    job = torchrun_start(tmp, "spatial_gloo_2", SP, ["--rank-job", "spatial", d], env, config={
+        "seed": seed_ckpt,
+        "bf16_argv": train_flags(data, os.path.join(tmp, "ckpt_sp"), SPATIAL_STEPS,
+                                 fuse_gn_silu=True, spatial_mesh=SP),
+        "fp32_argv": train_flags(data, os.path.join(tmp, "ckpt_sp_fp32"), 1, spatial_mesh=SP,
+                                 **exact)})
     try:
-        res = spatial_forward_and_synthesis(torch, tmp)
-        res["slab_kernels"] = spatial_slab_kernels(torch)
-        recs = torchrun_finish(job)
+        slab = spatial_slab_kernels(torch)  # beside the ranks
+        recs = torchrun_finish(job, timeout=900)
     finally:
         torchrun_stop(job)
-    res["d_train_fuse_gn_silu"] = check_dist_run("spatial (d)", recs)
-    for r, rec in zip(res["d_train_fuse_gn_silu"]["ranks"], recs):
-        r.update({f"{k}_per_step": [x.get(f"{k}_per_step") for x in rec["step_log"]]
-                  for k in ("halo_ms", "halo_bytes", "sp_reduce_ms", "sp_reduce_bytes",
-                            "sp_gather_ms", "sp_gather_bytes")})
-    # one fp32 step from the seeded weights, two ranks against one process
-    cfg, sd = seeded_production(torch)
-    model, _ = common.build_model_and_diffusion(cfg)
-    seed_ckpt = os.path.join(tmp, "seeded_sp", "seeded_production.ckpt")
-    checkpoints.save_checkpoint(seed_ckpt, {"params": jax_params_from_state_dict(sd, model),
-                                            "ema_params": (), "step": 0})
-    del model, sd
-    exact = dict(fuse_gn_silu=True, dtype="float32", resume_checkpoint=seed_ckpt)
-    recs = torchrun(tmp, "train_sp_fp32", SP, [
-        "--rank-train", os.path.join(tmp, "train_sp_fp32"), "--exact", "--",
-        *train_flags(data, os.path.join(tmp, "ckpt_sp_fp32"), 1, spatial_mesh=SP, **exact)],
-        env)
-    two = adam_state(checkpoints, np, os.path.join(tmp, "ckpt_sp_fp32"))
+    # the one process's fp32 step after the sp ranks (the tp ranks, beside
+    # it, and the sp ranks' fp32 steps would not all fit the card at once)
     with no_tf32(torch, deterministic=True):
         one = run_train(torch, tmp, "sp_one_process", train_flags(
             data, os.path.join(tmp, "ckpt_sp_one"), 1, **exact), 1)
-    losses = [[x["loss"] for x in r["step_log"]] for r in recs]
+    res = spatial_forward_and_synthesis(torch, F, tmp, recs, ref)
+    res["slab_kernels"] = slab
+    res["d_train_fuse_gn_silu"] = check_dist_run("spatial (d)", [r["d"] for r in recs])
+    for r, rec in zip(res["d_train_fuse_gn_silu"]["ranks"], recs):
+        r.update({f"{k}_per_step": [x.get(f"{k}_per_step") for x in rec["d"]["step_log"]]
+                  for k in ("halo_ms", "halo_bytes", "sp_reduce_ms", "sp_reduce_bytes",
+                            "sp_gather_ms", "sp_gather_bytes")})
+    # one fp32 step from the seeded weights, two ranks against one process
+    two = adam_state(checkpoints, np, os.path.join(tmp, "ckpt_sp_fp32"))
+    ref["one_fp32_step"] = one
+    ref["one_fp32_state"] = adam_state(checkpoints, np, os.path.join(tmp, "ckpt_sp_one"))
+    losses = [[x["loss"] for x in r["d_fp32"]["step_log"]] for r in recs]
     res["d_fp32_step_vs_one_process"] = {
         "losses_ranks": losses, "losses_one_process": one["losses"],
         "max_abs_loss_diff": max(abs(a - b) for l in losses for a, b in zip(l, one["losses"])),
         "loss_tol": 1e-6, "params_tol": "5e-3 lr + 2^-22 |p|, lr 1e-5",
-        "s_per_step_ranks": [[x["seconds_per_step"] for x in r["step_log"]] for r in recs],
+        "s_per_step_ranks": [[x["seconds_per_step"] for x in r["d_fp32"]["step_log"]]
+                             for r in recs],
         "s_per_step_one_process": one["s_per_step_all"],
-        **compare_runs(np, two, adam_state(checkpoints, np, os.path.join(tmp, "ckpt_sp_one")),
-                       1, 1e-5)}
+        **compare_runs(np, two, ref["one_fp32_state"], 1, 1e-5)}
     step = res["d_fp32_step_vs_one_process"]
     step["adam_mu_rtol"] = ADAM_MU_RTOL
     if not (step["max_abs_loss_diff"] <= 1e-6
             and step["adam_mu_max_abs_diff"] <= ADAM_MU_RTOL * step["adam_mu_max_abs"]):
         fail(f"spatial (d): the fp32 step's loss or Adam's first moment differs from one "
              f"process: {step}")
+    res["cold_start_s"] = COLD_STARTS["spatial_gloo_2"]
+    return res
+
+
+TP = 2  # ranks of phase tensor's tp group (gloo, sharing the card)
+
+
+def save_state_slices(np, path: str):
+    """An ``on_done`` for :func:`train_record`: this rank's parameters, EMA
+    shadow and Adam moments (its tp slices) as one ``.npz``."""
+    def save(loop):
+        st, arrays = loop.state, {}
+        for k, p in st.params.items():
+            arrays[f"params/{k}"] = p.detach().cpu().numpy()
+            arrays[f"ema/{k}"] = st.ema_params[0][k].cpu().numpy()
+            for m in ("mu", "nu"):
+                arrays[f"{m}/{k}"] = st.opt_state[m][k].cpu().numpy()
+        np.savez(path, **arrays)
+
+    return save
+
+
+def rank_tensor(torch, out_dir: str, config: dict) -> dict:
+    """One rank of phase tensor's gloo job, the production UNet sharded
+    over tp (``shard_params``): (a) the fp32 forward (TF32 off), (b) the
+    bf16 fuse_conv forward (ms, launches, the tp gathers, the K4b shapes
+    and routes), (c) a fuse_conv dpm++ 10 synthesis, eager (s/volume,
+    launches, the gathers), (d) ``cli.train --tensor_mesh`` exact in fp32
+    for one step (its state's slices saved)."""
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.cli import common
+    from fast_cwdm_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(tp=TP)
+    axis, r = mesh.tp_axis, mesh.process_rank
+    x, t = spatial_input(torch)
+    model, _ = production_model(torch, config["seed"], dtype="float32")
+    pm.shard_params(mesh, model)
+    rec = {"params_held": sum(p.numel() for p in model.parameters())}
+    with torch.inference_mode(), no_tf32(torch), pm.tp_active(axis):
+        np.save(os.path.join(out_dir, f"a_rank{r}.npy"), model(x, t).cpu().numpy())
+    del model
+    model, diffusion = production_model(torch, config["seed"], fuse_conv=True)
+    pm.shard_params(mesh, model)
+    with torch.inference_mode(), pm.tp_active(axis):
+        out, rec["b"] = timed_forward(torch, model, x, t, axis)
+    np.save(os.path.join(out_dir, f"b_rank{r}.npy"), out.float().cpu().numpy())
+    del out
+    run = common.make_synthesis_fn(model, diffusion, sampler="dpm++", sampler_steps=10,
+                                   device="cuda", mesh=mesh)
+    vols = spatial_volumes(torch)
+    torch.cuda.synchronize()
+    axis.log.drain(None)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cond = common.prepare_condition(vols, "t1c", device="cuda", mesh=mesh)
+    img = run(cond, vols["t1n"], torch.Generator(device="cuda").manual_seed(9))
+    rec["c"] = {"s_per_volume": [time.perf_counter() - t0], "launches": read_counts(),
+                "comm": axis.log.drain_by_kind(), "chain": run.chain is None,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    np.save(os.path.join(out_dir, f"c_rank{r}.npy"), img)
+    del model, run, cond
+    torch.cuda.empty_cache()
+    rec["d_fp32"] = train_record(torch, True, config["fp32_argv"], on_done=save_state_slices(
+        np, os.path.join(out_dir, f"state_rank{r}.npz")))
+    return rec
+
+
+def tensor_checkpoint(torch, np, tmp: str, seed_ckpt: str) -> dict:
+    """Phase tensor (d)'s checkpoint: the ranks' state slices concatenated
+    along each sharded axis (numpy, independent of the port's gather),
+    written by one process's writer, against the BEST and the optimizer
+    blob the tp run wrote, byte for byte; then that BEST loaded into one
+    process, every parameter bit for bit the concatenated one. Returns the
+    replicated parameters' equality across ranks and the sizes."""
+    from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict
+    from fast_cwdm_tpu_torch.training import checkpoints
+    from fast_cwdm_tpu_torch.training.train import make_optimizer
+
+    model, _ = production_model(torch, seed_ckpt, dtype="float32")
+    d = os.path.join(tmp, "tensor_gloo_2")
+    parts = [np.load(os.path.join(d, f"state_rank{r}.npz")) for r in range(TP)]
+    full, replicated_equal, sharded = {g: {} for g in ("params", "ema", "mu", "nu")}, True, 0
+    for k, p in model.named_parameters():
+        for g in full:
+            a = [z[f"{g}/{k}"] for z in parts]
+            if a[0].shape == tuple(p.shape):
+                replicated_equal &= all(np.array_equal(a[0], o) for o in a[1:])
+                full[g][k] = a[0]
+            else:
+                axis = next(i for i, (m, n) in enumerate(zip(a[0].shape, p.shape)) if m != n)
+                full[g][k] = np.concatenate(a, axis)
+                sharded += g == "params"
+    ours = os.path.join(tmp, "tensor_one_writer")
+    os.makedirs(ours, exist_ok=True)
+    checkpoints.save_checkpoint(os.path.join(ours, "best.ckpt"), {
+        "params": jax_params_from_state_dict(full["params"], model),
+        "ema_params": (jax_params_from_state_dict(full["ema"], model),), "step": 1})
+    opt = make_optimizer(1e-5, lr_anneal_steps=1)
+    checkpoints.save_checkpoint(os.path.join(ours, "opt.ckpt"), {"opt_state": opt.state_to_tree(
+        {"count": 1, "mu": {k: torch.from_numpy(v) for k, v in full["mu"].items()},
+         "nu": {k: torch.from_numpy(v) for k, v in full["nu"].items()}}, model)})
+    found = checkpoints.find_best_checkpoint(os.path.join(tmp, "ckpt_tp_fp32"), "t1c")
+    same = {}
+    for mine, theirs in (("best.ckpt", found[0]),
+                         ("opt.ckpt", os.path.join(tmp, "ckpt_tp_fp32", "opt_best_t1c.ckpt"))):
+        with open(os.path.join(ours, mine), "rb") as f, open(theirs, "rb") as g:
+            same[mine] = f.read() == g.read()
+    from fast_cwdm_tpu_torch.cli import common
+
+    common.load_params(found[0], model)
+    loaded = all(np.array_equal(p.detach().cpu().numpy(), full["params"][k])
+                 for k, p in model.named_parameters())
+    out = {"best_bytes_equal_one_process_writer": same["best.ckpt"],
+           "opt_bytes_equal_one_process_writer": same["opt.ckpt"],
+           "best_bytes": os.path.getsize(found[0]), "loads_into_one_process_bit_for_bit": loaded,
+           "replicated_params_equal_across_ranks": bool(replicated_equal),
+           "sharded_tensors": sharded}
+    if not (all(same.values()) and loaded and replicated_equal):
+        fail(f"tensor (d): the checkpoint written under tp is not one process's: {out}")
+    return out
+
+
+def tensor_start(tmp: str, seed_ckpt: str) -> tuple:
+    """Start phase tensor's gloo job (:func:`rank_tensor`; a job of
+    :func:`torchrun_start`), to run beside phase spatial."""
+    data, env = dist_data(tmp)
+    exact = dict(fuse_gn_silu=True, dtype="float32", resume_checkpoint=seed_ckpt)
+    return torchrun_start(
+        tmp, "tensor_gloo_2", TP, ["--rank-job", "tensor", os.path.join(tmp, "tensor_gloo_2")],
+        dict(env, FAST_CWDM_DIST_BACKEND="gloo"), config={
+            "seed": seed_ckpt,
+            "fp32_argv": train_flags(data, os.path.join(tmp, "ckpt_tp_fp32"), 1, tensor_mesh=TP,
+                                     **exact)})
+
+
+def phase_tensor(torch, F, tmp: str, seed_ckpt: str, ref: dict, job: tuple) -> dict:
+    """The tp axis on the card: two gloo ranks as one tp group share it
+    (so these runs check correctness and cost, not scaling), each holding
+    its slices of the parameters ``param_spec`` shards (40,780,680 of
+    81,511,048), in one gloo job (:func:`rank_tensor`): (a) the fp32
+    forward against one process (within 1e-4 of the output's scale); (b)
+    the bf16 fuse_conv forward (within BF16_FACTOR times bf16's own error;
+    54 K4b a rank, by route; every distinct Co/2 shape on its routed
+    kernel against the plain version, timed beside cuDNN and the bound);
+    (c) the fuse_conv dpm++ 10 synthesis, eager (K1 3, K2 1, K4b 540 a
+    rank; the same finite [0,1] image on both ranks, zero outside the mask;
+    its difference from the unsharded one, s/volume and the tp gathers'
+    bytes, ms and calls a forward reported); (d) one fp32 ``fuse_gn_silu``
+    step of ``cli.train --tensor_mesh 2`` against one process (losses
+    within 1e-6, Adam's first moment within ``ADAM_MU_RTOL`` of its scale,
+    the replicated parameters the same bits on both ranks, the checkpoint
+    one process's bytes: :func:`tensor_checkpoint`; K1, K2, K3 and its VJP
+    each step, rank 0 alone writing; s/step and peak memory a rank beside
+    one process's). ``ref``: phase spatial's
+    one-process references, the fp32 step's included; ``job``: the ranks,
+    started beside phase spatial (:func:`tensor_start`), whose times are
+    taken under its load."""
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.training import checkpoints
+
+    d = os.path.join(tmp, "tensor_gloo_2")
+    recs = torchrun_finish(job, timeout=900)
+    y32, y16 = ref["y32"], ref["y16"]
+    outs = {k: [np.load(os.path.join(d, f"{k}_rank{r}.npy")) for r in range(TP)]
+            for k in ("a", "b")}
+    scale = float(np.abs(y32).max())
+    a_err = max(float(np.abs(o - y32).max()) for o in outs["a"])
+    bound = BF16_FACTOR * float(np.abs(y16 - y32).max())
+    b_err = max(float(np.abs(o - y16).max()) for o in outs["b"])
+    res = {"params_held_a_rank": [r["params_held"] for r in recs],
+           "a_fp32_forward": {"max_abs_diff": a_err, "max_abs_output": scale,
+                              "tol": 1e-4 * scale},
+           "b_bf16_fuse_conv_forward": {
+               "max_abs_diff": b_err, "tol": bound, "bf16_vs_fp32": bound / BF16_FACTOR,
+               "unsharded_launches": ref["launches"],
+               "ranks": [{"rank": r["rank"], "ms": r["b"]["ms"], "shapes": r["b"]["shapes"],
+                          "launches": {k: v for k, v in r["b"]["launches"].items() if v},
+                          "comm": r["b"]["comm"]} for r in recs]}}
+    if not a_err <= 1e-4 * scale:
+        fail(f"tensor (a): the tp fp32 forward differs by {a_err} (scale {scale})")
+    if not b_err <= bound:
+        fail(f"tensor (b): the tp bf16 forward differs by {b_err} > {bound}")
+    if any(r["params_held"] != 40_780_680 for r in recs):
+        fail(f"tensor: a rank holds {res['params_held_a_rank']} parameters, not 40,780,680")
+    for r in recs:
+        got = r["b"]["launches"]
+        if got["conv3d_fused_k4b"] != 54 or got["conv3d_wgmma"] + got["conv3d_splitk"] \
+                + got["conv3d_mma_sync"] != 54:
+            fail(f"tensor (b): rank {r['rank']} K4b launches {got}")
+        if any(s[3] * TP not in (64, 128, 256) for s in r["b"]["shapes"]):
+            fail(f"tensor (b): rank {r['rank']} K4b shapes not Co/{TP}: {r['b']['shapes']}")
+    res["b_bf16_fuse_conv_forward"]["routes"] = slice_routes(
+        torch, F, recs[0]["b"]["shapes"], "tensor", timed=True)
+    imgs = [np.load(os.path.join(d, f"c_rank{r}.npy")) for r in range(TP)]
+    res["c_synthesis_fuse_conv_dpm10"] = {
+        **check_synthesis_image(np, "tensor", imgs, ref),
+        "ranks": [{"rank": r["rank"], "s_per_volume": r["c"]["s_per_volume"],
+                   "eager": r["c"]["chain"],
+                   "launches": {k: v for k, v in r["c"]["launches"].items() if v},
+                   "comm_per_forward": {k: [b / 10, ms / 10, n / 10]
+                                        for k, (b, ms, n) in r["c"]["comm"].items()},
+                   "max_memory_allocated_bytes": r["c"]["max_memory_allocated_bytes"]}
+                  for r in recs]}
+    for r in recs:
+        got = r["c"]["launches"]
+        if (got["haar_dwt3"], got["haar_idwt3"], got["conv3d_fused_k4b"]) != (3, 1, 540):
+            fail(f"tensor (c): rank {r['rank']} launches {got}")
+    # (d): the fp32 step against phase spatial's one process on the same
+    # data, weights and flags
+    one = ref["one_fp32_step"]
+    two = adam_state(checkpoints, np, os.path.join(tmp, "ckpt_tp_fp32"))
+    losses = [[x["loss"] for x in r["d_fp32"]["step_log"]] for r in recs]
+    step = {
+        "losses_ranks": losses, "losses_one_process": one["losses"],
+        "max_abs_loss_diff": max(abs(a - b) for l in losses for a, b in zip(l, one["losses"])),
+        "loss_tol": 1e-6, "adam_mu_rtol": ADAM_MU_RTOL,
+        "s_per_step_ranks": [[x["seconds_per_step"] for x in r["d_fp32"]["step_log"]]
+                             for r in recs],
+        "s_per_step_one_process": one["s_per_step_all"],
+        "max_memory_allocated_bytes_ranks": [r["d_fp32"]["max_memory_allocated_bytes"]
+                                             for r in recs],
+        "max_memory_allocated_bytes_one_process": one["max_memory_allocated_bytes"],
+        "comm_per_step_ranks": [{k: r["d_fp32"]["step_log"][-1].get(k) for k in (
+            "allreduce_bytes_per_step", "allreduce_ms_per_step", "tp_gather_bytes_per_step",
+            "tp_gather_ms_per_step", "tp_reduce_bytes_per_step", "tp_reduce_ms_per_step")}
+            for r in recs],
+        **compare_runs(np, two, ref["one_fp32_state"], 1, 1e-5),
+        **tensor_checkpoint(torch, np, tmp, seed_ckpt)}
+    res["d_fp32_step_vs_one_process"] = step
+    if not (step["max_abs_loss_diff"] <= 1e-6
+            and step["adam_mu_max_abs_diff"] <= ADAM_MU_RTOL * step["adam_mu_max_abs"]):
+        fail(f"tensor (d): the fp32 step's loss or Adam's first moment differs from one "
+             f"process: {step}")
+    # the sharded gradients reduce over the replica group, which at (data
+    # 1, sp 1) is the rank alone: only the replicated ones and the 9 loss
+    # floats cross the world; each rank holds its own slices
+    res["d_train_fuse_gn_silu"] = check_dist_run(
+        "tensor (d)", [r["d_fp32"] for r in recs],
+        allreduce_bytes=4 * (81_511_048 - 81_460_736 + 9), same_params=False)
+    res["cold_start_s"] = COLD_STARTS["tensor_gloo_2"]
     return res
 
 
@@ -3484,16 +3878,19 @@ KERNELS = {  # name: (source, replaces, key of its kernels-phase record)
 }
 
 
+RANK_JOBS = {"distributed": rank_distributed, "spatial": rank_spatial, "tensor": rank_tensor}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one forward and one train step of each kind with "
                          "torch.profiler")
-    # one rank of phase distributed, as torchrun starts it
+    # one rank of a multi-rank phase, as torchrun starts it: phase
+    # distributed's NCCL run, or a gloo job of phase distributed, spatial
+    # or tensor (its DIR holds config.json)
     ap.add_argument("--rank-train", metavar="DIR", help=argparse.SUPPRESS)
-    ap.add_argument("--rank-synthesis", metavar="DIR", help=argparse.SUPPRESS)
-    ap.add_argument("--rank-spatial", metavar="DIR", help=argparse.SUPPRESS)
-    ap.add_argument("--exact", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--rank-job", nargs=2, metavar=("JOB", "DIR"), help=argparse.SUPPRESS)
     ap.add_argument("train_argv", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -3513,14 +3910,18 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port's package is not this checkout's ({_build.__file__})",
               file=sys.stderr)
         return 2
-    if args.rank_train:
-        rank_train(torch, args.rank_train, args.exact, args.train_argv)
-        return 0
-    if args.rank_synthesis:
-        rank_synthesis(torch, args.rank_synthesis)
-        return 0
-    if args.rank_spatial:
-        rank_spatial(torch, args.rank_spatial)
+    if args.rank_train or args.rank_job:
+        ready = rank_ready(torch)
+        if args.rank_train:
+            out_dir, rec = args.rank_train, train_record(torch, False, args.train_argv)
+        else:
+            job, out_dir = args.rank_job
+            with open(os.path.join(out_dir, "config.json")) as f:
+                config = json.load(f)
+            rec = RANK_JOBS[job](torch, out_dir, config)
+        rec["ready_at"] = ready
+        rank_record(torch, out_dir, rec)
+        torch.distributed.destroy_process_group()
         return 0
 
     smi = nvidia_smi()
@@ -3580,14 +3981,31 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     api = phase_diffusion_api(torch)
     emit({"phase": "diffusion_api", "gpu": smi, "seconds": time.perf_counter() - t0, **api})
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        dist = phase_distributed(torch, tmp)
-    emit({"phase": "distributed", "gpu": smi, "seconds": time.perf_counter() - t0, **dist})
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        spatial = phase_spatial(torch, tmp)
-    emit({"phase": "spatial", "gpu": smi, "seconds": time.perf_counter() - t0, **spatial})
+    with tempfile.TemporaryDirectory() as shared:
+        t0 = time.perf_counter()
+        seed_ckpt = write_seeded_ckpt(torch, os.path.join(shared, "seeded_production.ckpt"))
+        seed_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            dist = phase_distributed(torch, tmp, seed_ckpt)
+        emit({"phase": "distributed", "gpu": smi, "seconds": time.perf_counter() - t0,
+              "seeded_ckpt_s": seed_s, **dist})
+        t0 = time.perf_counter()
+        # phase tensor's ranks run beside phase spatial, its one-process
+        # references included; its seconds are those after phase spatial's end
+        with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as tmp_tp:
+            job = tensor_start(tmp_tp, seed_ckpt)
+            try:
+                ref = spatial_references(torch, seed_ckpt)
+                spatial = phase_spatial(torch, F, tmp, seed_ckpt, ref)
+                emit({"phase": "spatial", "gpu": smi, "seconds": time.perf_counter() - t0,
+                      **spatial})
+                t0 = time.perf_counter()
+                tensor = phase_tensor(torch, F, tmp_tp, seed_ckpt, ref, job)
+            finally:
+                torchrun_stop(job)
+        emit({"phase": "tensor", "gpu": smi, "seconds": time.perf_counter() - t0, **tensor})
+        del ref
+    emit({"torchrun_jobs": len(COLD_STARTS), "cold_start_s": COLD_STARTS})
 
     line = []
     for name, (source, replaces, key) in KERNELS.items():
@@ -3646,6 +4064,14 @@ def main(argv=None) -> int:
                for r in spatial["c_synthesis_fuse_conv_dpm10"]["ranks"]},
             **{f"spatial_d_rank{r['rank']}_per_step": r["launches_per_step"].get(name, 0)
                for r in spatial["d_train_fuse_gn_silu"]["ranks"]},
+            # phase tensor per rank of the tp group: (b) a forward, (c) a
+            # synthesis, (d) the fp32 train step
+            **{f"tensor_b_rank{r['rank']}": r["launches"].get(name, 0)
+               for r in tensor["b_bf16_fuse_conv_forward"]["ranks"]},
+            **{f"tensor_c_rank{r['rank']}": r["launches"].get(name, 0)
+               for r in tensor["c_synthesis_fuse_conv_dpm10"]["ranks"]},
+            **{f"tensor_d_rank{r['rank']}_per_step": r["launches_per_step"].get(name, 0)
+               for r in tensor["d_train_fuse_gn_silu"]["ranks"]},
             # phase probes: each probe's whole run
             **{f"probes_{probe}": n.get(name, 0) for probe, n in probes["launches"].items()}}
         if name.startswith("conv3d"):

@@ -28,7 +28,10 @@ from fast_cwdm_tpu_torch.parallel.mesh import (
     all_gather_rows,
     all_gather_sp,
     local_batch_rows,
+    shard_params,
+    shard_tensors,
     sp_active,
+    tp_active,
     y_slab,
 )
 from fast_cwdm_tpu_torch.training import checkpoints as ckpt
@@ -98,28 +101,33 @@ def str2bool(s) -> bool:
     return str(s).lower() not in ("0", "false", "no", "off", "none", "")
 
 
-def load_params(path: str, model: torch.nn.Module, *, use_ema: bool = False) -> torch.nn.Module:
+def load_params(path: str, model: torch.nn.Module, *, use_ema: bool = False,
+                mesh=None) -> torch.nn.Module:
     """Load a JAX package ``.ckpt`` or ``.orbax``, or a reference-format
     torch ``.pt``, into ``model`` (``strict=True``) and return it.
     ``use_ema`` that cannot be honoured (no EMA shadows in the file) is
-    reported, never silently ignored."""
-    return load_params_ex(path, model, use_ema=use_ema)[0]
+    reported, never silently ignored. A model sharded over ``mesh``'s tp
+    axis (``shard_params``) loads its slices of the full arrays."""
+    return load_params_ex(path, model, use_ema=use_ema, mesh=mesh)[0]
 
 
-def load_params_ex(path: str, model: torch.nn.Module, *, use_ema: bool = False):
+def load_params_ex(path: str, model: torch.nn.Module, *, use_ema: bool = False, mesh=None):
     """Like :func:`load_params` but returns ``(model, ema_applied)``, so a
     caller can tell raw weights from the first EMA shadow. A ``.ckpt`` or
     ``.orbax`` may carry any number of shadows (for ``.orbax``, as many as
     its metadata holds: the JAX package's ``restore_any``).
     Every parameter of the model is loaded, or the load raises: a missing
     or leftover key never loads partially."""
+    def load(sd):
+        model.load_state_dict(sd if mesh is None else shard_tensors(mesh, model, sd),
+                              strict=True)
+
     if path.endswith(".pt"):
         check_ref_compat(model, "importing .pt weights into")
         if use_ema:
             print(f"[load_params] WARNING: {path} is a torch state_dict with no "
                   "EMA shadows; using the raw parameters")
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        model.load_state_dict(state, strict=True)
+        load(torch.load(path, map_location="cpu", weights_only=True))
         return model, False
     loaded = ckpt.load_with_ema_probe(path)
     params, applied = loaded["params"], False
@@ -128,7 +136,7 @@ def load_params_ex(path: str, model: torch.nn.Module, *, use_ema: bool = False):
             params, applied = loaded["ema_params"][0], True
         else:
             print(f"[load_params] WARNING: {path} has no EMA shadows; using the raw parameters")
-    model.load_state_dict(state_dict_from_jax(params, model), strict=True)
+    load(state_dict_from_jax(params, model))
     return model, applied
 
 
@@ -139,7 +147,8 @@ def prepare_condition(batch: dict, contr: str, wavelet: str = "haar",
 
     ``mesh`` with an sp axis: each rank transforms its data rows' Y slab
     (kernel K1 on (X, Y/S, Z) slabs), and the slabs and rows are gathered,
-    so that every rank returns the whole condition, as without a mesh."""
+    so that every rank returns the whole condition, as without a mesh (the
+    ranks of a tp group transform the same slab)."""
     dev = resolve_device(device)
     sharded = mesh is not None and mesh.sp > 1
     if sharded:
@@ -230,7 +239,10 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, mesh=None,
     ``mesh`` (``parallel.mesh.make_mesh()``, one process per GPU): batched
     serving over the data axis, and over the sp axis a Y slab of every
     volume per rank (the UNet exchanges halos and sums its statistics over
-    the sp group). Every rank is called with the whole batch and
+    the sp group), and over the tp axis the model's output channels
+    (``model`` is sharded in place by ``shard_params``: every rank of a tp
+    group runs the same rows and slab with its slices, and each layer
+    gathers its channels). Every rank is called with the whole batch and
     synthesizes its rows (``local_batch_rows``) and its Y slab
     (``y_slab``) of ``cond``, ``mask_vol`` and the noise: x_T and each
     step's noise are drawn for the WHOLE batch from ``generator`` (or the
@@ -238,8 +250,8 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, mesh=None,
     on its batch position, not on the mesh. The images are gathered (Y,
     then rows) and every rank returns the whole batch, as the JAX package's
     sharded ``run`` does. The captured chain runs per rank of a data mesh;
-    with an sp axis the chain is eager: its gloo collectives cannot be
-    captured in a CUDA graph (``cuda_graph=None`` is then eager and
+    with an sp or a tp axis the chain is eager: its gloo collectives cannot
+    be captured in a CUDA graph (``cuda_graph=None`` is then eager and
     ``cuda_graph=True`` raises ``ValueError``).
     """
     if sampler not in ("ddpm", "ddim", "dpm++"):
@@ -248,16 +260,20 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, mesh=None,
         chunk = 100 if diffusion.num_timesteps > 200 else None
     dev = resolve_device(device)
     sp = mesh.sp_axis if mesh is not None else None
+    tp = mesh.tp_axis if mesh is not None else None
     if cuda_graph is None:
-        cuda_graph = dev.type == "cuda" and sp is None
-    elif cuda_graph and sp is not None:
+        cuda_graph = dev.type == "cuda" and sp is None and tp is None
+    elif cuda_graph and (sp is not None or tp is not None):
         raise ValueError(
-            "cuda_graph=True with an sp mesh: the halo exchanges and GroupNorm all-reduces "
-            "run between kernels of every forward, and gloo's collectives (host-staged) "
-            "cannot be captured in a CUDA graph; pass cuda_graph=None or False (eager)")
+            "cuda_graph=True with an sp or tp mesh: the halo exchanges, GroupNorm all-reduces "
+            "and channel gathers run between kernels of every forward, and gloo's collectives "
+            "(host-staged) cannot be captured in a CUDA graph; pass cuda_graph=None or False "
+            "(eager)")
     elif cuda_graph and dev.type != "cuda":
         raise ValueError(f"cuda_graph=True needs a CUDA device, got {dev}")
     model = model.to(dev).eval()
+    if mesh is not None:
+        shard_params(mesh, model)
     steps = sampler_steps or min(50, diffusion.num_timesteps)
 
     def model_fn(x, t):
@@ -290,7 +306,7 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, mesh=None,
             mask = mask[lo:hi, :, 2 * y0: 2 * y1]
             shape = (hi - lo, shape[1], y1 - y0, *shape[3:])
         kw = dict(cond=cond, noise=noise, generator=generator)
-        with sp_active(sp):
+        with sp_active(sp), tp_active(tp):
             if chain is not None:
                 sample = chain(shape, step_noise=step_noise, chunk=chunk, **kw)
             elif sampler == "dpm++":

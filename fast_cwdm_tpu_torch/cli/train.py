@@ -26,8 +26,8 @@ Data parallelism: one process per GPU, started by torchrun,
 rank decodes its rows of every batch, the gradients are averaged over the
 data axis, and global rank 0 writes the checkpoints and the log files (the
 other ranks log to stdout). ``--data_mesh 0`` means every rank not taken
-by ``--spatial_mesh``; another value times ``--spatial_mesh`` must equal
-the number of ranks.
+by ``--spatial_mesh`` and ``--tensor_mesh``; another value times both
+must equal the number of ranks.
 
 ``--spatial_mesh S`` splits the Y axis of every volume over S consecutive
 ranks (the ``sp`` axis): each rank trains on its Y slab (224 → 224/S),
@@ -37,6 +37,12 @@ gradients are summed over it. With one GPU, two ranks share it under
 
     FAST_CWDM_DIST_BACKEND=gloo torchrun --standalone --nproc_per_node=2 \
         -m fast_cwdm_tpu_torch.cli.train --spatial_mesh 2 ...
+
+``--tensor_mesh T`` (the ``tp`` axis) gives T consecutive ranks the same
+rows and slab and each of them 1/T of the output channels of every
+parameter the JAX package's ``param_spec`` shards (its slice of the
+weights, Adam's moments and the EMA shadows); every layer gathers its
+output channels over the T ranks. The checkpoints hold the full arrays.
 """
 
 from __future__ import annotations
@@ -90,6 +96,7 @@ def create_argparser() -> argparse.ArgumentParser:
         checkpoint_dir="",
         data_mesh=0,  # 0 = every device on the data axis
         spatial_mesh=1,
+        tensor_mesh=1,
         device="cuda",
     )
     md = model_and_diffusion_defaults()
@@ -135,7 +142,7 @@ def main(argv=None):
     args = create_argparser().parse_args(argv)
     owns_group = not torch.distributed.is_initialized()
     device = setup_distributed(resolve_device(args.device))  # before the logger
-    mesh = make_mesh(data=args.data_mesh or -1, sp=args.spatial_mesh)
+    mesh = make_mesh(data=args.data_mesh or -1, sp=args.spatial_mesh, tp=args.tensor_mesh)
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -177,6 +184,9 @@ def main(argv=None):
     if mesh.sp > 1:
         logger.log(f"mesh {mesh.shape}: rank {mesh.process_rank} trains on Y slab "
                    f"{mesh.sp_rank} of {mesh.sp} of every volume")
+    if mesh.tp > 1:
+        logger.log(f"mesh {mesh.shape}: rank {mesh.process_rank} holds tp slice "
+                   f"{mesh.tp_rank} of {mesh.tp} of the sharded parameters")
 
     if args.dataset == "lidc-idri":  # unconditional: batches are plain arrays
         def data():

@@ -9,6 +9,7 @@ the same points.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -17,10 +18,14 @@ from torch import nn
 
 from fast_cwdm_tpu_torch.ops import elementwise_cuda
 from fast_cwdm_tpu_torch.parallel.mesh import (
+    TpAxis,
+    all_gather_tp,
     all_reduce_sum_sp,
     current_sp,
     global_sum_sp,
     halo_pad,
+    tp_copy,
+    tp_shard_axis,
 )
 
 
@@ -115,7 +120,11 @@ class _ComputeDtype:
     input meets fp32 params in fp32), or the input's with
     ``follow_input``. Symmetric padding, as torch's. A 3-D conv under an
     active sp axis pads Y with its neighbours' planes (``halo_pad``); a 1×1
-    conv stays local."""
+    conv stays local. A weight that holds a tp slice of the output channels
+    (``shard_params``) computes them from the input its groups read and
+    gathers them over the tp axis; the bias, replicated, is added to the
+    gathered output, so that its gradient is whole on every rank, and the
+    input's gradient is summed over the tp group (``tp_copy``)."""
 
     def __init__(self, in_ch, out_ch, kernel=3, *, stride=1, groups=1, dtype=None,
                  zero_init=False, follow_input=False):
@@ -133,14 +142,38 @@ class _ComputeDtype:
         if dt is None:
             dt = x.dtype if self.follow_input else torch.promote_types(x.dtype, self.weight.dtype)
         x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        tp = tp_shard_axis(w.shape[0], self.out_channels)
+        padding = self.padding
         pad = self.padding[1] if len(self.padding) == 3 else 0
-        if current_sp() is None or not pad:
-            return self._conv_forward(x, w, b)
-        # x is this rank's Y slab: the neighbours' planes as the Y padding
-        # (zeros at the volume's edges), no padding of the conv's own in Y
-        x = halo_pad(x, 3, pad)
-        return F.conv3d(x, w, b, self.stride, (self.padding[0], 0, self.padding[2]),
-                        self.dilation, self.groups)
+        if current_sp() is not None and pad:
+            # x is this rank's Y slab: the neighbours' planes as the Y
+            # padding (zeros at the volume's edges), no padding of the
+            # conv's own in Y
+            x = halo_pad(x, 3, pad)
+            padding = (self.padding[0], 0, self.padding[2])
+        conv = functools.partial(_CONV_FNS[x.dim()], stride=self.stride, padding=padding,
+                                 dilation=self.dilation)
+        if tp is None:
+            return conv(x, w, b, groups=self.groups)
+        y = tp_grouped_conv(conv, tp_copy(x, tp), w, self.groups, tp)
+        return all_gather_tp(y, 1, tp) + b.reshape((1, -1) + (1,) * (y.dim() - 2))
+
+
+def tp_grouped_conv(conv, x: torch.Tensor, w: torch.Tensor, groups: int,
+                    tp: TpAxis) -> torch.Tensor:
+    """``conv`` (no bias) of this rank's tp slice ``w`` of a conv's output
+    channels: each output channel reads only its group's input channels,
+    so a grouped conv's slice runs group by group, each group's part of
+    the slice on that group's inputs."""
+    if groups == 1:
+        return conv(x, w, groups=1)
+    per = w.shape[0] * tp.size // groups  # output channels a group
+    ci = x.shape[1] // groups  # input channels a group
+    lo, hi = tp.rank * w.shape[0], (tp.rank + 1) * w.shape[0]
+    g0, g1 = lo // per, (hi - 1) // per + 1
+    return torch.cat([conv(x.narrow(1, g * ci, ci),
+                           w[max(lo, g * per) - lo:min(hi, (g + 1) * per) - lo], groups=1)
+                      for g in range(g0, g1)], 1)
 
 
 class Conv1d(_ComputeDtype, nn.Conv1d):
@@ -156,6 +189,7 @@ class Conv3d(_ComputeDtype, nn.Conv3d):
 
 
 _CONVS = {1: Conv1d, 2: Conv2d, 3: Conv3d}
+_CONV_FNS = {3: F.conv1d, 4: F.conv2d, 5: F.conv3d}  # by the input's rank
 
 
 def conv_nd(in_ch: int, out_ch: int, kernel: int = 3, *, dims: int = 3, stride=1,

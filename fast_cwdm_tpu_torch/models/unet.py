@@ -47,16 +47,31 @@ from fast_cwdm_tpu_torch.ops.wavelet import dtype_scalar
 from fast_cwdm_tpu_torch.ops.conv3d_cuda import conv3d_fused, group_stats, pack_wgmma_weights
 from fast_cwdm_tpu_torch.parallel.mesh import (
     all_gather_sp,
-    bind_sp,
+    all_gather_tp,
+    bind_axes,
     current_sp,
     halo_exchange,
     local_slab,
     sp_active,
+    tp_copy,
+    tp_shard_axis,
+    tp_slice,
 )
 
 
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, n_out: int) -> torch.Tensor:
+    """``F.linear`` of a weight of ``n_out`` output rows, or of a tp slice
+    of them, gathered over the tp axis with the replicated bias added
+    after and the input's gradient summed over it (as ``Conv3d``)."""
+    tp = tp_shard_axis(w.shape[0], n_out)
+    if tp is None:
+        return F.linear(x, w, b)
+    return all_gather_tp(F.linear(tp_copy(x, tp), w), -1, tp) + b
+
+
 class Linear(nn.Linear):
-    """``nn.Linear`` with flax ``nn.Dense``'s dtype rule (see Conv3d)."""
+    """``nn.Linear`` with flax ``nn.Dense``'s dtype rule (see Conv3d); a tp
+    slice of its outputs is gathered (:func:`dense`)."""
 
     def __init__(self, in_f: int, out_f: int, dtype=None):
         super().__init__(in_f, out_f)
@@ -64,7 +79,17 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return dense(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.out_features)
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding``; a tp slice of its features (dim 1 of the weight,
+    flax ``Embed``'s last axis) is gathered over the tp axis."""
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        tp = tp_shard_axis(self.weight.shape[1], self.embedding_dim)
+        out = super().forward(y)
+        return out if tp is None else all_gather_tp(out, -1, tp)
 
 
 def nearest_upsample(x: torch.Tensor, dims: int, resample_2d: bool) -> torch.Tensor:
@@ -175,7 +200,10 @@ class FusableConv3d(Conv3d):
     tiling limit, and computes the same function. The conv is handed
     :meth:`packed_weight`, which it calls only where the card's route is
     the wgmma or the split-K kernel: the weight is repacked once and kept
-    until the parameter changes (its version, storage or device)."""
+    until the parameter changes (its version, storage, shape or device).
+    Under the tp axis the weight is this rank's slice of the output
+    channels (``shard_params``): K4b computes them with the bias's slice
+    and the output is gathered over the tp group."""
 
     def __init__(self, in_ch: int, out_ch: int, *, dtype=None, zero_init: bool = False):
         super().__init__(in_ch, out_ch, 3, dtype=dtype, zero_init=zero_init, follow_input=True)
@@ -186,7 +214,7 @@ class FusableConv3d(Conv3d):
         parameter was written (``load_state_dict``, an optimizer step) or
         moved."""
         wt = self.weight
-        key = (wt._version, wt.data_ptr(), wt.device)
+        key = (wt._version, wt.data_ptr(), tuple(wt.shape), wt.device)
         if self._packed[0] != key:
             with torch.no_grad():
                 self._packed = (key, pack_wgmma_weights(wt.permute(2, 3, 4, 1, 0)))
@@ -208,11 +236,13 @@ class FusableConv3d(Conv3d):
         # OIDHW → DHWIO; the conv casts it to dt (the wgmma and splitk
         # routes read the packed copy instead)
         w = self.weight.permute(2, 3, 4, 1, 0)
-        out = conv3d_fused(xx, w, self.bias.to(dt), gn=gn, block_x=2,
+        tp = tp_shard_axis(self.weight.shape[0], self.out_channels)
+        bias = self.bias if tp is None else tp_slice(self.bias, tp)
+        out = conv3d_fused(xx, w, bias.to(dt), gn=gn, block_x=2,
                            w_packed=self.packed_weight)
         if lo or hi:
             out = out[:, :, :, lo:out.shape[3] - hi].contiguous(memory_format=cl)
-        return out
+        return out if tp is None else all_gather_tp(out, 1, tp)
 
 
 class ResBlock(nn.Module):
@@ -285,9 +315,10 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         if self.remat and torch.is_grad_enabled():
-            # the recomputation runs in the backward pass: under the sp axis
-            # of this call, so that it issues the block's collectives again
-            return checkpoint(bind_sp(self._forward), x, emb, use_reentrant=False)
+            # the recomputation runs in the backward pass: under the sp and
+            # tp axes of this call, so that it issues the block's
+            # collectives again
+            return checkpoint(bind_axes(self._forward), x, emb, use_reentrant=False)
         return self._forward(x, emb)
 
     def _forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -353,7 +384,7 @@ class AttentionBlock(nn.Module):
         """A 1×1 conv's parameters as ``nn.Dense`` over the last axis of
         ``x``, with the conv's dtype rule."""
         dt = conv.compute_dtype or torch.promote_types(x.dtype, conv.weight.dtype)
-        return F.linear(x.to(dt), conv.weight[:, :, 0].to(dt), conv.bias.to(dt))
+        return dense(x.to(dt), conv.weight[:, :, 0].to(dt), conv.bias.to(dt), conv.out_channels)
 
     def forward(self, x: torch.Tensor, emb=None) -> torch.Tensor:
         refuse_sp(self)  # every position attends to every other
@@ -483,7 +514,7 @@ class UNetModel(nn.Module):
             Linear(model_channels, ted), nn.SiLU(), Linear(ted, ted)
         )
         if num_classes is not None:
-            self.label_emb = nn.Embedding(num_classes, ted)
+            self.label_emb = Embedding(num_classes, ted)
 
         def resblock(ch_in, ch_out, ds, **kw):
             block = ResBlock(

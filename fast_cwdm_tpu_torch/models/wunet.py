@@ -33,6 +33,7 @@ from fast_cwdm_tpu_torch.models.nn import GroupNorm32, avg_pool_nd, conv_nd
 from fast_cwdm_tpu_torch.models.unet import (
     AttentionBlock,
     Downsample,
+    Embedding,
     Linear,
     Upsample,
     _channels_first,
@@ -246,7 +247,7 @@ class WavUNetModel(nn.Module):
             Linear(model_channels, ted), nn.SiLU(), Linear(ted, ted)
         )
         if num_classes is not None:
-            self.label_emb = nn.Embedding(num_classes, ted)
+            self.label_emb = Embedding(num_classes, ted)
 
         def resblock(ch_in, ch_out=None, **kw):
             block = WavResBlock(ch_in, ted, dropout, ch_out,

@@ -9,8 +9,11 @@ decimated matrices with zero-boundary truncation.
 Under an active sp axis (``parallel.mesh.current_sp``) a tensor is one
 rank's slab of the Y axis (``-3`` here): Haar reads and writes aligned
 pairs, so it is local on a slab whose Y offset and length are even (the
-forward transforms check it); a longer filter would need its neighbours'
-planes and raises ``NotImplementedError``.
+forward transforms check it). A Daubechies filter of length L reads past
+the slab: the forward transform takes L/2 − 1 planes from each neighbour
+(``halo_pad``: zeros at the volume's edges, the truncation of the whole
+volume's banded matrices), the inverse floor(L/4) coefficient rows, and
+each applies the part of the banded matrix that falls on its slab.
 
 Single-channel Haar transforms of fp32 tensors route to the hand-written
 CUDA kernels K1/K2 (``ops/wavelet_cuda.py``), which take their plain torch
@@ -26,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from fast_cwdm_tpu_torch.parallel.mesh import current_sp
+from fast_cwdm_tpu_torch.parallel.mesh import current_sp, halo_pad
 
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 LLL_SCALE = 3.0
@@ -85,6 +88,52 @@ def _banded_matrices(n: int, wavelet: str) -> tuple[np.ndarray, np.ndarray]:
                 if 0 <= col < n:
                     mat[i, col] = w
     return mats
+
+
+@functools.lru_cache(maxsize=None)
+def _slab_matrices(n: int, wavelet: str) -> tuple[tuple, tuple, int, int]:
+    """The banded matrices of one sp slab of ``n`` planes at an even
+    offset: analysis ``(n//2, n + 2h)`` over the slab with ``h`` halo
+    planes on each side (row k applies the filter from column 2k), and
+    synthesis ``(n//2 + 2c, n)`` over its coefficients with ``c`` halo rows
+    on each side (row k puts the filter at column 2(k − c) − (L/2 − 1)).
+    Returns ``((L_fwd, H_fwd), (L_inv, H_inv), h, c)``."""
+    lo, hi = filter_bank(wavelet)
+    half = len(lo) // 2
+    h, c = half - 1, half // 2
+    fwd = tuple(np.zeros((n // 2, n + 2 * h)) for _ in range(2))
+    inv = tuple(np.zeros((n // 2 + 2 * c, n)) for _ in range(2))
+    for mats, f in zip(zip(fwd, inv), (lo, hi)):
+        for k in range(n // 2):
+            mats[0][k, 2 * k:2 * k + len(f)] = f
+        for k in range(n // 2 + 2 * c):
+            for j, w in enumerate(f):
+                col = 2 * (k - c) + j - (half - 1)
+                if 0 <= col < n:
+                    mats[1][k, col] = w
+    return fwd, inv, h, c
+
+
+def _axis_down_sp(x: torch.Tensor, axis: int, wavelet: str):
+    """:func:`_axis_down` of this rank's sp slab along ``axis`` (Y), its
+    neighbours' planes read through the halo exchange."""
+    (mat_l, mat_h), _, h, _ = _slab_matrices(x.shape[axis], wavelet)
+    moved = halo_pad(x, axis % x.dim(), h).movedim(axis, -1)
+    ml = torch.as_tensor(mat_l, dtype=x.dtype, device=x.device)
+    mh = torch.as_tensor(mat_h, dtype=x.dtype, device=x.device)
+    return (moved @ ml.T).movedim(-1, axis), (moved @ mh.T).movedim(-1, axis)
+
+
+def _axis_up_sp(lo: torch.Tensor, hi: torch.Tensor, axis: int, wavelet: str):
+    """:func:`_axis_up` of this rank's sp slab of coefficients along
+    ``axis`` (Y), the neighbours' rows read through the halo exchange."""
+    pos = axis % lo.dim()
+    _, (mat_l, mat_h), _, c = _slab_matrices(2 * lo.shape[axis], wavelet)
+    ml = torch.as_tensor(mat_l, dtype=lo.dtype, device=lo.device)
+    mh = torch.as_tensor(mat_h, dtype=lo.dtype, device=lo.device)
+    out = (halo_pad(lo, pos, c).movedim(axis, -1) @ ml
+           + halo_pad(hi, pos, c).movedim(axis, -1) @ mh)
+    return out.movedim(-1, pos)
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,39 +213,38 @@ def idwt2(bands: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:
     return _axis_up(_axis_up(ll, lh, -2, wavelet), _axis_up(hl, hh, -2, wavelet), -3, wavelet)
 
 
-def _sp_local(wavelet: str, n_y: int | None = None) -> None:
-    """Under an active sp axis: refuse a wavelet longer than Haar, and (for
-    a forward transform, ``n_y`` the slab's Y) a slab whose Y offset or
-    length is odd. Nothing without one."""
+def _sp_local(n_y: int | None = None) -> bool:
+    """Whether an sp axis is active (the Y axis is a slab); under one, a
+    forward transform's slab (``n_y`` its Y) must have an even offset and
+    length, or ``ValueError``."""
     axis = current_sp()
     if axis is None:
-        return
-    if wavelet not in HAAR:
-        raise NotImplementedError(
-            f"wavelet {wavelet!r} under the sp axis: a filter longer than Haar needs halo "
-            "planes from the neighbouring slabs (ROADMAP §1: dbN wavelets under sp)")
+        return False
     if n_y is not None and (n_y % 2 or axis.rank * n_y % 2):
         raise ValueError(
-            f"Haar under sp needs a Y slab with an even offset and length; slab {axis.rank} of "
+            f"a DWT under sp needs a Y slab with an even offset and length; slab {axis.rank} of "
             f"{axis.size} has length {n_y} at offset {axis.rank * n_y}")
+    return True
 
 
 def dwt3(x: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:
     """``(..., X, Y, Z, C)`` → ``(..., X/2, Y/2, Z/2, 8, C)`` (plain torch)."""
-    _sp_local(wavelet, x.shape[-3])
+    slab = _sp_local(x.shape[-3]) and wavelet not in HAAR
     parts = [x]
     for axis in (-4, -3, -2):
-        parts = [b for p in parts for b in _axis_down(p, axis, wavelet)]
+        down = _axis_down_sp if slab and axis == -3 else _axis_down
+        parts = [b for p in parts for b in down(p, axis, wavelet)]
     return torch.stack(parts, dim=-2)
 
 
 def idwt3(bands: torch.Tensor, wavelet: str = "haar") -> torch.Tensor:
     """Inverse of :func:`dwt3`: ``(..., X, Y, Z, 8, C)`` → ``(..., 2X, 2Y, 2Z, C)``."""
-    _sp_local(wavelet)
+    slab = _sp_local() and wavelet not in HAAR
     parts = [bands[..., i, :] for i in range(8)]
     for axis in (-2, -3, -4):
+        up = _axis_up_sp if slab and axis == -3 else _axis_up
         parts = [
-            _axis_up(parts[i], parts[i + 1], axis, wavelet)
+            up(parts[i], parts[i + 1], axis, wavelet)
             for i in range(0, len(parts), 2)
         ]
     return parts[0]
@@ -224,7 +272,7 @@ def dwt3_flat(x: torch.Tensor, wavelet: str = "haar", impl: str = "auto") -> tor
             "the CUDA DWT kernel is single-channel only "
             f"(got C={x.shape[-1]}); use impl='auto' or 'xla'"
         )
-    _sp_local(wavelet, x.shape[-3])
+    _sp_local(x.shape[-3])
     if impl == "pallas" or (
         impl == "auto" and _kernel_eligible(x, x.shape, wavelet, x.shape[-1])
     ):
@@ -246,7 +294,7 @@ def idwt3_flat(
             "the CUDA IDWT kernel is single-channel only "
             f"(got channels={channels}); use impl='auto' or 'xla'"
         )
-    _sp_local(wavelet)
+    _sp_local()
     if channels == 1 and (
         impl == "pallas"
         or (

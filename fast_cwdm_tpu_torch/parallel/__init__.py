@@ -1,6 +1,6 @@
-"""Data and spatial parallelism over ``torch.distributed`` (the ``data`` and
-``sp`` axes of the JAX package's ``parallel/mesh.py``) and the
-multi-process dry run."""
+"""Data, spatial and tensor parallelism over ``torch.distributed`` (the
+``data``, ``sp`` and ``tp`` axes of the JAX package's ``parallel/mesh.py``)
+and the multi-process dry run."""
 
 from fast_cwdm_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,
@@ -8,9 +8,12 @@ from fast_cwdm_tpu_torch.parallel.mesh import (  # noqa: F401
     TENSOR_AXIS,
     DataMesh,
     SpAxis,
+    TpAxis,
     all_gather_sp,
     all_reduce_sum_sp,
     current_sp,
+    current_tp,
+    gather_params,
     global_sum_sp,
     halo_exchange,
     local_batch_rows,
@@ -18,7 +21,11 @@ from fast_cwdm_tpu_torch.parallel.mesh import (  # noqa: F401
     local_slab,
     make_hybrid_mesh,
     make_mesh,
+    param_spec,
     setup_distributed,
     shard_batch,
+    shard_params,
+    shard_tensors,
     sp_active,
+    tp_active,
 )

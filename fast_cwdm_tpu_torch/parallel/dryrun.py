@@ -1,15 +1,17 @@
-"""Multi-process dry run of the data- and spatially-parallel path on the
-CPU (the counterpart of ``__graft_entry__.py::dryrun_multichip``).
+"""Multi-process dry run of the data-, spatially- and tensor-parallel path
+on the CPU (the counterpart of ``__graft_entry__.py::dryrun_multichip``).
 
-    python -m fast_cwdm_tpu_torch.parallel.dryrun [N [SP]]   # default 2 ranks, sp 1
+    python -m fast_cwdm_tpu_torch.parallel.dryrun [N [SP [TP]]]   # default 2 ranks
 
 :func:`dryrun_multichip` starts ``n`` processes on this host, each a rank
-of one ``gloo`` process group on the CPU (:func:`start_ranks`), on a mesh
-of ``{"data": n // sp, "sp": sp}``, and each runs one train step of the
-JAX dry run's tiny UNet (16³ images, 32 base channels, two ResBlocks a
-level) on its rows and Y slab of a global batch of ``n // sp``, then a
-sharded synthesis of that batch. The ranks must agree on the loss and
-hold the same parameters bit for bit afterwards.
+of one ``gloo`` process group on the CPU (:func:`start_ranks`), on the
+mesh the JAX dry run picks: sp 2 where n is even and above 1, tp 2 where
+4 divides n, data the rest (8 ranks: ``{"data": 2, "sp": 2, "tp": 2}``).
+Each rank shards the JAX dry run's tiny UNet (16³ images, 32 base
+channels, two ResBlocks a level) over tp (``shard_params``), runs one
+train step on its rows and Y slab of a global batch of ``data``, then a
+sharded synthesis of that batch. The ranks must agree on the loss, the
+gathered parameters (bit for bit) and the synthesis.
 
 :func:`start_ranks` and :func:`wait_ranks` are the launcher the tests and
 ``scripts/scaling_bench.py`` use as well: torchrun's environment
@@ -120,13 +122,19 @@ def _worker() -> None:
 
     from fast_cwdm_tpu_torch.cli.common import make_synthesis_fn, prepare_condition
     from fast_cwdm_tpu_torch.diffusion.gaussian import MODALITIES, GaussianDiffusion
-    from fast_cwdm_tpu_torch.parallel.mesh import make_mesh, setup_distributed, shard_batch
+    from fast_cwdm_tpu_torch.parallel.mesh import (
+        gather_params,
+        make_mesh,
+        setup_distributed,
+        shard_batch,
+        shard_params,
+    )
     from fast_cwdm_tpu_torch.training.state import TrainState
     from fast_cwdm_tpu_torch.training.train import StepRNG, make_optimizer, make_train_step
 
     setup_distributed("cpu")
-    mesh = make_mesh(sp=int(sys.argv[2]))
-    model = tiny_unet()
+    mesh = make_mesh(sp=int(sys.argv[2]), tp=int(sys.argv[3]))
+    model = shard_params(mesh, tiny_unet())
     diffusion = GaussianDiffusion.named("linear", 10, "sampled", mode="i2i")
     opt = make_optimizer(1e-4, lr_anneal_steps=100)
     b, s = mesh.size, 16
@@ -142,21 +150,33 @@ def _worker() -> None:
                 torch.Generator().manual_seed(2))
     print(RESULT + json.dumps({
         "rank": mesh.process_rank, "mesh": mesh.shape, "loss": loss, "step": state.step,
-        "params": params_digest(state.params.values()),
+        "params": params_digest(gather_params(mesh, model, state.params).values()),
         "synthesis_shape": list(out.shape), "synthesis_finite": bool(np.isfinite(out).all()),
         "synthesis": hashlib.sha256(out.tobytes()).hexdigest()}), flush=True)
     dist.destroy_process_group()
 
 
-def dryrun_multichip(n: int = 2, timeout: float = 120.0, sp: int = 1) -> dict:
-    """Run the dry run over ``n`` gloo ranks on the CPU, ``sp`` of them per
-    sp group (the JAX dry run's ``make_mesh(data=n // sp, sp=sp)``); returns
-    rank 0's record after checking that every rank agrees (loss,
-    parameters and the gathered synthesis, bit for bit) and that the loss
-    is finite."""
-    if n % sp:
-        raise ValueError(f"{n} ranks do not split into sp groups of {sp}")
-    argv = ["-m", "fast_cwdm_tpu_torch.parallel.dryrun", "--worker", str(sp)]
+def mesh_axes(n: int, sp: int | None = None, tp: int | None = None) -> tuple[int, int]:
+    """``(sp, tp)`` of the dry run over ``n`` ranks: with neither given, the
+    JAX dry run's choice (``__graft_entry__.py``: sp 2 where n is even and
+    above 1, tp 2 where 4 divides n); an axis not given is otherwise 1."""
+    if sp is None and tp is None:
+        return (2 if n % 2 == 0 and n > 1 else 1), (2 if n % 4 == 0 else 1)
+    return sp or 1, tp or 1
+
+
+def dryrun_multichip(n: int = 2, timeout: float = 120.0, sp: int | None = None,
+                     tp: int | None = None) -> dict:
+    """Run the dry run over ``n`` gloo ranks on the CPU on the mesh
+    ``make_mesh(data=n // (sp·tp), sp=sp, tp=tp)`` (``sp``/``tp``:
+    :func:`mesh_axes`); returns rank 0's record after checking that every
+    rank agrees (loss, gathered parameters and the gathered synthesis, bit
+    for bit) and that the loss is finite."""
+    sp, tp = mesh_axes(n, sp, tp)
+    if n % (sp * tp):
+        raise ValueError(f"{n} ranks do not split into sp groups of {sp} and tp groups of {tp}")
+    data = n // (sp * tp)
+    argv = ["-m", "fast_cwdm_tpu_torch.parallel.dryrun", "--worker", str(sp), str(tp)]
     recs = results(wait_ranks(start_ranks(n, argv), timeout))
     first = recs[0]
     for r in recs:
@@ -165,8 +185,9 @@ def dryrun_multichip(n: int = 2, timeout: float = 120.0, sp: int = 1) -> dict:
                 raise RuntimeError(f"ranks disagree on {k}: {[x[k] for x in recs]}")
     if not math.isfinite(first["loss"]):
         raise RuntimeError(f"non-finite loss {first['loss']}")
-    if first["mesh"] != {"data": n // sp, "sp": sp} or first["step"] != 1 \
-            or not first["synthesis_finite"] or first["synthesis_shape"] != [n // sp, 16, 16, 16]:
+    want = {"data": data, "sp": sp, **({"tp": tp} if tp > 1 else {})}
+    if first["mesh"] != want or first["step"] != 1 \
+            or not first["synthesis_finite"] or first["synthesis_shape"] != [data, 16, 16, 16]:
         raise RuntimeError(f"dry run record off: {first}")
     print(f"dryrun_multichip OK: mesh={first['mesh']} loss={first['loss']:.5f}")
     return first
@@ -177,4 +198,5 @@ if __name__ == "__main__":
         _worker()
     else:
         dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 2,
-                         sp=int(sys.argv[2]) if len(sys.argv) > 2 else 1)
+                         sp=int(sys.argv[2]) if len(sys.argv) > 2 else None,
+                         tp=int(sys.argv[3]) if len(sys.argv) > 3 else None)

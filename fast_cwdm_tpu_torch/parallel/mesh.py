@@ -1,22 +1,24 @@
-"""The ``data`` and ``sp`` axes over ``torch.distributed`` (port of
-``fast_cwdm_tpu/parallel/mesh.py``).
+"""The ``data``, ``sp`` and ``tp`` axes over ``torch.distributed`` (port
+of ``fast_cwdm_tpu/parallel/mesh.py``).
 
 The JAX package drives N chips from one process: a ``jax.sharding.Mesh``
-whose ``data`` axis shards the batch and whose ``sp`` axis shards the Y
-axis of every volume (axis 2 of (B, X, Y, Z, C)), with XLA inserting the
-gradient ``psum`` and GSPMD the convolutions' halo exchanges. Here it is
-one process per GPU, started by ``torchrun``, and every collective is
-written out:
+whose ``data`` axis shards the batch, whose ``sp`` axis shards the Y axis
+of every volume (axis 2 of (B, X, Y, Z, C)) and whose ``tp`` axis shards
+the output channels of the parameters (``param_spec``), with XLA inserting
+the gradient ``psum`` and GSPMD the convolutions' halo exchanges and the
+channel gathers. Here it is one process per GPU, started by ``torchrun``,
+and every collective is written out:
 
 * :func:`setup_distributed` joins the process group from torchrun's
   variables (``nccl`` on CUDA, ``gloo`` on the CPU) and pins the rank's GPU;
-* :func:`make_mesh` describes the ``(data, sp)`` mesh (:class:`DataMesh`):
-  process ``r`` is data index ``r // sp`` and sp index ``r % sp`` (an sp
-  group is consecutive ranks, as the JAX mesh's inner axis), every rank
-  holds the whole model;
+* :func:`make_mesh` describes the ``(data, sp, tp)`` mesh (:class:`DataMesh`)
+  in the JAX mesh's order, ``tp`` innermost: process ``r`` is tp index
+  ``r % tp``, sp index ``(r // tp) % sp`` and data index ``r // (sp·tp)``
+  (a tp group is consecutive ranks, an sp group the ranks of one data and
+  tp index);
 * :func:`local_batch_rows` / :func:`shard_batch` give each data index the
   contiguous rows ``[d·b, (d+1)·b)`` of the global batch, and each sp index
-  its Y slab;
+  its Y slab; the ranks of a tp group hold the same rows and slab;
 * :func:`all_reduce_mean_`, :func:`all_gather_rows` and :func:`any_rank`
   are the collectives the train step, the resampler, the loop and
   synthesis issue by hand;
@@ -24,14 +26,28 @@ written out:
   :func:`global_sum_sp`, :func:`all_gather_sp`, :func:`local_slab`), each
   an autograd Function, over the :class:`SpAxis` that :func:`sp_active`
   makes current; the UNet's convolutions, GroupNorms, wavelets and the
-  losses read it with :func:`current_sp`.
+  losses read it with :func:`current_sp`;
+* the ``tp`` axis: :func:`param_spec` is the JAX package's rule (a
+  parameter of two or more axes whose output-channel axis ``tp`` divides
+  is sharded along it, the rest replicated), :func:`shard_params` keeps
+  each rank's slice in place, :func:`gather_params` rebuilds the full
+  tensors (for saves) and :func:`shard_tensors` slices full ones (for
+  loads). A layer whose weight holds a slice computes its output channels
+  and gathers them over the :class:`TpAxis` that :func:`tp_active` makes
+  current (:func:`all_gather_tp`, column parallelism: every next layer
+  reads the full, replicated activations, as GSPMD gives for
+  ``param_spec``'s tree); its input passes :func:`tp_copy`, whose
+  backward sums the input's gradient over the tp group.
 
 Gradients under ``sp``: each rank backpropagates the global loss through
 its slab, so its gradient is its slab's share; the train step sums the
 shares over ``sp`` and averages over ``data`` in one all-reduce over the
-world (sum ÷ data). The ``tp`` axis is not ported (``NotImplementedError``);
-``batch_spec``, ``batch_sharding``, ``replicated``, ``param_spec`` and
-``shard_params`` describe XLA shardings and have no counterpart.
+world (sum ÷ data). Under ``tp`` a sharded parameter's gradient is its
+slice's, reduced over the rank's replica group (the data·sp ranks of its
+tp index); the replicated parameters' gradients, equal on the ranks of a
+tp group, are reduced over the world (sum ÷ data·tp), so they stay the
+same bits on every rank. ``batch_spec``, ``batch_sharding`` and
+``replicated`` describe XLA shardings and have no counterpart.
 
 ``FAST_CWDM_DIST_BACKEND`` (``gloo`` or ``nccl``) overrides the backend:
 NCCL refuses two ranks on one GPU, gloo takes them (its collectives are
@@ -58,8 +74,6 @@ DATA_AXIS = "data"
 SPATIAL_AXIS = "sp"
 TENSOR_AXIS = "tp"
 RENDEZVOUS_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
-NOT_PORTED = ("ROADMAP §1 M8: the tp axis is not ported (it needs column-parallel "
-              "convs)")
 
 
 def setup_distributed(device: str | torch.device | None = None) -> torch.device:
@@ -134,7 +148,9 @@ def _sigterm_blocked():
 class CommLog:
     """Bytes and milliseconds of collectives by kind (``"allreduce"``: the
     gradient all-reduce; ``"halo"``: the sp halo exchanges; ``"sp_reduce"``:
-    the sp statistics and loss sums; ``"sp_gather"``: the sp gathers), read
+    the sp statistics and loss sums; ``"sp_gather"``: the sp gathers;
+    ``"tp_gather"``: the tp axis's channel gathers; ``"tp_reduce"``: the
+    sums of a sharded layer's input gradient over the tp group), read
     by the training loop and the chip smoke test. On NCCL the time is taken
     with CUDA events around the collective, without a synchronisation (it
     is read at :meth:`drain`); through gloo and on the CPU with the host
@@ -190,14 +206,31 @@ class SpAxis:
     log: CommLog = field(default_factory=CommLog)
 
 
+@dataclass(frozen=True, eq=False)
+class TpAxis:
+    """One rank's view of its tp group: the ``group``, its ``size`` and
+    this rank's ``rank`` in it (slice ``rank`` of ``size`` equal slices of
+    every sharded output-channel axis), and the ``log`` its gathers write
+    to."""
+
+    group: object
+    size: int
+    rank: int
+    log: CommLog = field(default_factory=CommLog)
+
+
 @dataclass(frozen=True)
 class DataMesh:
-    """The ``(data, sp)`` mesh: ``shape`` as the JAX mesh's (``{"data": D,
-    "sp": S}``); ``group``, the data-axis group of this rank (None where the
-    data axis has one rank: its collectives are the identity); ``rank``,
-    this rank's data index; ``sp_axis``, its sp group (None where S == 1);
-    ``world``, the whole process group (None in a single process);
-    ``process_rank``, the global rank (``rank·S + sp_rank``)."""
+    """The ``(data, sp, tp)`` mesh: ``shape`` as the JAX mesh's (``{"data":
+    D, "sp": S}``, with ``"tp": T`` only where T > 1); ``group``, the
+    data-axis group of this rank (None where the data axis has one rank:
+    its collectives are the identity); ``rank``, this rank's data index;
+    ``sp_axis``, its sp group (None where S == 1); ``world``, the whole
+    process group (None in a single process); ``process_rank``, the global
+    rank (``(rank·S + sp_rank)·T + tp_rank``); ``tp_axis``, its tp group
+    (None where T == 1); ``replica``, the group of the data·sp ranks that
+    hold the same tp slices (None where that is this rank alone; the world
+    where T == 1)."""
 
     shape: dict
     group: object
@@ -205,6 +238,8 @@ class DataMesh:
     sp_axis: SpAxis | None = None
     world: object = None
     process_rank: int = 0
+    tp_axis: TpAxis | None = None
+    replica: object = None
 
     @property
     def size(self) -> int:
@@ -223,6 +258,14 @@ class DataMesh:
     def sp_group(self):
         return self.sp_axis.group if self.sp_axis is not None else None
 
+    @property
+    def tp(self) -> int:
+        return self.shape.get(TENSOR_AXIS, 1)
+
+    @property
+    def tp_rank(self) -> int:
+        return self.tp_axis.rank if self.tp_axis is not None else 0
+
 
 _MESHES: dict = {}
 
@@ -237,8 +280,10 @@ def _release_groups() -> None:
     for mesh in _MESHES.values():
         object.__setattr__(mesh, "group", None)
         object.__setattr__(mesh, "world", None)
-        if mesh.sp_axis is not None:
-            object.__setattr__(mesh.sp_axis, "group", None)
+        object.__setattr__(mesh, "replica", None)
+        for axis in (mesh.sp_axis, mesh.tp_axis):
+            if axis is not None:
+                object.__setattr__(axis, "group", None)
     _MESHES.clear()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
@@ -246,56 +291,79 @@ def _release_groups() -> None:
 
 
 def make_mesh(data: int = -1, sp: int = 1, tp: int = 1) -> DataMesh:
-    """The ``(data, sp)`` mesh of the process group. ``data=-1`` is the
-    world size over ``sp``; ``data·sp`` must be the world size (one process
-    per GPU cannot pin a sub-mesh as the JAX package does): more raises
-    ``ValueError`` ("exceeds"), as does a world that ``sp`` does not
-    divide. ``tp`` > 1 raises ``NotImplementedError``.
+    """The ``(data, sp, tp)`` mesh of the process group. ``data=-1`` is the
+    world size over ``sp·tp``; ``data·sp·tp`` must be the world size (one
+    process per GPU cannot pin a sub-mesh as the JAX package does): more
+    raises ``ValueError`` ("exceeds"), as does a world that ``sp·tp`` does
+    not divide.
 
-    Collective on first use: every rank builds one group per data index
-    and one per sp index, in the same order. Cached per process group, so
-    a later call returns the same groups."""
-    if tp > 1:
-        raise NotImplementedError(f"make_mesh(tp={tp}): {NOT_PORTED}")
+    Collective on first use: every rank builds the groups of every axis in
+    the same order (one per data index for sp, and so on). Cached per
+    process group, so a later call returns the same groups."""
     up = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if up else 1
-    if sp < 1 or (data != -1 and data < 1):
-        raise ValueError(f"make_mesh: data and sp must be positive, got data={data}, sp={sp}")
+    if sp < 1 or tp < 1 or (data != -1 and data < 1):
+        raise ValueError(f"make_mesh: data, sp and tp must be positive, got data={data}, "
+                         f"sp={sp}, tp={tp}")
     if data == -1:
-        if world % sp:
+        if world % (sp * tp):
             raise ValueError(f"{world} rank(s) not divisible by sp*tp={sp * tp}")
-        data = world // sp
-    want = data * sp
+        data = world // (sp * tp)
+    want = data * sp * tp
     if want > world:
         raise ValueError(
-            f"mesh data*sp={want} exceeds the {world} rank(s) of the process group (launch "
+            f"mesh data*sp*tp={want} exceeds the {world} rank(s) of the process group (launch "
             f"torchrun --nproc_per_node={want}, or pass data=-1)")
     if want != world:
         raise ValueError(
-            f"mesh data*sp={want} but the process group has {world} rank(s): the mesh spans "
+            f"mesh data*sp*tp={want} but the process group has {world} rank(s): the mesh spans "
             f"every rank (launch torchrun --nproc_per_node={want}, or pass data=-1)")
-    key = (id(dist.group.WORLD) if up else None, data, sp)
+    key = (id(dist.group.WORLD) if up else None, data, sp, tp)
     if key in _MESHES:
         return _MESHES[key]
     rank = dist.get_rank() if up else 0
-    data_group = sp_group = None
-    if up and sp == 1:
-        data_group = dist.group.WORLD
+    d_idx, s_idx, t_idx = rank // (sp * tp), (rank // tp) % sp, rank % tp
+    data_group = sp_group = tp_group = replica = None
+    if up and sp == tp == 1:
+        data_group = replica = dist.group.WORLD
     elif up:
-        # one group per sp index (the data axis), then one per data index
-        # (the sp axis): new_group is collective, every rank makes all of them
+        # process (d, s, t) is rank (d·sp + s)·tp + t; new_group is
+        # collective: every rank makes every group, in the same order
+        def ranks(ds=range(data), ss=range(sp), ts=range(tp)):
+            return [(d * sp + s) * tp + t for d in ds for s in ss for t in ts]
+
         with _sigterm_blocked():
+            # the data axis: one group per (sp, tp) index
             for s in range(sp):
-                g = dist.new_group([d * sp + s for d in range(data)]) if data > 1 else None
-                if rank % sp == s:
-                    data_group = g
-            for d in range(data):
-                g = dist.new_group([d * sp + s for s in range(sp)])
-                if rank // sp == d:
-                    sp_group = g
-    mesh = DataMesh({DATA_AXIS: data, SPATIAL_AXIS: sp}, data_group, rank // sp,
-                    SpAxis(sp_group, sp, rank % sp) if sp > 1 else None,
-                    dist.group.WORLD if up else None, rank)
+                for t in range(tp):
+                    g = dist.new_group(ranks(ss=[s], ts=[t])) if data > 1 else None
+                    if (s_idx, t_idx) == (s, t):
+                        data_group = g
+            # the sp axis: one group per (data, tp) index
+            for d in range(data) if sp > 1 else ():
+                for t in range(tp):
+                    g = dist.new_group(ranks(ds=[d], ts=[t]))
+                    if (d_idx, t_idx) == (d, t):
+                        sp_group = g
+            if tp > 1:
+                # the tp axis: one group per (data, sp) index; the replica
+                # groups: one per tp index
+                for d in range(data):
+                    for s in range(sp):
+                        g = dist.new_group(ranks(ds=[d], ss=[s]))
+                        if (d_idx, s_idx) == (d, s):
+                            tp_group = g
+                for t in range(tp) if data * sp > 1 else ():
+                    g = dist.new_group(ranks(ts=[t]))
+                    if t_idx == t:
+                        replica = g
+            else:
+                replica = dist.group.WORLD
+    shape = {DATA_AXIS: data, SPATIAL_AXIS: sp, **({TENSOR_AXIS: tp} if tp > 1 else {})}
+    mesh = DataMesh(shape, data_group, d_idx,
+                    SpAxis(sp_group, sp, s_idx) if sp > 1 else None,
+                    dist.group.WORLD if up else None, rank,
+                    TpAxis(tp_group, tp, t_idx) if tp > 1 else None, replica)
     if up:
         atexit.unregister(_release_groups)  # registered once
         atexit.register(_release_groups)
@@ -380,6 +448,15 @@ def _staged(group) -> bool:
     return dist.get_backend(group) == "gloo"
 
 
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (on the card) in page-locked host memory, for gloo: the copy
+    runs at the bus's rate, and the buffer comes from the caching host
+    allocator."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
 def _sync(t: torch.Tensor) -> None:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
@@ -406,16 +483,18 @@ def _logged(log: CommLog | None, kind: str, n_bytes: int, t: torch.Tensor, stage
     log.add(n_bytes, (time.perf_counter() - t0) * 1e3, kind)
 
 
-def _all_reduce_(group, t: torch.Tensor, log=None, kind="allreduce") -> torch.Tensor:
-    """Replace the contiguous ``t`` by its sum over ``group``; returns it."""
+def _all_reduce_(group, t: torch.Tensor, log=None, kind="allreduce",
+                 op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Replace the contiguous ``t`` by its sum (or ``op``) over ``group``;
+    returns it."""
     staged = _staged(group)
     with _logged(log, kind, t.numel() * t.element_size(), t, staged):
         if staged and t.is_cuda:
-            host = t.cpu()
-            dist.all_reduce(host, group=group)
+            host = _pinned_copy(t)
+            dist.all_reduce(host, op=op, group=group)
             t.copy_(host)
         else:
-            dist.all_reduce(t, group=group)
+            dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -426,15 +505,19 @@ def _all_reduce(group, t: torch.Tensor, log=None, kind="allreduce") -> torch.Ten
 
 
 def _all_gather(group, size: int, t: torch.Tensor, log=None, kind="sp_gather") -> list:
-    """``t`` of every rank of ``group`` (equal shapes), in group-rank order."""
+    """``t`` of every rank of ``group`` (equal shapes), in group-rank order
+    (this rank's is ``t`` itself, detached)."""
     staged = _staged(group)
     src = t.detach().contiguous()
     with _logged(log, kind, src.numel() * src.element_size() * (size - 1), src, staged):
         if staged and src.is_cuda:
-            host = src.cpu()
-            parts = [torch.empty_like(host) for _ in range(size)]
+            host = _pinned_copy(src)
+            parts = [torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+                     for _ in range(size)]
             dist.all_gather(parts, host, group=group)
-            parts = [p.to(t.device) for p in parts]
+            me = dist.get_rank(group)
+            parts = [src if i == me else p.to(t.device, non_blocking=True)
+                     for i, p in enumerate(parts)]
         else:
             parts = [torch.empty_like(src) for _ in range(size)]
             dist.all_gather(parts, src, group=group)
@@ -442,21 +525,38 @@ def _all_gather(group, size: int, t: torch.Tensor, log=None, kind="sp_gather") -
 
 
 def all_reduce_mean_(mesh: DataMesh, tensors: list[torch.Tensor],
-                     log: CommLog | None = None, *, replicated: int = 0) -> None:
+                     log: CommLog | None = None, *, replicated: int = 0,
+                     sharded: int = 0) -> None:
     """Replace each of ``tensors`` (float32, on one device) by its mean over
-    the data axis of its sum over the sp axis, in place, with ONE
-    all-reduce of a flat buffer over the world (sum ÷ data): the gradients,
-    of which each rank of an sp group holds its slab's share. The last
+    the data axis of its sum over the sp axis, in place: the gradients, of
+    which each rank of an sp group holds its slab's share. The last
     ``replicated`` tensors are held whole by every rank of an sp group (the
     loss and the metrics): they are scaled by 1/sp first, so they come out
-    as their data-axis mean. Every rank ends with the same bits."""
+    as their data-axis mean. The first ``sharded`` tensors are this rank's
+    tp slices: one all-reduce over the replica group (sum ÷ data). The
+    others, equal on the ranks of a tp group: one all-reduce of a flat
+    buffer over the world (sum ÷ data·tp). Every rank of a reducing group
+    ends with the same bits."""
     if mesh.world is None or not tensors:
         return
+    if sharded:
+        flat = torch.cat([t.reshape(-1) for t in tensors[:sharded]])
+        if mesh.replica is not None:
+            _all_reduce_(mesh.replica, flat, log, "allreduce")
+        flat.div_(mesh.size)
+        _unflatten(flat, tensors[:sharded])
+        tensors = tensors[sharded:]
+        if not tensors:
+            return
     parts = [t.reshape(-1) for t in tensors]
     if replicated and mesh.sp > 1:
         parts[-replicated:] = [p / mesh.sp for p in parts[-replicated:]]
     flat = _all_reduce_(mesh.world, torch.cat(parts), log, "allreduce")
-    flat.div_(mesh.size)
+    flat.div_(mesh.size * mesh.tp)
+    _unflatten(flat, tensors)
+
+
+def _unflatten(flat: torch.Tensor, tensors: list[torch.Tensor]) -> None:
     offset = 0
     for t in tensors:
         t.copy_(flat[offset: offset + t.numel()].view(t.shape))
@@ -524,15 +624,15 @@ def sp_active(axis: SpAxis | None):
         _ACTIVE.reset(token)
 
 
-def bind_sp(fn):
-    """``fn`` run under the sp axis current NOW, wherever it is called later
-    (a checkpointed block's recomputation runs in the backward pass, where
-    no axis is current: every rank must issue the block's collectives
-    again, in the same order)."""
-    axis = current_sp()
+def bind_axes(fn):
+    """``fn`` run under the sp and tp axes current NOW, wherever it is
+    called later (a checkpointed block's recomputation runs in the backward
+    pass, where no axis is current: every rank must issue the block's
+    collectives again, in the same order)."""
+    sp, tp = current_sp(), current_tp()
 
     def bound(*args, **kwargs):
-        with sp_active(axis):
+        with sp_active(sp), tp_active(tp):
             return fn(*args, **kwargs)
 
     return bound
@@ -688,3 +788,231 @@ def local_slab(x: torch.Tensor, dim: int, axis: SpAxis | None = None) -> torch.T
     if x.shape[dim] % axis.size:
         raise ValueError(f"local_slab: {x.shape[dim]} planes do not split into {axis.size} slabs")
     return _LocalSlab.apply(x, axis, dim)
+
+
+# -- the tp axis ---------------------------------------------------------------
+
+_TP: contextvars.ContextVar = contextvars.ContextVar("fast_cwdm_tp", default=None)
+
+
+def current_tp() -> TpAxis | None:
+    """The tp axis the running code gathers its sharded layers over (None:
+    no tp axis)."""
+    return _TP.get()
+
+
+@contextlib.contextmanager
+def tp_active(axis: TpAxis | None):
+    """Run the block with ``axis`` current (None: no tp axis)."""
+    if axis is not None and axis.size == 1:
+        axis = None
+    token = _TP.set(axis)
+    try:
+        yield axis
+    finally:
+        _TP.reset(token)
+
+
+class _TpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        last = x.movedim(dim, -1)
+        if last.is_contiguous():
+            # channels-last memory (or the last dim): gather in that layout,
+            # so the full tensor keeps it
+            parts = _all_gather(axis.group, axis.size, last, axis.log, "tp_gather")
+            return torch.cat(parts, -1).movedim(-1, dim)
+        return torch.cat(_all_gather(axis.group, axis.size, x, axis.log, "tp_gather"), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank of the tp group computes the same loss from the same
+        # gathered tensor, so each holds the whole gradient: its slice is
+        # this rank's part (a sum over the group would give tp times it)
+        return g.narrow(ctx.dim, ctx.axis.rank * ctx.n, ctx.n), None, None
+
+
+class _TpCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(ctx.axis.group, g, ctx.axis.log, "tp_reduce"), None
+
+
+def tp_copy(x: torch.Tensor, axis: TpAxis | None) -> torch.Tensor:
+    """``x``, the replicated input of a layer that computes a tp slice of
+    its outputs; its backward sums the gradient over the tp group (each
+    rank's gradient of ``x`` is its slice's part). Where ``x`` needs no
+    gradient, or without an axis: ``x``."""
+    if axis is None or axis.size == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _TpCopy.apply(x, axis)
+
+
+def all_gather_tp(x: torch.Tensor, dim: int, axis: TpAxis | None = None) -> torch.Tensor:
+    """Every tp rank's slice of ``dim`` (equal slices) concatenated in tp
+    order, on every rank, in ``x``'s memory layout. Backward: this rank's
+    slice of the gradient. Without an active axis: ``x``."""
+    axis = current_tp() if axis is None else axis
+    if axis is None or axis.size == 1:
+        return x
+    return _TpGather.apply(x, axis, dim % x.dim())
+
+
+def tp_shard_axis(n_local: int, n_full: int) -> TpAxis | None:
+    """The tp axis over which a layer whose output has ``n_full`` channels
+    and whose weight holds ``n_local`` of them gathers its output; None
+    where the weight is whole. A slice without an active tp axis of the
+    matching size raises ``RuntimeError``."""
+    if n_local == n_full:
+        return None
+    axis = current_tp()
+    if axis is None or n_local * axis.size != n_full:
+        raise RuntimeError(
+            f"a layer holds {n_local} of its {n_full} output channels (shard_params) but the "
+            f"active tp axis is {None if axis is None else axis.size}: run it under "
+            "tp_active(mesh.tp_axis)")
+    return axis
+
+
+def tp_slice(t: torch.Tensor, axis: TpAxis, dim: int = 0) -> torch.Tensor:
+    """This rank's slice of ``dim`` of a tensor every rank holds whole."""
+    n = t.shape[dim] // axis.size
+    return t.narrow(dim, axis.rank * n, n)
+
+
+def _output_axis(module: torch.nn.Module) -> tuple[int, int] | None:
+    """``(torch axis, full length)`` of the output channels of a module's
+    weight: the axis that is the last of the JAX package's flax leaf (conv
+    ``(*k, I, O)``, Dense ``(I, O)``, Embed ``(num, features)``). None for
+    modules without one (GroupNorm's 1-D parameters)."""
+    if isinstance(module, torch.nn.Embedding):
+        return 1, module.embedding_dim
+    if isinstance(module, torch.nn.Linear):
+        return 0, module.out_features
+    if isinstance(module, torch.nn.modules.conv._ConvNd):
+        return 0, module.out_channels
+    return None
+
+
+def _owned_params(model: torch.nn.Module):
+    """``(name, module, parameter name, parameter)`` of every parameter, by
+    its ``named_parameters`` name (a shared one once)."""
+    seen = set()
+    for prefix, module in model.named_modules():
+        for pname, p in module.named_parameters(recurse=False):
+            if id(p) not in seen:
+                seen.add(id(p))
+                yield (f"{prefix}.{pname}" if prefix else pname), module, pname, p
+
+
+def _spec(module, pname: str, p: torch.Tensor, tp: int) -> int | None:
+    out = _output_axis(module)
+    if tp < 2 or out is None or p.dim() < 2 or pname != "weight":
+        return None
+    axis, full = out
+    return axis if full % tp == 0 else None
+
+
+def param_spec(model: torch.nn.Module, name: str, mesh: DataMesh) -> int | None:
+    """The torch axis of parameter ``name`` of ``model`` that the mesh's tp
+    axis shards (None: replicated). The JAX package's rule on its flax
+    layout: a leaf of two or more axes whose last (output-channel) axis tp
+    divides is sharded along it; 1-D parameters (biases, GroupNorm scales)
+    stay replicated. In the torch layout that axis is dim 0 of a conv or
+    ``Linear`` weight and dim 1 of an ``nn.Embedding`` weight."""
+    for n, module, pname, p in _owned_params(model):
+        if n == name:
+            return _spec(module, pname, p, mesh.tp)
+    raise KeyError(name)
+
+
+def sharded_params(model: torch.nn.Module) -> dict[str, int]:
+    """``{name: torch axis}`` of the parameters that hold a tp slice now
+    (after :func:`shard_params`)."""
+    out = {}
+    for name, module, pname, p in _owned_params(model):
+        spec = _output_axis(module)
+        if pname == "weight" and spec is not None and p.shape[spec[0]] != spec[1]:
+            out[name] = spec[0]
+    return out
+
+
+@torch.no_grad()
+def shard_params(mesh: DataMesh, model: torch.nn.Module) -> torch.nn.Module:
+    """Keep this rank's tp slice of every parameter :func:`param_spec`
+    shards, in place (the same ``nn.Parameter`` objects; a parameter
+    already sliced stays as it is); returns ``model``. Without a tp axis:
+    ``model`` unchanged."""
+    if mesh.tp_axis is None:
+        return model
+    done = sharded_params(model)
+    for name, module, pname, p in _owned_params(model):
+        axis = _spec(module, pname, p, mesh.tp)
+        if axis is not None and name not in done:
+            p.data = tp_slice(p.data, mesh.tp_axis, axis).clone()
+    return model
+
+
+def shard_tensors(mesh: DataMesh, model: torch.nn.Module,
+                  tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``tensors`` (full, by ``state_dict`` key: parameters, Adam moments,
+    EMA shadows) with this rank's tp slice, along the axis of
+    :func:`sharded_params`, of every one whose key is a sharded parameter
+    of ``model`` (a full tensor of another shape raises ``ValueError``);
+    the others as they are."""
+    if mesh.tp_axis is None:
+        return tensors
+    params = dict(model.named_parameters())
+    axes = {id(params[k]): a for k, a in sharded_params(model).items()}
+    local = model.state_dict(keep_vars=True)
+    out = {}
+    for k, v in tensors.items():
+        t = local.get(k)
+        dim = None if t is None else axes.get(id(t))
+        if dim is None:
+            out[k] = v
+            continue
+        want = list(t.shape)
+        want[dim] *= mesh.tp
+        if list(v.shape) != want:
+            raise ValueError(f"{k}: a tensor of shape {tuple(v.shape)} is not the full "
+                             f"{tuple(want)} of the model's tp={mesh.tp} slice {tuple(t.shape)}")
+        out[k] = tp_slice(v, mesh.tp_axis, dim).contiguous()
+    return out
+
+
+def gather_params(mesh: DataMesh, model: torch.nn.Module,
+                  tensors: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+    """The full tensors of ``tensors`` (by parameter name; default the
+    model's parameters): every name sharded in ``model`` gathered over the
+    tp group in one all-gather of a flat buffer, the others as they are.
+    Collective over the tp group."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    axis = mesh.tp_axis
+    axes = sharded_params(model) if axis is not None else {}
+    names = [k for k in tensors if k in axes]
+    if not names:
+        return dict(tensors)
+    flat = torch.cat([tensors[k].detach().reshape(-1) for k in names])
+    parts = _all_gather(axis.group, axis.size, flat, axis.log, "tp_gather")
+    out, offset = dict(tensors), 0
+    for k in names:
+        t = tensors[k]
+        out[k] = torch.cat([p[offset: offset + t.numel()].view(t.shape) for p in parts], axes[k])
+        offset += t.numel()
+    return out
+
+
+def max_over_tp(mesh: DataMesh | None, t: torch.Tensor) -> torch.Tensor:
+    """The maximum of ``t`` over the tp group (a norm of sharded tensors);
+    ``t`` where there is no tp axis."""
+    if mesh is None or mesh.tp_axis is None:
+        return t
+    return _all_reduce_(mesh.tp_axis.group, t.detach().clone(), op=dist.ReduceOp.MAX)

@@ -16,7 +16,12 @@ one volume of a global batch of n (weak scaling) and run
   volume and the ranks exchange only the gradient all-reduce and the
   gathered images.
 
-The model is the JAX bench's tiny UNet (16 base channels, 16³ images).
+The mesh is ``make_mesh()``: the data axis alone, ``{"data": n, "sp": 1}``
+(the sp and tp axes, which split one volume's work over ranks, are held
+to one process by ``tests/test_torch_spatial.py``,
+``tests/test_torch_tensor.py`` and ``parallel/dryrun.py``, whose 8-rank
+run is the JAX dry run's ``{"data": 2, "sp": 2, "tp": 2}``). The model is
+the JAX bench's tiny UNet (16 base channels, 16³ images).
 Prints one JSON line per width, then a summary line; exits 1 when any
 check fails. The seconds are host-CPU wall times of gloo processes, not a
 GPU measurement.

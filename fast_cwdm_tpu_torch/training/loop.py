@@ -26,7 +26,11 @@ per-sample metrics across the data axis (collective: every rank fetches
 at the same steps); the SIGTERM flag is agreed over the world every step,
 so that a signal to any subset of ranks stops every rank after the same
 step; checkpoints, BEST, the ledger and the log files are written by
-global rank 0 alone.
+global rank 0 alone. Under a tp axis the model is sharded
+(``parallel.mesh.shard_params``): rank 0's tp group gathers the
+parameters, moments and EMA shadows for every save, so that a file
+written under tp holds the full arrays, the same bytes as one process's
+for the same state; a resume slices them.
 """
 
 from __future__ import annotations
@@ -124,7 +128,9 @@ class TrainLoop:
         self.mesh = mesh if mesh is not None else pmesh.make_mesh()
         # global rank 0 writes every file; the others compute and log to stdout
         self.writer_rank = self.mesh.process_rank == 0
-        self.model = model.to(self.device)
+        # under tp, the ranks of rank 0's tp group gather what it writes
+        self.gathers = self.mesh.tp > 1 and self.mesh.rank == 0 and self.mesh.sp_rank == 0
+        self.model = pmesh.shard_params(self.mesh, model.to(self.device))
         self.diffusion = diffusion
         self.data_factory = data if callable(data) else (lambda: data)
         self.batch_size = batch_size
@@ -201,11 +207,16 @@ class TrainLoop:
             self.resume_step = ckpt.parse_resume_step_from_filename(path)
 
     def _jax_tree(self, tensors: dict[str, torch.Tensor]) -> dict:
-        return jax_params_from_state_dict(tensors, self.model)
+        """The JAX tree of the full tensors (gathered over tp)."""
+        return jax_params_from_state_dict(
+            pmesh.gather_params(self.mesh, self.model, tensors), self.model)
 
     def _to_device(self, params: dict) -> dict[str, torch.Tensor]:
-        return {k: v.to(self.device, torch.float32)
-                for k, v in state_dict_from_jax(params, self.model).items()}
+        """A loaded JAX tree as this rank's tensors (its tp slices)."""
+        full = state_dict_from_jax(params, self.model)
+        names = dict(self.model.named_parameters())
+        return {k: v.to(self.device, torch.float32) for k, v in pmesh.shard_tensors(
+            self.mesh, self.model, {k: full[k] for k in names}).items()}
 
     @torch.no_grad()
     def _apply_resume(self) -> None:
@@ -261,7 +272,8 @@ class TrainLoop:
                     f"{os.path.basename(opt_path)} — Adam moments and the LR-anneal count "
                     "come from the last BEST save, not from the resumed step")
             tree = ckpt.load_checkpoint(opt_path)["opt_state"]
-            self.state.opt_state = self.opt.state_from_tree(tree, self.model, self.device)
+            self.state.opt_state = self.opt.state_from_tree(tree, self.model, self.device,
+                                                            self.mesh)
             logger.log(f"restored the optimizer state from {opt_path}")
         else:
             logger.log(f"WARNING: no optimizer state found next to {path}; resuming with a "
@@ -442,13 +454,18 @@ class TrainLoop:
                 "step": step}
 
     def _opt_payload(self) -> dict:
-        return {"opt_state": self.opt.state_to_tree(self.state.opt_state, self.model)}
+        return {"opt_state": self.opt.state_to_tree(self.state.opt_state, self.model,
+                                                    self.mesh)}
 
     def save_if_best(self, loss: float, step: int) -> bool:
-        if not self.writer_rank:
+        if not (self.writer_rank or self.gathers):
             return False  # the parameters are the same on every rank
+        # under tp, the writer's tp group gathers the payloads together
+        payload, opt_payload = self._payload(step), self._opt_payload()
+        if not self.writer_rank:
+            return False
         saved = ckpt.save_if_best(
-            self.checkpoint_dir, self.contr, loss, self._payload(step), self._opt_payload(),
+            self.checkpoint_dir, self.contr, loss, payload, opt_payload,
             sample_schedule=self.sample_schedule, diffusion_steps=self.diffusion_steps,
             dataset=self.dataset,
             config={**self.config, "sample_schedule": self.sample_schedule,
@@ -463,14 +480,17 @@ class TrainLoop:
     def save(self, step: int, prune_previous: bool = True) -> None:
         """Step-stamped checkpoint and its optimizer blob (the preemption
         save); ``prune_previous`` then deletes this run's older ones.
-        Rank 0 only."""
+        Rank 0 writes; under tp, its tp group gathers with it."""
+        if not (self.writer_rank or self.gathers):
+            return
+        payload, opt_payload = self._payload(step), self._opt_payload()
         if not self.writer_rank:
             return
         names = (self.contr, step, self.sample_schedule, self.diffusion_steps, self.dataset)
         self.writer.wait()
         ckpt.save_checkpoint(os.path.join(self.checkpoint_dir, ckpt.step_checkpoint_name(*names)),
-                             self._payload(step), config=self.config)
+                             payload, config=self.config)
         ckpt.save_checkpoint(os.path.join(self.checkpoint_dir, ckpt.opt_checkpoint_name(*names)),
-                             self._opt_payload())
+                             opt_payload)
         if prune_previous:
             ckpt.prune_step_checkpoints(self.checkpoint_dir, *names)

@@ -19,7 +19,10 @@ a sharded step computes what an unsharded step on the global batch
 computes. After the backward (and any accumulation) one all-reduce of a
 flat float32 buffer averages the gradients, the loss and the batch-mean
 metrics over the ranks; AdamW and the EMA then run identically on every
-rank.
+rank. Under a tp axis (``parallel.mesh.shard_params``) the ranks of a tp
+group hold the same rows and draws, each its slices of the sharded
+parameters: their gradients are averaged over the replica group in a
+second all-reduce, and AdamW and the EMA update each rank's slices.
 """
 
 from __future__ import annotations
@@ -107,28 +110,40 @@ class AdamW:
         torch._foreach_add_(p, u)
         state["count"] = count
 
-    def state_to_tree(self, state: dict[str, Any], model: torch.nn.Module) -> tuple:
+    def state_to_tree(self, state: dict[str, Any], model: torch.nn.Module,
+                      mesh: pmesh.DataMesh | None = None) -> tuple:
         """optax's ``adamw`` state tree, as the JAX package's ``opt_*.ckpt``
         holds it: ``(ScaleByAdamState(count, mu, nu), EmptyState(),
         ScaleByScheduleState(count) or EmptyState())`` with int32 counts and
-        float32 moments under the JAX parameter names."""
+        float32 moments under the JAX parameter names. Under ``mesh``'s tp
+        axis the moments' slices are gathered first (collective over the tp
+        group)."""
         count = np.asarray(state["count"], np.int32)
+        full = (lambda t: t) if mesh is None else (  # noqa: E731
+            lambda t: pmesh.gather_params(mesh, model, t))
         adam = {"count": count,
-                "mu": jax_params_from_state_dict(state["mu"], model),
-                "nu": jax_params_from_state_dict(state["nu"], model)}
+                "mu": jax_params_from_state_dict(full(state["mu"]), model),
+                "nu": jax_params_from_state_dict(full(state["nu"]), model)}
         sched = {"count": count.copy()} if self.lr_anneal_steps else {}
         return (adam, {}, sched)
 
-    def state_from_tree(self, tree, model: torch.nn.Module,
-                        device: str | torch.device) -> dict[str, Any]:
+    def state_from_tree(self, tree, model: torch.nn.Module, device: str | torch.device,
+                        mesh: pmesh.DataMesh | None = None) -> dict[str, Any]:
         """The inverse of :meth:`state_to_tree`, from a loaded ``.ckpt`` tree
-        (tuples come back keyed "0", "1", "2")."""
+        (tuples come back keyed "0", "1", "2"); under ``mesh``'s tp axis the
+        moments of the sharded parameters are this rank's slices."""
         adam = tree["0"] if isinstance(tree, dict) else tree[0]
         # by parameter name: a shared tensor's alias keys (the WavUNet's
         # decoder) name no moment of their own
         names = dict(model.named_parameters())
-        to_dev = lambda sd: {k: sd[k].to(device=device, dtype=torch.float32).contiguous()  # noqa: E731
-                             for k in names}
+
+        def to_dev(sd):
+            sd = {k: sd[k] for k in names}
+            if mesh is not None:
+                sd = pmesh.shard_tensors(mesh, model, sd)
+            return {k: v.to(device=device, dtype=torch.float32).contiguous()
+                    for k, v in sd.items()}
+
         return {"count": int(np.asarray(adam["count"])),
                 "mu": to_dev(state_dict_from_jax(adam["mu"], model)),
                 "nu": to_dev(state_dict_from_jax(adam["nu"], model))}
@@ -191,17 +206,22 @@ def make_train_step(
     override the sampler's and the noise generator's draws. The model is
     put in training mode (dropout on).
 
-    ``mesh``: the data and sp axes. ``batch`` is then this rank's rows of
+    ``mesh``: the data, sp and tp axes. ``batch`` is then this rank's rows of
     the global batch (``mesh.size`` times as many) and, under sp, its Y
     slab of every volume (``shard_batch``); ``t`` / ``noise_img``, given or
     drawn, are the global batch's (whole volumes), of which the step takes
     its rows and slab, so the ranks of an sp group use the same t and the
     same noise. Under sp every rank backpropagates the volumes' loss
     through its slab (its gradients are its slab's share); the one
-    all-reduce sums them over sp and averages over data. The collectives'
-    bytes and milliseconds go to ``step.comm`` (a
+    all-reduce sums them over sp and averages over data. Under a tp axis
+    the ranks of a tp group take the same rows, slab and draws; the
+    parameters ``shard_params`` sliced are reduced over the replica group
+    (their own all-reduce), the others over the world, and the norm
+    metrics are maxima over the tp group. The collectives' bytes and
+    milliseconds go to ``step.comm`` (a
     :class:`~fast_cwdm_tpu_torch.parallel.mesh.CommLog`, by kind: the
-    gradient all-reduce, and the sp halos, reductions and gathers).
+    gradient all-reduce, the sp halos, reductions and gathers, and the tp
+    gathers).
 
     ``accum_steps``: the batch is split into that many microbatches run
     one after another (one microbatch's activations live at a time), the
@@ -241,6 +261,7 @@ def make_train_step(
     dropout_on = _has_dropout(model)
     dp = mesh is not None and mesh.world is not None
     sp = mesh.sp_axis if mesh is not None else None
+    tp = mesh.tp_axis if mesh is not None else None
     comm = pmesh.CommLog()
 
     def model_fn(x, tt):
@@ -335,7 +356,7 @@ def make_train_step(
                                     generator=rng.noise if rng else None,
                                     dtype=target.dtype, device=dev)
         noise_img = noise_img[lo:hi, :, y0:y1]
-        with pmesh.sp_active(sp):
+        with pmesh.sp_active(sp), pmesh.tp_active(tp):
             if dropout_on:
                 seed = int(torch.randint(2**62, (1,), generator=rng.dropout if rng else None))
                 devices = [dev] if dev.type == "cuda" else []
@@ -344,8 +365,9 @@ def make_train_step(
                     loss, terms, accum = forward_backward(state, batch, t, noise_img, bsz)
             else:
                 loss, terms, accum = forward_backward(state, batch, t, noise_img, bsz)
-        if sp is not None:
-            sp.log.move_to(comm)
+        for axis in (sp, tp):
+            if axis is not None:
+                axis.log.move_to(comm)
         grads = {}
         for k, p in state.params.items():
             gk = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -358,9 +380,13 @@ def make_train_step(
             terms["mse_wav"] = terms["mse_wav"].clone()
             for k in means:
                 terms[k] = terms[k].reshape(1).clone()
+            # the tp slices first: they reduce over the replica group
+            sliced = pmesh.sharded_params(model) if tp is not None else {}
+            order = [k for k in grads if k in sliced] + [k for k in grads if k not in sliced]
             pmesh.all_reduce_mean_(
-                mesh, [*grads.values(), loss, terms["mse_wav"], *(terms[k] for k in means)],
-                comm, replicated=2 + len(means))
+                mesh, [*(grads[k] for k in order), loss, terms["mse_wav"],
+                       *(terms[k] for k in means)],
+                comm, replicated=2 + len(means), sharded=len(sliced))
             loss = loss[0]
             for k in means:
                 terms[k] = terms[k][0]
@@ -377,8 +403,9 @@ def make_train_step(
         for k in means:
             metrics[k] = terms[k]
         if with_norms:
-            metrics["grad_max"] = _max_abs(grads.values())
-            metrics["param_max"] = _max_abs(p.detach() for p in state.params.values())
+            norms = pmesh.max_over_tp(mesh, torch.stack([
+                _max_abs(grads.values()), _max_abs(p.detach() for p in state.params.values())]))
+            metrics["grad_max"], metrics["param_max"] = norms[0], norms[1]
         else:
             metrics["grad_max"] = metrics["param_max"] = torch.zeros((), device=dev)
         for p in state.params.values():

@@ -114,7 +114,7 @@ def _core(workdir):
     sp_mesh = pm.make_mesh(sp=2)
     out["sp_mesh"] = [sp_mesh.shape, sp_mesh.rank, sp_mesh.sp_rank, sp_mesh.group is None]
     for name, fn in (("sp", lambda: pm.make_mesh(data=2, sp=2)),
-                     ("tp", lambda: pm.make_mesh(tp=2)),
+                     ("tp", lambda: pm.make_mesh(data=2, tp=2)),
                      ("data", lambda: pm.make_mesh(data=3)),
                      ("rows", lambda: pm.local_batch_rows(mesh, 3))):
         try:
@@ -253,14 +253,13 @@ def _close_params(ours: dict, jtree, jmodel):
 
 
 def test_mesh_object_and_refusals_in_one_process(monkeypatch):
-    """Without torchrun: a data axis of 1, no group, rank 0; tp raises
-    NotImplementedError naming the ROADMAP item; an sp axis or a data size
-    the one rank cannot hold raises ValueError."""
+    """Without torchrun: a data axis of 1, no group, rank 0; an sp or a tp
+    axis or a data size the one rank cannot hold raises ValueError."""
     mesh = pmesh.make_mesh()
     assert mesh.shape == {"data": 1, "sp": 1} and mesh.group is None and mesh.rank == 0
     assert pmesh.make_hybrid_mesh() == mesh and pmesh.make_mesh(data=1) == mesh
     assert pmesh.local_batch_rows(mesh, 3) == (0, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 M8"):
+    with pytest.raises(ValueError, match=r"not divisible by sp\*tp=2"):
         pmesh.make_mesh(tp=2)
     with pytest.raises(ValueError, match="not divisible by sp"):
         pmesh.make_mesh(sp=2)
@@ -314,7 +313,7 @@ def test_two_ranks_mesh_rows_and_shard_batch(core):
         ref = rec["refusals"]
         assert rec["sp_mesh"] == [{"data": 1, "sp": 2}, 0, rank, True]
         assert ref["sp"][0] == "ValueError" and "exceeds" in ref["sp"][1]
-        assert ref["tp"][0] == "NotImplementedError" and "M8" in ref["tp"][1]
+        assert ref["tp"][0] == "ValueError" and "data*sp*tp=4 exceeds" in ref["tp"][1]
         assert ref["data"][0] == "ValueError" and "2 rank(s)" in ref["data"][1]
         assert ref["rows"][0] == "ValueError" and "not divisible" in ref["rows"][1]
 
@@ -622,9 +621,10 @@ def test_no_rank_returns_before_rank_0s_checkpoint_is_written(tmp_path):
 
 
 def test_dryrun_multichip_two_ranks():
+    # JAX's choice for two devices (__graft_entry__.py:174-176): sp 2
     rec = dryrun.dryrun_multichip(2, timeout=TIMEOUT)
-    assert rec["mesh"] == {"data": 2, "sp": 1} and rec["step"] == 1
-    assert rec["synthesis_shape"] == [2, 16, 16, 16] and np.isfinite(rec["loss"])
+    assert rec["mesh"] == {"data": 1, "sp": 2} and rec["step"] == 1
+    assert rec["synthesis_shape"] == [1, 16, 16, 16] and np.isfinite(rec["loss"])
 
 
 def test_scaling_bench_at_width_2(capsys):
