@@ -29,10 +29,16 @@ Phases, each printing one JSON object per line:
               run, by entry point and by kernel (levels 0-2 on wgmma,
               3-4 on split-K, by ``conv3d_cuda.route``), and that each
               went through the captured CUDA graph chain (one capture,
-              eight replays); then ``make_synthesis_fn`` of four variants,
+              eight replays); then ``make_synthesis_fn`` of six variants,
               each eager (``cuda_graph=False``) and graphed, in turns: the
               images of the two paths (bit for bit expected), launches per
-              volume, capture seconds and graph pool memory; a ``devtime``
+              volume, capture seconds and graph pool memory; two of them
+              are ``bench.py``'s faithful leg (fp32, unfused, TF32 off,
+              cuDNN deterministic, ``diffusion.replace(
+              fuse_clip_projection=False)``: the reference's IDWT → clamp
+              → DWT every step, one K2 and one K1 a step, K1 13 and K2 11
+              a volume, eager and graphed bit for bit) and the same chain
+              with the fused projection (the images within 1e-4); a ``devtime``
               trace of the fuse_conv dpm++ synthesis on each path (device
               ms, wall ms, busy share); a 100-step fuse_conv ddpm chain,
               graphed, with ``chunk`` None and 32, equal bit for bit;
@@ -77,8 +83,9 @@ Phases, each printing one JSON object per line:
               BEST on a case without t1c, output checked;
 9. reference— the whole synthesis at a tiny fp32 config on the card,
               graphed and eager, against the same on the CPU (plain
-              versions), same noise: fuse_gn_silu under ddpm, and
-              fuse_conv under ddpm, ddim and dpm++;
+              versions), same noise: fuse_gn_silu under ddpm,
+              fuse_conv under ddpm, ddim and dpm++, and the unfused model
+              under ddpm with ``fuse_clip_projection=False`` (K1 13, K2 11);
 10. evaluation— the BraSyn evaluation chain at full size through the
               port's entry points: ``scripts.quality_bench`` stage gen (2
               train and 4 val 240×240×155 phantoms), ``run.sh --mode
@@ -135,12 +142,14 @@ Phases, each printing one JSON object per line:
               card against CPU on the same draws (≤ 1e-4, TF32 off);
 14. distributed — the data axis through ``torch.distributed.run``,
               every rank reading the seeded weights from one ``.ckpt`` the
-              script writes once for phases 14-16: (a) ``cli.train`` as one
-              NCCL rank (bf16, fuse_gn_silu, 2 steps), running beside one
-              gloo job of two ranks sharing the card that runs (b) then
-              (c) in each rank: (b) fp32, TF32 off, cuDNN deterministic,
-              global batch 2, 2 steps, against one process accumulating
-              the same rows (bit for bit) and one process at batch 2
+              script writes once for phases 14-16: one gloo job of two
+              ranks sharing the card runs (b) then (c) in each rank,
+              beside this process's one-process runs of (b), then (a)
+              ``cli.train`` as one NCCL rank (bf16, fuse_gn_silu, 2
+              steps) beside the rest: (b) fp32, TF32 off, cuDNN
+              deterministic, global batch 2, 2 steps, against one process
+              accumulating the same rows (bit for bit) and one process at
+              batch 2
               (losses within 2e-5; Adam's moments and parameters
               reported); (c) ``make_synthesis_fn(mesh=)``, each row bit for
               bit its batch-1 synthesis, the difference from a batch-2
@@ -173,11 +182,12 @@ Phases, each printing one JSON object per line:
               scale); (b) the bf16 fuse_conv forward (within twice bf16's
               own error), 54 K4b a rank by route, every Co/2 shape on its
               routed kernel against the plain version, timed beside cuDNN
-              and the bound; (c) make_synthesis_fn's fuse_conv dpm++ 10,
-              eager (K1 3, K2 1, K4b 540 a rank; the same finite [0,1]
-              image on both ranks, zero outside the mask; its difference
-              from the unsharded one, s/volume, the tp gathers' bytes, ms
-              and calls a forward); (d) one fp32 step of ``cli.train
+              and the bound; (c) make_synthesis_fn's fuse_conv dpm++ at 3
+              evaluations, eager (K1 3, K2 1, K4b 54 an evaluation a rank;
+              the same finite [0,1] image on both ranks, zero outside the
+              mask; its difference from the unsharded one of 3
+              evaluations, s/volume, the tp gathers' bytes, ms and calls a
+              forward); (d) one fp32 step of ``cli.train
               --tensor_mesh 2 --fuse_gn_silu True`` against phase
               spatial's one process (losses within 1e-6, Adam's first
               moment within 1e-3 of its scale, replicated parameters the
@@ -189,6 +199,22 @@ Phases, each printing one JSON object per line:
               job's ``cold_start_s`` (launch until its last rank is past
               set-up) is printed after the phase.
 
+What runs beside what: phase evaluation, and then phase probes'
+``probe_core_inference`` and ``probe_regression`` on its BEST, run in a
+child process of this script (``--evaluation-job``, at a lower CPU priority),
+started after phase synthesis, beside phases completion to diffusion_api;
+phase distributed's two torchrun jobs start at phase models, phases
+spatial's and tensor's at phase distributed, each rank setting itself up
+and then waiting for its phase (``gated``), so that their cold starts run
+beside earlier phases. The host-clock times of those phases are taken
+under that load; phases kernels, forward and synthesis run alone, and
+phase probes' device-timed probes beside no other work. The phases print
+in the order 1-9, 12, 13, 10, 11, 14-16. Each phase prints its start
+(``phase_start``: the host's load average and this process's live
+descendants) and, after the torchrun jobs' line, ``{"phase_seconds":
+{...}, "total": ...}``: the seconds of each phase in this process, build
+excluded from ``total``.
+
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and, last,
 ``{"ok": true, "device": {...}}``. Any failed phase exits nonzero before
 the last line. Exits nonzero without a result when no CUDA device is
@@ -198,6 +224,7 @@ present or the package is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -244,8 +271,58 @@ PRODUCTION_CONVS = {
 }
 
 
+PHASE_SECONDS: dict = {}  # each emitted phase's seconds, in order
+
+
 def emit(rec: dict) -> None:
+    if "phase" in rec and "seconds" in rec:
+        PHASE_SECONDS[rec["phase"]] = rec["seconds"]
     print(json.dumps(rec), flush=True)
+
+
+def descendants(root: int) -> set:
+    """The live processes descended from ``root`` (``/proc``), in whatever
+    session each runs."""
+    parent = {}
+    for pid in os.listdir("/proc"):
+        if pid.isdigit():
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    parent[int(pid)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                pass
+    tree, grew = {root}, True
+    while grew:
+        more = {pid for pid, ppid in parent.items() if ppid in tree} - tree
+        tree |= more
+        grew = bool(more)
+    return tree - {root}
+
+
+def kill_tree(proc) -> None:
+    """SIGKILL a child started in a session of its own, its group and every
+    process descended from it (torchrun starts each rank in a session of
+    its own)."""
+    if proc.poll() is None:
+        for pid in descendants(proc.pid):
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def live_children() -> int:
+    """Processes descended from this one that are alive now."""
+    return len(descendants(os.getpid()))
+
+
+def phase_start(name: str) -> float:
+    """Print the host's load and this process's live children as a phase
+    starts; return the phase's start on the host clock."""
+    emit({"phase_start": name, "loadavg": os.getloadavg(), "live_children": live_children()})
+    return time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -891,25 +968,39 @@ def check_graph_counts(volumes: int, steps: int = 10) -> dict:
     return dict(graph.counts)
 
 
-SYNTH_VARIANTS = {"unfused": ({}, "ddpm"), "fused": (dict(fuse_gn_silu=True), "ddpm"),
-                  "fuse_conv_ddpm": (dict(fuse_conv=True), "ddpm"),
-                  "fuse_conv_dpm": (dict(fuse_conv=True), "dpm++")}
-# launches per volume of each variant on the graph path
+# name: (model flags, sampler, diffusion fields replaced). "faithful" is
+# bench.py's faithful leg: fp32, unfused, the reference's IDWT → clamp →
+# DWT every step (K2 → clamp → K1); "fp32" the same chain with the fused
+# projection. Both run with TF32 off and cuDNN deterministic.
+SYNTH_VARIANTS = {"unfused": ({}, "ddpm", {}), "fused": (dict(fuse_gn_silu=True), "ddpm", {}),
+                  "fuse_conv_ddpm": (dict(fuse_conv=True), "ddpm", {}),
+                  "fuse_conv_dpm": (dict(fuse_conv=True), "dpm++", {}),
+                  "fp32": (dict(dtype="float32"), "ddpm", {}),
+                  "faithful": (dict(dtype="float32"), "ddpm", dict(fuse_clip_projection=False))}
+FP32_VARIANTS = ("fp32", "faithful")
+# launches per volume of each variant on the graph path: K1 3 (condition)
+# and K2 1 (output) a volume, and with the unfused projection one K2 and
+# one K1 more for each of the 10 steps
 SYNTH_WANT = {"unfused": {"affine_silu": 0, "conv3d_fused_k4b": 0},
               "fused": {"affine_silu": 710, "conv3d_fused_k4b": 0},
               "fuse_conv_ddpm": {"affine_silu": 0, "conv3d_fused_k4b": 540, "conv3d_wgmma": 300,
                                  "conv3d_splitk": 240, "conv3d_mma_sync": 0},
               "fuse_conv_dpm": {"affine_silu": 0, "conv3d_fused_k4b": 540, "conv3d_wgmma": 300,
-                                "conv3d_splitk": 240, "conv3d_mma_sync": 0}}
+                                "conv3d_splitk": 240, "conv3d_mma_sync": 0},
+              "fp32": {"haar_dwt3": 3, "haar_idwt3": 1, "affine_silu": 0, "conv3d_fused_k4b": 0},
+              "faithful": {"haar_dwt3": 3 + 10, "haar_idwt3": 1 + 10, "affine_silu": 0,
+                           "conv3d_fused_k4b": 0}}
 
 
 def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
-    """``make_synthesis_fn`` on the case, four variants, each eager
-    (``cuda_graph=False``) and graphed: one warm-up call each (the graph's
-    capture), then one timed call each, on one generator seed;
-    host clock from the condition DWTs to the image on the host. The graph
-    path's image against the eager one (expected bit for bit), its launches
-    per volume, its capture seconds and pool memory. Then one ``devtime``
+    """``make_synthesis_fn`` on the case, the variants of
+    ``SYNTH_VARIANTS``, each eager (``cuda_graph=False``) and graphed: one
+    warm-up call each (the graph's capture), then one timed call each, on
+    one generator seed; host clock from the condition DWTs to the image on
+    the host. The graph path's image against the eager one (expected bit
+    for bit, and held so in fp32), its launches per volume, its capture
+    seconds and pool memory; the faithful leg's image against the fused
+    projection's (1e-4). Then one ``devtime``
     trace of the fuse_conv dpm++ synthesis, eager and graphed (device ms,
     wall ms, busy share); and a 100-step fuse_conv ddpm chain, graphed, with
     ``chunk=None`` and ``chunk=32`` (a ragged last segment of 4)."""
@@ -920,25 +1011,29 @@ def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
 
     item = brats.BRATSVolumes(os.path.dirname(case))[0]
     batch = {m: item[m][None] for m in brats.MODALITIES}
-    runs, models = {}, {}
-    for name, (flags_v, sampler) in SYNTH_VARIANTS.items():
+    runs, models, variant = {}, {}, {}
+    for name, (flags_v, sampler, changes) in SYNTH_VARIANTS.items():
         m, diff = common.build_model_and_diffusion({**cfg, "fuse_gn_silu": False, **flags_v})
         m.load_state_dict(sd)
+        diff = diff.replace(**changes)
         models[name] = (m, diff)
         for path in ("eager", "graph"):
             runs[f"{name}_{path}"] = common.make_synthesis_fn(
                 m, diff, sampler=sampler, sampler_steps=10, device="cuda",
                 cuda_graph=path == "graph")
+            variant[f"{name}_{path}"] = name
     names = list(runs)
     order = names + names[::-1]
     times, imgs, launches = {name: [] for name in names}, {}, {}
     for k, name in enumerate(order):
         gen = torch.Generator(device="cuda").manual_seed(0)
         reset_counts()
-        t0 = time.perf_counter()
-        cond = common.prepare_condition(batch, "t1c", device="cuda")
-        img = runs[name](cond, batch["t1n"], gen)
-        seconds = time.perf_counter() - t0
+        exact = no_tf32(torch, deterministic=True)
+        with exact if variant[name] in FP32_VARIANTS else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            cond = common.prepare_condition(batch, "t1c", device="cuda")
+            img = runs[name](cond, batch["t1n"], gen)
+            seconds = time.perf_counter() - t0
         launches[name] = read_counts()
         if k < len(names):
             imgs[name] = img
@@ -964,7 +1059,8 @@ def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
         want = SYNTH_WANT[name]
         if any(launches[f"{name}_graph"][k] != n for k, n in want.items()) \
                 or launches[f"{name}_graph"] != launches[f"{name}_eager"] \
-                or float(np.abs(g - e).max()) > 1e-4:
+                or float(np.abs(g - e).max()) > 1e-4 \
+                or (name in FP32_VARIANTS and res[f"graph_{name}"]["n_differ"]):
             bad.append(name)
     res["graph_pool_bytes_added_total"] = sum(
         runs[f"{n}_graph"].chain.graph.pool_bytes for n in SYNTH_VARIANTS)
@@ -972,6 +1068,18 @@ def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
     for name in ("fused", "fuse_conv_ddpm"):
         res[f"max_abs_diff_image_{name}_vs_unfused"] = float(np.abs(imgs[f"{name}_eager"] - a).max())
         res[f"mean_abs_diff_image_{name}_vs_unfused"] = float(np.abs(imgs[f"{name}_eager"] - a).mean())
+    # the faithful leg against the fused projection: same weights and noise
+    diff = np.abs(imgs["faithful_graph"] - imgs["fp32_graph"])
+    res["faithful"] = {
+        "max_abs_diff_image_vs_fused_projection": float(diff.max()),
+        "mean_abs_diff_image_vs_fused_projection": float(diff.mean()), "tol": 1e-4,
+        "finite_in_unit_range": bool(np.isfinite(imgs["faithful_graph"]).all()
+                                     and 0.0 <= imgs["faithful_graph"].min()
+                                     and imgs["faithful_graph"].max() <= 1.0),
+        "max_image": float(imgs["faithful_graph"].max())}
+    if not (res["faithful"]["max_abs_diff_image_vs_fused_projection"] <= 1e-4
+            and res["faithful"]["finite_in_unit_range"] and res["faithful"]["max_image"] > 0):
+        fail(f"the faithful leg disagrees with the fused projection: {res['faithful']}")
     if bad:
         fail(f"the graphed synthesis disagrees with the eager one or with the expected "
              f"launches: {bad}: { {k: v for k, v in res.items() if k.startswith('graph_')} }")
@@ -1669,11 +1777,13 @@ def fuse_conv_backward_raises(torch) -> str:
     return ""
 
 
-REFERENCE_RUNS = {  # name: (model flags, sampler)
-    "fuse_gn_silu_ddpm": (dict(fuse_gn_silu=True), "ddpm"),
-    "fuse_conv_ddpm": (dict(fuse_gn_silu=True, fuse_conv=True), "ddpm"),
-    "fuse_conv_ddim": (dict(fuse_gn_silu=True, fuse_conv=True), "ddim"),
-    "fuse_conv_dpm": (dict(fuse_gn_silu=True, fuse_conv=True), "dpm++"),
+REFERENCE_RUNS = {  # name: (model flags, sampler, diffusion fields replaced)
+    "fuse_gn_silu_ddpm": (dict(fuse_gn_silu=True), "ddpm", {}),
+    "fuse_conv_ddpm": (dict(fuse_gn_silu=True, fuse_conv=True), "ddpm", {}),
+    "fuse_conv_ddim": (dict(fuse_gn_silu=True, fuse_conv=True), "ddim", {}),
+    "fuse_conv_dpm": (dict(fuse_gn_silu=True, fuse_conv=True), "dpm++", {}),
+    # the reference's IDWT → clamp → DWT each step: K2 and K1 on the card
+    "unfused_projection_ddpm": ({}, "ddpm", dict(fuse_clip_projection=False)),
 }
 
 
@@ -1682,13 +1792,13 @@ def phase_reference(torch) -> dict:
     eager, against the same synthesis on the CPU, where the wrappers take
     their plain versions, which the CPU tests hold against the JAX package:
     every GN→SiLU through K3 under ddpm, then also every ResBlock conv
-    through K4b under ddpm, ddim and dpm++. Same weights, same noise; TF32
-    off. Tolerance 1e-4 on the [0,1] image, as the CPU tests against JAX;
+    through K4b under ddpm, ddim and dpm++; and the unfused model under
+    ddpm with ``fuse_clip_projection=False`` (K1 13, K2 11 a volume). Same
+    weights, same noise; TF32 off. Tolerance 1e-4 on the [0,1] image, as the CPU tests against JAX;
     the graph against the eager chain on the card: expected bit for bit."""
     import numpy as np
 
     from fast_cwdm_tpu_torch.cli import common
-    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
     from fast_cwdm_tpu_torch.utils.testing import seeded_state_dict
 
     rng = np.random.default_rng(0)
@@ -1699,27 +1809,30 @@ def phase_reference(torch) -> dict:
     step_noise = rng.standard_normal((10, 1, 8, 8, 8, 8)).astype(np.float32)
     torch.backends.cudnn.allow_tf32 = False
     res = {}
-    for name, (flags, sampler) in REFERENCE_RUNS.items():
+    for name, (flags, sampler, changes) in REFERENCE_RUNS.items():
         cfg = common.production_config(
             num_channels=16, num_res_blocks=1, channel_mult="1,2", num_groups=8,
             image_size=8, diffusion_steps=10, sample_schedule="sampled",
             dtype="float32", **flags,
         )
-        out, k4b = {}, {}
+        out, k4b, haar = {}, {}, {}
         for path, dev, graphed in (("cpu", "cpu", False), ("eager", "cuda", False),
                                    ("graph", "cuda", True)):
             model, diffusion = common.build_model_and_diffusion(cfg)
             shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
             model.load_state_dict({k: torch.from_numpy(v)
                                    for k, v in seeded_state_dict(shapes).items()})
-            run = common.make_synthesis_fn(model, diffusion, crop_z=12, sampler=sampler,
-                                           device=dev, cuda_graph=graphed)
+            run = common.make_synthesis_fn(model, diffusion.replace(**changes), crop_z=12,
+                                           sampler=sampler, device=dev, cuda_graph=graphed)
+            reset_counts()
             cond = common.prepare_condition(vols, "t1c", device=dev)
-            before = tc.conv3d_fused.launches_k4b
             out[path] = run(cond, vols["t1n"], noise=noise, step_noise=step_noise)
-            k4b[path] = tc.conv3d_fused.launches_k4b - before
+            got = read_counts()
+            k4b[path] = got["conv3d_fused_k4b"]
+            haar[path] = {k: got[k] for k in ("haar_dwt3", "haar_idwt3")}
         res[name] = {"shape": list(out["graph"].shape), "tol": 1e-4,
-                     "max_image": float(out["cpu"].max()), "k4b_launches": k4b}
+                     "max_image": float(out["cpu"].max()), "k4b_launches": k4b,
+                     "haar_launches": haar}
         for path in ("eager", "graph"):
             res[name][f"max_abs_err_{path}_vs_cpu"] = float(np.abs(out[path] - out["cpu"]).max())
         res[name]["max_abs_diff_graph_vs_eager"] = float(np.abs(out["graph"] - out["eager"]).max())
@@ -1729,6 +1842,10 @@ def phase_reference(torch) -> dict:
             fail(f"the synthesis on the card disagrees with the CPU's: {name} {res[name]}")
         if flags.get("fuse_conv") and (k4b["eager"], k4b["graph"]) != (160, 160):
             fail(f"the tiny fuse_conv synthesis launched K4b {k4b}, expected 160 on the card")
+        steps = 10 if changes.get("fuse_clip_projection") is False else 0
+        want = {"haar_dwt3": 3 + steps, "haar_idwt3": 1 + steps}
+        if (haar["eager"], haar["graph"]) != (want, want):
+            fail(f"the tiny synthesis launched K1/K2 {haar}, expected {want} on the card")
     torch.backends.cudnn.allow_tf32 = True
     return res
 
@@ -2128,27 +2245,38 @@ def native_decoder(tmp: str, evaluation: dict) -> dict:
     return res
 
 
-def phase_probes(torch, tmp: str, evaluation: dict) -> dict:
-    """The JAX package's five probes, ported, at the production width on
-    phase evaluation's trees (two train and four val 240×240×155 phantoms)
-    and BEST, and the native decoder; each probe through its ``main`` as a
-    user runs it, with the K1/K2/K3/K4b launches of its run:
-    ``probe_elementwise`` (A: K3 against plain at the level-0 shape, B: the
-    forward unfused and fused, C: the 100-step chain with K3 if B wins),
-    ``probe_lane_ceiling`` (cuDNN at six channel pairs and K4b on its
-    route at each, then every lane shape not in phase kernels held against
-    the plain version; the fold's parity), ``probe_batch2`` (four legs, each
-    must complete), ``probe_core_inference`` (its GT rows against the
+class ProbeRuns:
+    """Each probe's run through :meth:`run`: its seconds, its K1/K2/K3/K4b
+    launches, and its ``devtime`` calls whose trace held no kernel (timed
+    by CUDA events)."""
+
+    def __init__(self, torch):
+        self.torch, self.seconds, self.launches, self.fallbacks = torch, {}, {}, {}
+
+    def run(self, name, fn):
+        from fast_cwdm_tpu_torch.utils.devtime import devtime
+
+        reset_counts()
+        before = devtime.fallbacks
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        self.seconds[name] = time.perf_counter() - t0
+        self.launches[name] = probe_launches(read_counts())
+        self.fallbacks[name] = devtime.fallbacks - before
+        self.torch.cuda.empty_cache()
+        return out
+
+
+def probes_on_best(torch, tmp: str, evaluation: dict) -> dict:
+    """Phase probes' two probes of phase evaluation's BEST, run in its
+    child after it: ``probe_core_inference`` (its GT rows against the
     committed JAX record within 1e-6; K1 5, K2 7 a case) and
     ``probe_regression`` (4 training steps with the lesion term, the
     completion and the downstream chain in phase evaluation's
     ``downstream_bench`` workdir, whose real leg it reuses; its GT region
     means equal to that run's)."""
-    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
-    from fast_cwdm_tpu_torch.scripts import probe_batch2 as pb
     from fast_cwdm_tpu_torch.scripts import probe_core_inference as pci
-    from fast_cwdm_tpu_torch.scripts import probe_elementwise as pe
-    from fast_cwdm_tpu_torch.scripts import probe_lane_ceiling as pl
     from fast_cwdm_tpu_torch.scripts import probe_regression as pr
     from fast_cwdm_tpu_torch.scripts import quality_bench
 
@@ -2156,76 +2284,8 @@ def phase_probes(torch, tmp: str, evaluation: dict) -> dict:
     train_dir, val_dir = os.path.join(work, "train"), os.path.join(work, "val")
     ckpt_dir = quality_bench.ckpt_dir_for(quality_bench.parse_args([f"--workdir={work}"]),
                                           "sampled", 10)
-    from fast_cwdm_tpu_torch.utils.devtime import devtime
-
-    res, seconds, launches, fallbacks = {}, {}, {}, {}
-
-    def run(name, fn):
-        reset_counts()
-        before = devtime.fallbacks
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        seconds[name] = time.perf_counter() - t0
-        launches[name] = probe_launches(read_counts())
-        # devtime calls whose trace held no kernel (timed by CUDA events)
-        fallbacks[name] = devtime.fallbacks - before
-        torch.cuda.empty_cache()
-        return out
-
-    t0 = time.perf_counter()
-    res["native"] = native_decoder(tmp, evaluation)
-    seconds["native"] = time.perf_counter() - t0
-
-    # probe_elementwise: A a K3 launch a call, B 71 a fused forward, C the
-    # chain's; devtime(events=True) makes 7 calls (a warm-up, 3 on the host
-    # clock, 3 behind a spin of the card)
-    calls = 7
-    el = run("elementwise", lambda: pe.main(["--walls", "2"]))
-    k3_a = el["A"]["A/k3_affine_silu"]["launches"].get("affine_silu", 0)
-    k3_b = el["B"]["launches"]["fuse_gn_silu=True"].get("affine_silu", 0)
-    if (k3_a != calls or el["A"]["A/plain_affine_silu"]["launches"]
-            or k3_b != 71 * calls
-            or el["B"]["launches"]["fuse_gn_silu=False"].get("affine_silu", 0)):
-        fail(f"probe_elementwise launches: {el['A']} {el['B']['launches']}")
-    if el["B"]["delta_ms"] > 0 and not (el["C"] and el["C"]["finite"]
-                                        and el["C"]["launches"].get("affine_silu", 0)):
-        fail(f"probe_elementwise C: {el['C']}")
-    res["elementwise"] = el
-
-    # probe_lane_ceiling; then K4b at the lane shapes phase kernels does not
-    # check, against the plain version (these launches are not counted)
-    lane = run("lane_ceiling", lambda: pl.main([]))
-    for ci, co in pl.PAIRS:
-        k = lane[f"conv_{ci}->{co}"].get("k4b")
-        if not k or k["route"] != "wgmma" or k["launches"].get("conv3d_fused_k4b") != calls:
-            fail(f"probe_lane_ceiling K4b at {ci}->{co}: {k}")
-    g = torch.Generator(device="cuda").manual_seed(14)
-    checked = {(ci, sp, co) for _, b, ci, sp, co in CONV_SHAPES if b == 1}
-    lane_checks = []
-    with torch.inference_mode():
-        for ci, co in pl.PAIRS:
-            if (ci, LATENT, co) in checked:
-                continue
-            x, w, b, gn = conv_inputs(torch, g, 1, ci, LATENT, co, torch.bfloat16)
-            y = tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=tc.pack_wgmma_weights(w))
-            ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
-            lane_checks.append({"ci": ci, "co": co, "tol_ratio": tc.tol_ratio(y, ref, x, w, gn),
-                                "max_abs_err": float((y.float() - ref.float()).abs().max())})
-            del x, w, b, gn, y, ref
-    if not all(c["tol_ratio"] <= 1.0 for c in lane_checks):
-        fail(f"K4b at the lane shapes disagrees with the plain version: {lane_checks}")
-    lane["k4b_vs_plain"] = lane_checks
-    res["lane_ceiling"] = lane
-
-    # probe_batch2: every leg completes on 80 GB
-    rows = run("batch2", lambda: pb.main(["--iters", "1"]))  # 3 steps a leg
-    bad = [r for r in rows if "error" in r or not math.isfinite(r["loss"])
-           or not (r["launches"].get("haar_dwt3") and r["launches"].get("haar_idwt3"))]
-    if len(rows) != 4 or bad:
-        fail(f"probe_batch2: {rows}")
-    res["batch2"] = rows
-
+    runs, res = ProbeRuns(torch), {}
+    run, launches = runs.run, runs.launches
     # probe_core_inference on evaluation's BEST and val phantoms
     out = os.path.join(tmp, "probe_core_inference.json")
     core = run("core_inference", lambda: pci.main(
@@ -2288,6 +2348,83 @@ def phase_probes(torch, tmp: str, evaluation: dict) -> dict:
         fail(f"probe_regression report: {rep}")
     res["regression"] = {k: rep[k] for k in ("legs", "agreement", "gt_region_means", "train",
                                              "config")}
+    return {**res, "launches": launches, "devtime_event_fallbacks": runs.fallbacks,
+            "seconds_by_probe": runs.seconds}
+
+
+def phase_probes(torch, tmp: str, evaluation: dict, on_best: dict) -> dict:
+    """The JAX package's five probes, ported, at the production width on
+    phase evaluation's trees (two train and four val 240×240×155 phantoms)
+    and BEST, and the native decoder; each probe through its ``main`` as a
+    user runs it, with the K1/K2/K3/K4b launches of its run:
+    ``probe_elementwise`` (A: K3 against plain at the level-0 shape, B: the
+    forward unfused and fused, C: the 100-step chain with K3 if B wins),
+    ``probe_lane_ceiling`` (cuDNN at six channel pairs and K4b on its
+    route at each, then every lane shape not in phase kernels held against
+    the plain version; the fold's parity), ``probe_batch2`` (four legs, each
+    must complete); ``on_best``: ``probe_core_inference`` and
+    ``probe_regression``, run and checked in phase evaluation's child
+    (:func:`probes_on_best`)."""
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
+    from fast_cwdm_tpu_torch.scripts import probe_batch2 as pb
+    from fast_cwdm_tpu_torch.scripts import probe_elementwise as pe
+    from fast_cwdm_tpu_torch.scripts import probe_lane_ceiling as pl
+
+    runs, res = ProbeRuns(torch), {}
+    run, seconds = runs.run, runs.seconds
+    t0 = time.perf_counter()
+    res["native"] = native_decoder(tmp, evaluation)
+    seconds["native"] = time.perf_counter() - t0
+
+    # probe_elementwise: A a K3 launch a call, B 71 a fused forward, C the
+    # chain's; devtime(events=True) makes 7 calls (a warm-up, 3 on the host
+    # clock, 3 behind a spin of the card)
+    calls = 7
+    el = run("elementwise", lambda: pe.main(["--walls", "1"]))
+    k3_a = el["A"]["A/k3_affine_silu"]["launches"].get("affine_silu", 0)
+    k3_b = el["B"]["launches"]["fuse_gn_silu=True"].get("affine_silu", 0)
+    if (k3_a != calls or el["A"]["A/plain_affine_silu"]["launches"]
+            or k3_b != 71 * calls
+            or el["B"]["launches"]["fuse_gn_silu=False"].get("affine_silu", 0)):
+        fail(f"probe_elementwise launches: {el['A']} {el['B']['launches']}")
+    if el["B"]["delta_ms"] > 0 and not (el["C"] and el["C"]["finite"]
+                                        and el["C"]["launches"].get("affine_silu", 0)):
+        fail(f"probe_elementwise C: {el['C']}")
+    res["elementwise"] = el
+
+    # probe_lane_ceiling; then K4b at the lane shapes phase kernels does not
+    # check, against the plain version (these launches are not counted)
+    lane = run("lane_ceiling", lambda: pl.main([]))
+    for ci, co in pl.PAIRS:
+        k = lane[f"conv_{ci}->{co}"].get("k4b")
+        if not k or k["route"] != "wgmma" or k["launches"].get("conv3d_fused_k4b") != calls:
+            fail(f"probe_lane_ceiling K4b at {ci}->{co}: {k}")
+    g = torch.Generator(device="cuda").manual_seed(14)
+    checked = {(ci, sp, co) for _, b, ci, sp, co in CONV_SHAPES if b == 1}
+    lane_checks = []
+    with torch.inference_mode():
+        for ci, co in pl.PAIRS:
+            if (ci, LATENT, co) in checked:
+                continue
+            x, w, b, gn = conv_inputs(torch, g, 1, ci, LATENT, co, torch.bfloat16)
+            y = tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=tc.pack_wgmma_weights(w))
+            ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
+            lane_checks.append({"ci": ci, "co": co, "tol_ratio": tc.tol_ratio(y, ref, x, w, gn),
+                                "max_abs_err": float((y.float() - ref.float()).abs().max())})
+            del x, w, b, gn, y, ref
+    if not all(c["tol_ratio"] <= 1.0 for c in lane_checks):
+        fail(f"K4b at the lane shapes disagrees with the plain version: {lane_checks}")
+    lane["k4b_vs_plain"] = lane_checks
+    res["lane_ceiling"] = lane
+
+    # probe_batch2: every leg completes on 80 GB
+    rows = run("batch2", lambda: pb.main(["--iters", "1"]))  # 3 steps a leg
+    bad = [r for r in rows if "error" in r or not math.isfinite(r["loss"])
+           or not (r["launches"].get("haar_dwt3") and r["launches"].get("haar_idwt3"))]
+    if len(rows) != 4 or bad:
+        fail(f"probe_batch2: {rows}")
+    res["batch2"] = rows
+
     timed = ([v["ms"] for v in el["A"].values()] + list(el["B"]["forward_ms"].values())
              + [lane[k]["ms"] for k in lane if k.startswith("conv_")]
              + [lane[k]["k4b"]["ms"] for k in lane if k.startswith("conv_")]
@@ -2295,9 +2432,10 @@ def phase_probes(torch, tmp: str, evaluation: dict) -> dict:
              + [r["ms_per_step"] for r in rows])
     if not all(ms > 0 for ms in timed):
         fail(f"a probe leg measured no device time: {timed}")
-    res["launches"] = launches
-    res["devtime_event_fallbacks"] = fallbacks
-    res["seconds_by_probe"] = seconds
+    res["core_inference"], res["regression"] = on_best["core_inference"], on_best["regression"]
+    res["launches"] = {**runs.launches, **on_best["launches"]}
+    res["devtime_event_fallbacks"] = {**runs.fallbacks, **on_best["devtime_event_fallbacks"]}
+    res["seconds_by_probe"] = {**seconds, **on_best["seconds_by_probe"]}
     return res
 
 
@@ -2760,22 +2898,21 @@ def phase_diffusion_api(torch) -> dict:
 # seconds from each torchrun job's launch until its last rank was past
 # set-up (process group and CUDA context), by job, from the ranks' clocks
 COLD_STARTS: dict = {}
-
-
-def torchrun(tmp: str, name: str, n: int, child: list, env: dict, timeout: int = 300,
-             config: dict | None = None) -> list:
-    """``python -m torch.distributed.run --standalone --nproc_per_node=n
-    chip_smoke.py <child>``: n ranks on this host, each writing its record
-    to ``tmp/name/rank{r}.json``; returns the records in rank order."""
-    return torchrun_finish(torchrun_start(tmp, name, n, child, env, config), timeout)
+# seconds its last rank to be ready then waited for the go of a job
+# started ahead of its phase (0 where the go came first)
+GO_WAITS: dict = {}
 
 
 def torchrun_start(tmp: str, name: str, n: int, child: list, env: dict,
-                   config: dict | None = None) -> tuple:
-    """Start :func:`torchrun`'s job in a session of its own and return at
-    once (``config``, where given, is written to ``tmp/name/config.json``
-    for the ranks first); :func:`torchrun_finish` waits for it,
-    :func:`torchrun_stop` ends it."""
+                   config: dict | None = None, gated: bool = False) -> tuple:
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc_per_node=n chip_smoke.py <child>`` (n ranks on this host, each
+    writing its record to ``tmp/name/rank{r}.json``) in a session of its
+    own and return at once (``config``, where given, is written to
+    ``tmp/name/config.json`` for the ranks first); :func:`torchrun_finish`
+    waits for it, :func:`torchrun_stop` ends it. ``gated``: each rank sets
+    itself up (its cold start) and then waits for :func:`torchrun_go`, so
+    that a job can be started ahead of its phase."""
     import torch
 
     torch.cuda.empty_cache()  # the ranks share the card with this process
@@ -2787,26 +2924,34 @@ def torchrun_start(tmp: str, name: str, n: int, child: list, env: dict,
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={n}", os.path.join(REPO, "chip_smoke.py"), *child]
     log_path = os.path.join(tmp, f"{name}.log")
+    env = dict(os.environ, **env)
+    go = os.path.join(out_dir, "go")
+    if gated:
+        env["CHIP_SMOKE_GO"] = go
     launched = time.time()
     with open(log_path, "w") as log:
-        proc = subprocess.Popen(cmd, env=dict(os.environ, **env), stdout=log, stderr=log,
-                                cwd=REPO, start_new_session=True)
+        proc = subprocess.Popen(cmd, env=env, stdout=log, stderr=log, cwd=REPO,
+                                start_new_session=True)
     return name, n, proc, log_path, out_dir, launched
+
+
+def torchrun_go(job: tuple) -> None:
+    """Let the ranks of a gated job of :func:`torchrun_start` run on."""
+    with open(os.path.join(job[4], "go"), "w"):
+        pass
 
 
 def torchrun_stop(job: tuple) -> None:
     """Kill a job of :func:`torchrun_start` that is still running, its ranks
     with it."""
-    proc = job[2]
-    if proc.poll() is None:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
+    kill_tree(job[2])
 
 
 def torchrun_finish(job: tuple, timeout: int = 300) -> list:
     """Wait for a job of :func:`torchrun_start`; its ranks' records in rank
     order. Fails on a nonzero exit or at ``timeout`` seconds."""
     name, n, proc, log_path, out_dir, launched = job
+    torchrun_go(job)
     try:
         rc = proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -2821,6 +2966,9 @@ def torchrun_finish(job: tuple, timeout: int = 300) -> list:
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             recs.append(json.load(f))
     COLD_STARTS[name] = max(r["ready_at"] for r in recs) - launched
+    # how long the last rank to be ready waited for the go (0 ungated)
+    GO_WAITS[name] = max(0.0, min(r["released_at"] for r in recs)
+                         - max(r["ready_at"] for r in recs))
     return recs
 
 
@@ -3038,7 +3186,26 @@ def compare_runs(np, a: dict, b: dict, steps: int, lr: float) -> dict:
                 q: float(np.quantile(rms, q)) for q in (0.0, 0.5, 0.9, 1.0)} if beyond else {}}
 
 
-def dist_two_ranks_vs_one(torch, tmp: str, data: str, recs: list, flags: dict) -> dict:
+def dist_one_process_runs(torch, tmp: str, data: str, flags: dict) -> dict:
+    """Phase distributed (b)'s one process on the ranks' global batch 2,
+    with ``--microbatch=1`` and at batch 2: each run's record and its
+    Adam state."""
+    import numpy as np
+
+    from fast_cwdm_tpu_torch.training import checkpoints
+
+    runs = {}
+    for name, extra in (("one_process_microbatch_1", {"microbatch": 1}),
+                        ("one_process_batch_2", {})):
+        with no_tf32(torch, deterministic=True):
+            run = run_train(torch, tmp, name, train_flags(
+                data, os.path.join(tmp, f"ckpt_{name}"), DIST_STEPS, **flags, **extra),
+                DIST_STEPS)
+        runs[name] = run, adam_state(checkpoints, np, os.path.join(tmp, f"ckpt_{name}"))
+    return runs
+
+
+def dist_two_ranks_vs_one(tmp: str, recs: list, one: dict) -> dict:
     """Phase distributed (b): ``cli.train`` as two gloo ranks sharing the
     card, global batch 2, ``DIST_STEPS`` steps with ``--fuse_gn_silu``, fp32
     with TF32 off and cuDNN's deterministic algorithms, from the same
@@ -3050,7 +3217,8 @@ def dist_two_ranks_vs_one(torch, tmp: str, data: str, recs: list, flags: dict) -
     (ii) at batch 2 in one pass, whose convolutions reduce in another order:
     losses within 2e-5, and Adam's first moment and the parameters reported
     (``compare_runs``; PERF.md §6). ``recs``: the ranks' records of the
-    run, made in the gloo job of :func:`phase_distributed` with ``flags``."""
+    run, made in the gloo job of :func:`phase_distributed` with ``flags``;
+    ``one``: the one-process runs (:func:`dist_one_process_runs`)."""
     import numpy as np
 
     from fast_cwdm_tpu_torch.training import checkpoints
@@ -3058,12 +3226,7 @@ def dist_two_ranks_vs_one(torch, tmp: str, data: str, recs: list, flags: dict) -
     steps, lr = DIST_STEPS, 1e-5
     out = check_dist_run("(b)", recs)
     two = adam_state(checkpoints, np, os.path.join(tmp, "ckpt_two"))
-    for name, extra in (("one_process_microbatch_1", {"microbatch": 1}),
-                        ("one_process_batch_2", {})):
-        with no_tf32(torch, deterministic=True):
-            run = run_train(torch, tmp, name, train_flags(
-                data, os.path.join(tmp, f"ckpt_{name}"), steps, **flags, **extra), steps)
-        state = adam_state(checkpoints, np, os.path.join(tmp, f"ckpt_{name}"))
+    for name, (run, state) in one.items():
         out[name] = {
             **{k: run[k] for k in ("losses", "s_per_step_warm", "max_memory_allocated_bytes",
                                    "launches_per_step")},
@@ -3126,7 +3289,7 @@ def dist_one_nccl_rank(tmp: str, data: str, env: dict) -> tuple:
                         data_mesh=0)
     return torchrun_start(tmp, "train_nccl_1", 1,
                           ["--rank-train", os.path.join(tmp, "train_nccl_1"), "--", *flags],
-                          dict(env, OPENAI_LOGDIR=os.path.join(tmp, "log_a")))
+                          dict(env, OPENAI_LOGDIR=os.path.join(tmp, "log_a")), gated=True)
 
 
 def dist_sharded_synthesis(torch, tmp: str, recs: list, seed_ckpt: str) -> dict:
@@ -3174,7 +3337,7 @@ def dist_sharded_synthesis(torch, tmp: str, recs: list, seed_ckpt: str) -> dict:
     return out
 
 
-def phase_distributed(torch, tmp: str, seed_ckpt: str) -> dict:
+def phase_distributed(torch, tmp: str, seed_ckpt: str, started: tuple) -> dict:
     """The data axis on the card (ROADMAP M8), through torchrun: (a)
     ``cli.train`` as one rank on NCCL, the production config in bf16 with
     ``--fuse_gn_silu``, ``DIST_STEPS`` steps; (b) two ranks sharing the
@@ -3186,26 +3349,38 @@ def phase_distributed(torch, tmp: str, seed_ckpt: str) -> dict:
     gloo job, each rank running (b) then (c). Per run: launches per kernel and rank, s/step, the all-reduce's
     ms and bytes per step, peak memory per rank, only rank 0 writing
     files, the same parameters on every rank. Two ranks on one card check
-    correctness; they do not show scaling. (a) runs beside the gloo job,
-    to hide its start-up: the card is shared, so the times of (a), (b) and
-    (c) are taken under each other's load."""
+    correctness; they do not show scaling. ``started``: both jobs, started
+    ahead of the phase (:func:`distributed_start`). The gloo ranks run
+    beside this process's one-process runs of (b), then (a) beside the
+    rest: the card is shared, so their times are taken under each other's
+    load."""
+    data, flags, (nccl, gloo) = started
+    torchrun_go(gloo)
+    one = dist_one_process_runs(torch, tmp, data, flags)  # beside the gloo ranks
+    torchrun_go(nccl)  # after them: all three training at once would not fit the card
+    recs = torchrun_finish(gloo, timeout=600)
+    b = dist_two_ranks_vs_one(tmp, [r["b"] for r in recs], one)
+    c = dist_sharded_synthesis(torch, tmp, [r["c"] for r in recs], seed_ckpt)
+    a = check_dist_run("(a)", torchrun_finish(nccl))
+    return {"a_nccl_world_1": a, "b_gloo_world_2": b, "c_synthesis_gloo_world_2": c,
+            "cold_start_s": {k: COLD_STARTS[k] for k in ("train_nccl_1", "dist_gloo_2")},
+            "go_wait_s": {k: GO_WAITS[k] for k in ("train_nccl_1", "dist_gloo_2")}}
+
+
+def distributed_start(tmp: str, seed_ckpt: str) -> tuple:
+    """Start phase distributed's two jobs ahead of it, gated (their cold
+    starts beside the phases before it): the NCCL rank of (a) and the
+    gloo job of (b) and (c)."""
     data, env = dist_data(tmp)
     flags = dict(fuse_gn_silu=True, batch_size=2, dtype="float32",
                  resume_checkpoint=seed_ckpt, data_mesh=0)
-    job = dist_one_nccl_rank(tmp, data, env)
-    try:
-        recs = torchrun(tmp, "dist_gloo_2", 2, ["--rank-job", "distributed",
-                                                 os.path.join(tmp, "dist_gloo_2")],
-                        dict(env, FAST_CWDM_DIST_BACKEND="gloo"), timeout=600, config={
-                            "seed": seed_ckpt, "train_argv": train_flags(
-                                data, os.path.join(tmp, "ckpt_two"), DIST_STEPS, **flags)})
-        b = dist_two_ranks_vs_one(torch, tmp, data, [r["b"] for r in recs], flags)
-        c = dist_sharded_synthesis(torch, tmp, [r["c"] for r in recs], seed_ckpt)
-        a = check_dist_run("(a)", torchrun_finish(job))
-    finally:
-        torchrun_stop(job)
-    return {"a_nccl_world_1": a, "b_gloo_world_2": b, "c_synthesis_gloo_world_2": c,
-            "cold_start_s": {k: COLD_STARTS[k] for k in ("train_nccl_1", "dist_gloo_2")}}
+    nccl = dist_one_nccl_rank(tmp, data, env)
+    gloo = torchrun_start(tmp, "dist_gloo_2", 2, ["--rank-job", "distributed",
+                                                   os.path.join(tmp, "dist_gloo_2")],
+                          dict(env, FAST_CWDM_DIST_BACKEND="gloo"), gated=True, config={
+                              "seed": seed_ckpt, "train_argv": train_flags(
+                                  data, os.path.join(tmp, "ckpt_two"), DIST_STEPS, **flags)})
+    return data, flags, (nccl, gloo)
 
 
 SP = 2  # ranks of phase spatial's sp group (gloo, sharing the card)
@@ -3379,8 +3554,9 @@ def slice_routes(torch, F, shapes: list, phase: str, timed: bool = False) -> lis
 def spatial_references(torch, seed_ckpt: str) -> dict:
     """The one-process references of phases spatial and tensor on the same
     input, weights and draws: the fp32 forward (TF32 off), the bf16
-    fuse_conv forward with its launches, and the fuse_conv dpm++ 10
-    synthesis, eager, with its seconds."""
+    fuse_conv forward with its launches, and the fuse_conv dpm++
+    synthesis, eager, with its seconds: 10 evaluations for phase spatial,
+    ``TP_SYNTH_EVALS`` for phase tensor."""
     from fast_cwdm_tpu_torch.cli import common
 
     x, t = spatial_input(torch)
@@ -3393,33 +3569,34 @@ def spatial_references(torch, seed_ckpt: str) -> dict:
     with torch.inference_mode():
         y16 = model(x, t).float().cpu().numpy()
     counts = read_counts()
-    run = common.make_synthesis_fn(model, diffusion, sampler="dpm++", sampler_steps=10,
-                                   device="cuda", cuda_graph=False)
     vols = spatial_volumes(torch)
-    t0 = time.perf_counter()
-    whole = run(common.prepare_condition(vols, "t1c", device="cuda"), vols["t1n"],
-                torch.Generator(device="cuda").manual_seed(9))
     ref = {"y32": y32, "y16": y16, "launches": {k: v for k, v in counts.items() if v},
-           "whole": whole, "whole_s": time.perf_counter() - t0,
            "mask": vols["t1n"][..., 0].cpu().numpy()}
+    for key, evals in (("whole", 10), ("whole_tp", TP_SYNTH_EVALS)):
+        run = common.make_synthesis_fn(model, diffusion, sampler="dpm++", sampler_steps=evals,
+                                       device="cuda", cuda_graph=False)
+        t0 = time.perf_counter()
+        ref[key] = run(common.prepare_condition(vols, "t1c", device="cuda"), vols["t1n"],
+                       torch.Generator(device="cuda").manual_seed(9))
+        ref[f"{key}_s"] = time.perf_counter() - t0
     del model, run
     torch.cuda.empty_cache()
     return ref
 
 
-def check_synthesis_image(np, phase: str, imgs: list, ref: dict) -> dict:
+def check_synthesis_image(np, phase: str, imgs: list, ref: dict, key: str = "whole") -> dict:
     """A sharded synthesis: the same finite [0,1] image on every rank, zero
-    outside the mask; its difference from the unsharded one."""
+    outside the mask; its difference from the unsharded one (``ref[key]``)."""
     img = imgs[0]
     mask = ref["mask"][:, :, :, :img.shape[3]]
-    if not (all(np.array_equal(img, o) for o in imgs[1:]) and img.shape == ref["whole"].shape
+    if not (all(np.array_equal(img, o) for o in imgs[1:]) and img.shape == ref[key].shape
             and np.isfinite(img).all() and img.min() >= 0.0 and img.max() <= 1.0
             and not np.any(img[mask == 0])):
         fail(f"{phase} (c): the sharded synthesis is not the same finite [0,1] image on every "
              "rank, zero outside the mask")
-    diff = np.abs(img - ref["whole"])
+    diff = np.abs(img - ref[key])
     return {"max_abs_diff_vs_unsharded": float(diff.max()),
-            "mean_abs_diff_vs_unsharded": float(diff.mean()), "unsharded_eager_s": ref["whole_s"]}
+            "mean_abs_diff_vs_unsharded": float(diff.mean()), "unsharded_eager_s": ref[f"{key}_s"]}
 
 
 def spatial_forward_and_synthesis(torch, F, tmp: str, recs: list, ref: dict) -> dict:
@@ -3537,7 +3714,23 @@ def spatial_slab_kernels(torch) -> dict:
 ADAM_MU_RTOL = 1e-3
 
 
-def phase_spatial(torch, F, tmp: str, seed_ckpt: str, ref: dict) -> dict:
+def spatial_start(tmp: str, seed_ckpt: str) -> tuple:
+    """Start phase spatial's gloo job (:func:`rank_spatial`) ahead of the
+    phase, gated."""
+    data, env = dist_data(tmp)
+    exact = dict(fuse_gn_silu=True, dtype="float32", resume_checkpoint=seed_ckpt)
+    d = os.path.join(tmp, "spatial_gloo_2")
+    return data, torchrun_start(
+        tmp, "spatial_gloo_2", SP, ["--rank-job", "spatial", d],
+        dict(env, FAST_CWDM_DIST_BACKEND="gloo"), gated=True, config={
+            "seed": seed_ckpt,
+            "bf16_argv": train_flags(data, os.path.join(tmp, "ckpt_sp"), SPATIAL_STEPS,
+                                     fuse_gn_silu=True, spatial_mesh=SP),
+            "fp32_argv": train_flags(data, os.path.join(tmp, "ckpt_sp_fp32"), 1,
+                                     spatial_mesh=SP, **exact)})
+
+
+def phase_spatial(torch, F, tmp: str, seed_ckpt: str, ref: dict, started: tuple) -> dict:
     """The sp axis on the card (two gloo ranks share it, so these runs
     check correctness and cost, not scaling): (a) the fp32 production
     forward, TF32 off, sharded against one process (within 1e-4 of the
@@ -3555,21 +3748,15 @@ def phase_spatial(torch, F, tmp: str, seed_ckpt: str, ref: dict) -> dict:
     beside it all (:func:`tensor_start`): the times of both are taken under
     each other's load. ``ref``: the one-process references
     (:func:`spatial_references`); the one-process fp32 step is added to it
-    for phase tensor."""
+    for phase tensor. ``started``: the job, started ahead of the phase
+    (:func:`spatial_start`)."""
     import numpy as np
 
     from fast_cwdm_tpu_torch.training import checkpoints
 
-    data, env = dist_data(tmp)
-    env = dict(env, FAST_CWDM_DIST_BACKEND="gloo")
+    data, job = started
     exact = dict(fuse_gn_silu=True, dtype="float32", resume_checkpoint=seed_ckpt)
-    d = os.path.join(tmp, "spatial_gloo_2")
-    job = torchrun_start(tmp, "spatial_gloo_2", SP, ["--rank-job", "spatial", d], env, config={
-        "seed": seed_ckpt,
-        "bf16_argv": train_flags(data, os.path.join(tmp, "ckpt_sp"), SPATIAL_STEPS,
-                                 fuse_gn_silu=True, spatial_mesh=SP),
-        "fp32_argv": train_flags(data, os.path.join(tmp, "ckpt_sp_fp32"), 1, spatial_mesh=SP,
-                                 **exact)})
+    torchrun_go(job)
     try:
         slab = spatial_slab_kernels(torch)  # beside the ranks
         recs = torchrun_finish(job, timeout=900)
@@ -3607,10 +3794,15 @@ def phase_spatial(torch, F, tmp: str, seed_ckpt: str, ref: dict) -> dict:
         fail(f"spatial (d): the fp32 step's loss or Adam's first moment differs from one "
              f"process: {step}")
     res["cold_start_s"] = COLD_STARTS["spatial_gloo_2"]
+    res["go_wait_s"] = GO_WAITS["spatial_gloo_2"]
     return res
 
 
 TP = 2  # ranks of phase tensor's tp group (gloo, sharing the card)
+# phase tensor (c)'s dpm++ evaluations: its gates (K1 3, K2 1, 54 K4b an
+# evaluation, the image) need no more, and each tp forward's gathers take
+# seconds through gloo on one card
+TP_SYNTH_EVALS = 3
 
 
 def save_state_slices(np, path: str):
@@ -3632,7 +3824,8 @@ def rank_tensor(torch, out_dir: str, config: dict) -> dict:
     """One rank of phase tensor's gloo job, the production UNet sharded
     over tp (``shard_params``): (a) the fp32 forward (TF32 off), (b) the
     bf16 fuse_conv forward (ms, launches, the tp gathers, the K4b shapes
-    and routes), (c) a fuse_conv dpm++ 10 synthesis, eager (s/volume,
+    and routes), (c) a fuse_conv dpm++ synthesis of ``TP_SYNTH_EVALS``
+    evaluations, eager (s/volume,
     launches, the gathers), (d) ``cli.train --tensor_mesh`` exact in fp32
     for one step (its state's slices saved)."""
     import numpy as np
@@ -3655,8 +3848,8 @@ def rank_tensor(torch, out_dir: str, config: dict) -> dict:
         out, rec["b"] = timed_forward(torch, model, x, t, axis)
     np.save(os.path.join(out_dir, f"b_rank{r}.npy"), out.float().cpu().numpy())
     del out
-    run = common.make_synthesis_fn(model, diffusion, sampler="dpm++", sampler_steps=10,
-                                   device="cuda", mesh=mesh)
+    run = common.make_synthesis_fn(model, diffusion, sampler="dpm++",
+                                   sampler_steps=TP_SYNTH_EVALS, device="cuda", mesh=mesh)
     vols = spatial_volumes(torch)
     torch.cuda.synchronize()
     axis.log.drain(None)
@@ -3733,12 +3926,12 @@ def tensor_checkpoint(torch, np, tmp: str, seed_ckpt: str) -> dict:
 
 def tensor_start(tmp: str, seed_ckpt: str) -> tuple:
     """Start phase tensor's gloo job (:func:`rank_tensor`; a job of
-    :func:`torchrun_start`), to run beside phase spatial."""
+    :func:`torchrun_start`), gated, to run beside phase spatial."""
     data, env = dist_data(tmp)
     exact = dict(fuse_gn_silu=True, dtype="float32", resume_checkpoint=seed_ckpt)
     return torchrun_start(
         tmp, "tensor_gloo_2", TP, ["--rank-job", "tensor", os.path.join(tmp, "tensor_gloo_2")],
-        dict(env, FAST_CWDM_DIST_BACKEND="gloo"), config={
+        dict(env, FAST_CWDM_DIST_BACKEND="gloo"), gated=True, config={
             "seed": seed_ckpt,
             "fp32_argv": train_flags(data, os.path.join(tmp, "ckpt_tp_fp32"), 1, tensor_mesh=TP,
                                      **exact)})
@@ -3753,9 +3946,10 @@ def phase_tensor(torch, F, tmp: str, seed_ckpt: str, ref: dict, job: tuple) -> d
     the bf16 fuse_conv forward (within BF16_FACTOR times bf16's own error;
     54 K4b a rank, by route; every distinct Co/2 shape on its routed
     kernel against the plain version, timed beside cuDNN and the bound);
-    (c) the fuse_conv dpm++ 10 synthesis, eager (K1 3, K2 1, K4b 540 a
-    rank; the same finite [0,1] image on both ranks, zero outside the mask;
-    its difference from the unsharded one, s/volume and the tp gathers'
+    (c) the fuse_conv dpm++ synthesis of ``TP_SYNTH_EVALS`` evaluations,
+    eager (K1 3, K2 1, 54 K4b an evaluation a rank; the same finite [0,1]
+    image on both ranks, zero outside the mask; its difference from the
+    unsharded one of as many evaluations, s/volume and the tp gathers'
     bytes, ms and calls a forward reported); (d) one fp32 ``fuse_gn_silu``
     step of ``cli.train --tensor_mesh 2`` against one process (losses
     within 1e-6, Adam's first moment within ``ADAM_MU_RTOL`` of its scale,
@@ -3804,18 +3998,21 @@ def phase_tensor(torch, F, tmp: str, seed_ckpt: str, ref: dict, job: tuple) -> d
     res["b_bf16_fuse_conv_forward"]["routes"] = slice_routes(
         torch, F, recs[0]["b"]["shapes"], "tensor", timed=True)
     imgs = [np.load(os.path.join(d, f"c_rank{r}.npy")) for r in range(TP)]
-    res["c_synthesis_fuse_conv_dpm10"] = {
-        **check_synthesis_image(np, "tensor", imgs, ref),
+    res["c_synthesis_fuse_conv_dpm"] = {
+        "evaluations": TP_SYNTH_EVALS,
+        **check_synthesis_image(np, "tensor", imgs, ref, "whole_tp"),
         "ranks": [{"rank": r["rank"], "s_per_volume": r["c"]["s_per_volume"],
                    "eager": r["c"]["chain"],
                    "launches": {k: v for k, v in r["c"]["launches"].items() if v},
-                   "comm_per_forward": {k: [b / 10, ms / 10, n / 10]
+                   "comm_per_forward": {k: [b / TP_SYNTH_EVALS, ms / TP_SYNTH_EVALS,
+                                            n / TP_SYNTH_EVALS]
                                         for k, (b, ms, n) in r["c"]["comm"].items()},
                    "max_memory_allocated_bytes": r["c"]["max_memory_allocated_bytes"]}
                   for r in recs]}
     for r in recs:
         got = r["c"]["launches"]
-        if (got["haar_dwt3"], got["haar_idwt3"], got["conv3d_fused_k4b"]) != (3, 1, 540):
+        if (got["haar_dwt3"], got["haar_idwt3"], got["conv3d_fused_k4b"]) != (
+                3, 1, 54 * TP_SYNTH_EVALS):
             fail(f"tensor (c): rank {r['rank']} launches {got}")
     # (d): the fp32 step against phase spatial's one process on the same
     # data, weights and flags
@@ -3850,6 +4047,7 @@ def phase_tensor(torch, F, tmp: str, seed_ckpt: str, ref: dict, job: tuple) -> d
         "tensor (d)", [r["d_fp32"] for r in recs],
         allreduce_bytes=4 * (81_511_048 - 81_460_736 + 9), same_params=False)
     res["cold_start_s"] = COLD_STARTS["tensor_gloo_2"]
+    res["go_wait_s"] = GO_WAITS["tensor_gloo_2"]
     return res
 
 
@@ -3879,6 +4077,49 @@ KERNELS = {  # name: (source, replaces, key of its kernels-phase record)
 
 
 RANK_JOBS = {"distributed": rank_distributed, "spatial": rank_spatial, "tensor": rank_tensor}
+def evaluation_job(torch, tmp: str) -> dict:
+    """Phase evaluation, then phase probes' probes of its BEST
+    (:func:`probes_on_best`, under ``probes_on_best``), in the child of
+    :func:`evaluation_start`; the child's own seconds under
+    ``seconds_in_child``."""
+    t0 = time.perf_counter()
+    res = phase_evaluation(torch, tmp)
+    res["probes_on_best"] = probes_on_best(torch, tmp, res)
+    res["seconds_in_child"] = time.perf_counter() - t0
+    return res
+
+
+def evaluation_start(tmp: str) -> tuple:
+    """Run :func:`evaluation_job` on ``tmp`` in a child process of this
+    script, in a session of its own, beside the phases that follow;
+    :func:`evaluation_finish` reads its result, :func:`evaluation_stop`
+    ends it."""
+    log = open(os.path.join(tmp, "evaluation.log"), "w+")
+    proc = subprocess.Popen([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                             "--evaluation-job", tmp], stdout=log, stderr=log, cwd=REPO,
+                            start_new_session=True)
+    return tmp, proc, log
+
+
+def evaluation_stop(job: tuple) -> None:
+    kill_tree(job[1])
+    job[2].close()
+
+
+def evaluation_finish(job: tuple, timeout: int = 900) -> dict:
+    """Wait for the child of :func:`evaluation_start`; its result. Fails on
+    a nonzero exit."""
+    tmp, proc, log = job
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = f"nothing (killed at {timeout} s)"
+    if rc != 0:
+        evaluation_stop(job)
+        with open(log.name) as f:
+            fail(f"phase evaluation (a child) exited {rc}:\n{f.read()[-6000:]}")
+    with open(os.path.join(tmp, "evaluation.json")) as f:
+        return json.load(f)
 
 
 def main(argv=None) -> int:
@@ -3891,6 +4132,8 @@ def main(argv=None) -> int:
     # or tensor (its DIR holds config.json)
     ap.add_argument("--rank-train", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--rank-job", nargs=2, metavar=("JOB", "DIR"), help=argparse.SUPPRESS)
+    # phase evaluation in a child beside the phases that follow (evaluation_start)
+    ap.add_argument("--evaluation-job", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("train_argv", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -3912,6 +4155,10 @@ def main(argv=None) -> int:
         return 2
     if args.rank_train or args.rank_job:
         ready = rank_ready(torch)
+        go = os.environ.get("CHIP_SMOKE_GO")  # a job started ahead of its phase
+        while go and not os.path.exists(go):
+            time.sleep(0.05)
+        released = time.time()
         if args.rank_train:
             out_dir, rec = args.rank_train, train_record(torch, False, args.train_argv)
         else:
@@ -3919,9 +4166,15 @@ def main(argv=None) -> int:
             with open(os.path.join(out_dir, "config.json")) as f:
                 config = json.load(f)
             rec = RANK_JOBS[job](torch, out_dir, config)
-        rec["ready_at"] = ready
+        rec["ready_at"], rec["released_at"] = ready, released
         rank_record(torch, out_dir, rec)
         torch.distributed.destroy_process_group()
+        return 0
+    if args.evaluation_job:
+        os.nice(10)  # the phases beside it come first on the host's cores
+        res = evaluation_job(torch, args.evaluation_job)
+        with open(os.path.join(args.evaluation_job, "evaluation.json"), "w") as f:
+            json.dump(res, f)
         return 0
 
     smi = nvidia_smi()
@@ -3930,7 +4183,7 @@ def main(argv=None) -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    t0 = time.perf_counter()
+    t0 = phase_start("build")
     per_source = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": per_source})
     for name, report in _build.PTXAS_REPORT.items():
@@ -3938,74 +4191,90 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
 
-    t0 = time.perf_counter()
-    kern = phase_kernels(torch, F)
-    kern.update(phase_conv(torch, F))
-    emit({"phase": "kernels", "gpu": smi, "seconds": time.perf_counter() - t0, **kern})
-    t0 = time.perf_counter()
-    fwd = phase_forward(torch, args.profile)
-    emit({"phase": "forward", "gpu": smi, "seconds": time.perf_counter() - t0, **fwd})
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        res, counts, conv_counts = phase_synthesis(torch, tmp)
-    emit({"phase": "synthesis", "gpu": smi, "seconds": time.perf_counter() - t0, **res})
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        comp = phase_completion(torch, tmp)
-    emit({"phase": "completion", "gpu": smi, "seconds": time.perf_counter() - t0, **comp})
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        orbax = phase_orbax(torch, tmp, comp)
-    emit({"phase": "orbax", "gpu": smi, "seconds": time.perf_counter() - t0, **orbax})
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        train = phase_training(torch, tmp, args.profile)
-    emit({"phase": "training", "gpu": smi, "seconds": time.perf_counter() - t0, **train})
-    kern["vjp_kernel"] = train["vjp_kernel"]
-    t0 = time.perf_counter()
-    ref = phase_reference(torch)
-    emit({"phase": "reference", "seconds": time.perf_counter() - t0, **ref})
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        evaluation = phase_evaluation(torch, tmp)
-        emit({"phase": "evaluation", "gpu": smi, "seconds": time.perf_counter() - t0,
-              **evaluation})
-        t0 = time.perf_counter()
-        probes = phase_probes(torch, tmp, evaluation)  # on evaluation's trees and BEST
-    emit({"phase": "probes", "gpu": smi, "seconds": time.perf_counter() - t0, **probes})
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        models = phase_models(torch, tmp)
-    models["reference"] = phase_models_reference(torch)
-    emit({"phase": "models", "gpu": smi, "seconds": time.perf_counter() - t0, **models})
-    t0 = time.perf_counter()
-    api = phase_diffusion_api(torch)
-    emit({"phase": "diffusion_api", "gpu": smi, "seconds": time.perf_counter() - t0, **api})
-    with tempfile.TemporaryDirectory() as shared:
-        t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        def scratch():
+            return stack.enter_context(tempfile.TemporaryDirectory())
+
+        t0 = phase_start("kernels")
+        kern = phase_kernels(torch, F)
+        kern.update(phase_conv(torch, F))
+        emit({"phase": "kernels", "gpu": smi, "seconds": time.perf_counter() - t0, **kern})
+        t0 = phase_start("forward")
+        fwd = phase_forward(torch, args.profile)
+        emit({"phase": "forward", "gpu": smi, "seconds": time.perf_counter() - t0, **fwd})
+        t0 = phase_start("synthesis")
+        res, counts, conv_counts = phase_synthesis(torch, scratch())
+        emit({"phase": "synthesis", "gpu": smi, "seconds": time.perf_counter() - t0, **res})
+        # phase evaluation, and phase probes' two probes of its BEST, run in
+        # a child beside phases completion to diffusion_api (its trees and
+        # BEST then serve phase probes)
+        eval_tmp = scratch()
+        eval_job = evaluation_start(eval_tmp)
+        stack.callback(evaluation_stop, eval_job)
+        t0 = phase_start("completion")
+        comp = phase_completion(torch, scratch())
+        emit({"phase": "completion", "gpu": smi, "seconds": time.perf_counter() - t0, **comp})
+        t0 = phase_start("orbax")
+        orbax = phase_orbax(torch, scratch(), comp)
+        emit({"phase": "orbax", "gpu": smi, "seconds": time.perf_counter() - t0, **orbax})
+        t0 = phase_start("training")
+        train = phase_training(torch, scratch(), args.profile)
+        emit({"phase": "training", "gpu": smi, "seconds": time.perf_counter() - t0, **train})
+        kern["vjp_kernel"] = train["vjp_kernel"]
+        t0 = phase_start("reference")
+        ref = phase_reference(torch)
+        emit({"phase": "reference", "seconds": time.perf_counter() - t0, **ref})
+        # phase distributed's jobs start here, gated: their cold starts run
+        # beside phases models and diffusion_api
+        t0 = phase_start("models")
+        shared = scratch()
         seed_ckpt = write_seeded_ckpt(torch, os.path.join(shared, "seeded_production.ckpt"))
         seed_s = time.perf_counter() - t0
-        with tempfile.TemporaryDirectory() as tmp:
-            dist = phase_distributed(torch, tmp, seed_ckpt)
-        emit({"phase": "distributed", "gpu": smi, "seconds": time.perf_counter() - t0,
-              "seeded_ckpt_s": seed_s, **dist})
-        t0 = time.perf_counter()
+        dist_tmp = scratch()
+        dist_jobs = distributed_start(dist_tmp, seed_ckpt)
+        for job in dist_jobs[2]:
+            stack.callback(torchrun_stop, job)
+        models = phase_models(torch, scratch())
+        models["reference"] = phase_models_reference(torch)
+        emit({"phase": "models", "gpu": smi, "seconds": time.perf_counter() - t0,
+              "seeded_ckpt_s": seed_s, **models})
+        t0 = phase_start("diffusion_api")
+        api = phase_diffusion_api(torch)
+        emit({"phase": "diffusion_api", "gpu": smi, "seconds": time.perf_counter() - t0, **api})
+        t0 = phase_start("evaluation")
+        evaluation = evaluation_finish(eval_job)
+        on_best = evaluation.pop("probes_on_best")
+        emit({"phase": "evaluation", "gpu": smi, "seconds": time.perf_counter() - t0,
+              **evaluation})
+        t0 = phase_start("probes")
+        # on evaluation's trees and BEST
+        probes = phase_probes(torch, eval_tmp, evaluation, on_best)
+        emit({"phase": "probes", "gpu": smi, "seconds": time.perf_counter() - t0, **probes})
+        # phases spatial's and tensor's jobs start here, gated: their cold
+        # starts run beside phase distributed
+        t0 = phase_start("distributed")
+        sp_tmp, tp_tmp = scratch(), scratch()
+        sp_job = spatial_start(sp_tmp, seed_ckpt)
+        tp_job = tensor_start(tp_tmp, seed_ckpt)
+        stack.callback(torchrun_stop, sp_job[1])
+        stack.callback(torchrun_stop, tp_job)
+        dist = phase_distributed(torch, dist_tmp, seed_ckpt, dist_jobs)
+        emit({"phase": "distributed", "gpu": smi, "seconds": time.perf_counter() - t0, **dist})
         # phase tensor's ranks run beside phase spatial, its one-process
         # references included; its seconds are those after phase spatial's end
-        with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as tmp_tp:
-            job = tensor_start(tmp_tp, seed_ckpt)
-            try:
-                ref = spatial_references(torch, seed_ckpt)
-                spatial = phase_spatial(torch, F, tmp, seed_ckpt, ref)
-                emit({"phase": "spatial", "gpu": smi, "seconds": time.perf_counter() - t0,
-                      **spatial})
-                t0 = time.perf_counter()
-                tensor = phase_tensor(torch, F, tmp_tp, seed_ckpt, ref, job)
-            finally:
-                torchrun_stop(job)
+        t0 = phase_start("spatial")
+        torchrun_go(tp_job)
+        ref = spatial_references(torch, seed_ckpt)
+        spatial = phase_spatial(torch, F, sp_tmp, seed_ckpt, ref, sp_job)
+        emit({"phase": "spatial", "gpu": smi, "seconds": time.perf_counter() - t0, **spatial})
+        t0 = phase_start("tensor")
+        tensor = phase_tensor(torch, F, tp_tmp, seed_ckpt, ref, tp_job)
         emit({"phase": "tensor", "gpu": smi, "seconds": time.perf_counter() - t0, **tensor})
         del ref
-    emit({"torchrun_jobs": len(COLD_STARTS), "cold_start_s": COLD_STARTS})
+    emit({"torchrun_jobs": len(COLD_STARTS), "cold_start_s": COLD_STARTS, "go_wait_s": GO_WAITS})
+    phases = {k: v for k, v in PHASE_SECONDS.items() if k != "build"}
+    emit({"phase_seconds": PHASE_SECONDS, "total": sum(phases.values()),
+          "total_with_build": sum(PHASE_SECONDS.values())})
 
     line = []
     for name, (source, replaces, key) in KERNELS.items():
@@ -4029,6 +4298,9 @@ def main(argv=None) -> int:
         # completion runs (per case)
         line[-1]["launches_by_path"] = {
             "sample_ddpm_fuse_gn_silu": counts[name], "sample_fuse_conv_dpm": conv_counts[name],
+            # phase synthesis: bench.py's faithful leg (make_synthesis_fn,
+            # graphed, fuse_clip_projection=False) per volume
+            "synthesis_faithful": res["graph_faithful"]["launches_per_volume"][name],
             **{run: comp[run]["launches"][name] // len(comp[run]["s_per_case"])
                for run in ("complete_a", "complete_b", "sample_auto")},
             **{f"train_{run}_per_step": train[run]["launches_per_step"][name]
@@ -4069,7 +4341,7 @@ def main(argv=None) -> int:
             **{f"tensor_b_rank{r['rank']}": r["launches"].get(name, 0)
                for r in tensor["b_bf16_fuse_conv_forward"]["ranks"]},
             **{f"tensor_c_rank{r['rank']}": r["launches"].get(name, 0)
-               for r in tensor["c_synthesis_fuse_conv_dpm10"]["ranks"]},
+               for r in tensor["c_synthesis_fuse_conv_dpm"]["ranks"]},
             **{f"tensor_d_rank{r['rank']}_per_step": r["launches_per_step"].get(name, 0)
                for r in tensor["d_train_fuse_gn_silu"]["ranks"]},
             # phase probes: each probe's whole run

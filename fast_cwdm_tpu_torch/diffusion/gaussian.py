@@ -23,6 +23,7 @@ gives the loop's result step for step.
 
 from __future__ import annotations
 
+import copy
 import enum
 import math
 from typing import Callable, Iterator, Sequence
@@ -69,7 +70,24 @@ class LossType(str, enum.Enum):
 
 
 class GaussianDiffusion:
-    """Diffusion schedule tables + process configuration."""
+    """Diffusion schedule tables + process configuration.
+
+    The fields are those of the JAX dataclass: the host tables
+    (``TABLES``, float32 numpy) and the configuration (``CONFIG``).
+    ``fuse_clip_projection=False`` forces the full-spatial IDWT → clamp →
+    DWT per step even for Haar, the reference's execution shape
+    (``gaussian_diffusion.py:335-354``); ``create`` does not take it, so it
+    is set through :meth:`replace`, as ``bench.py``'s faithful leg does.
+    """
+
+    TABLES = dict.fromkeys((
+        "betas", "alphas_cumprod", "alphas_cumprod_prev", "alphas_cumprod_next",
+        "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod", "log_one_minus_alphas_cumprod",
+        "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod", "posterior_variance",
+        "posterior_log_variance_clipped", "posterior_mean_coef1", "posterior_mean_coef2",
+        "fixed_large_variance", "fixed_large_log_variance", "log_betas"), np.float32)
+    CONFIG = ("num_timesteps", "mean_type", "var_type", "loss_type", "rescale_timesteps",
+              "mode", "wavelet", "target_channels", "fuse_clip_projection")
 
     def __init__(
         self,
@@ -82,6 +100,7 @@ class GaussianDiffusion:
         mode: str = "default",
         wavelet: str = "haar",
         target_channels: int = 8,
+        fuse_clip_projection: bool = True,
     ):
         betas = np.asarray(betas, dtype=np.float64)
         if betas.ndim != 1 or not ((betas > 0).all() and (betas <= 1).all()):
@@ -118,14 +137,48 @@ class GaussianDiffusion:
         self.mode = mode
         self.wavelet = wavelet
         self.target_channels = target_channels
+        self.fuse_clip_projection = fuse_clip_projection
         self._on_device: dict[tuple[str, torch.device], torch.Tensor] = {}
 
     @classmethod
+    def create(
+        cls,
+        betas: np.ndarray,
+        *,
+        mean_type: MeanType = MeanType.START_X,
+        var_type: VarType = VarType.FIXED_LARGE,
+        loss_type: LossType = LossType.MSE,
+        rescale_timesteps: bool = False,
+        mode: str = "default",
+        wavelet: str = "haar",
+        target_channels: int = 8,
+    ) -> "GaussianDiffusion":
+        """The JAX package's constructor: every table from ``betas``."""
+        return cls(betas, mean_type=mean_type, var_type=var_type, loss_type=loss_type,
+                   rescale_timesteps=rescale_timesteps, mode=mode, wavelet=wavelet,
+                   target_channels=target_channels)
+
+    @classmethod
     def named(cls, noise_schedule="linear", steps=1000, sample_schedule="direct", **kwargs):
-        return cls(
+        return cls.create(
             schedules.get_named_beta_schedule(noise_schedule, steps, sample_schedule),
             **kwargs,
         )
+
+    def replace(self, **changes) -> "GaussianDiffusion":
+        """A copy with the named fields changed (flax's ``replace``); the
+        original is left as it is. A table is kept as host numpy in its
+        dtype, and its device copies are dropped."""
+        unknown = sorted(set(changes) - set(self.TABLES) - set(self.CONFIG))
+        if unknown:
+            raise TypeError(f"{type(self).__name__} has no field(s) {unknown}")
+        new = copy.copy(self)
+        for name, value in changes.items():
+            if name in self.TABLES:
+                value = np.asarray(value, dtype=self.TABLES[name])
+            setattr(new, name, value)
+        new._on_device = {k: v for k, v in self._on_device.items() if k[0] not in changes}
+        return new
 
     def _table(self, name: str, device: torch.device) -> torch.Tensor:
         key = (name, device)
@@ -194,12 +247,14 @@ class GaussianDiffusion:
 
     def _process_xstart(self, x, clip_denoised: bool, denoised_fn=None):
         """x0 projection IDWT → clamp[0,1] → DWT with the ×3/÷3 LLL
-        convention; for Haar the fused block-local form."""
+        convention; for an 8-channel Haar latent the fused block-local form
+        unless ``fuse_clip_projection`` is False (then K2 → clamp → K1 on
+        the card)."""
         if denoised_fn is not None:
             x = denoised_fn(x)
         if not clip_denoised:
             return x
-        if self.wavelet in wv.HAAR and x.shape[-1] == 8:
+        if self.fuse_clip_projection and self.wavelet in wv.HAAR and x.shape[-1] == 8:
             return wv.haar_clamp_project(x)
         if x.shape[-1] % 8:
             raise ValueError(

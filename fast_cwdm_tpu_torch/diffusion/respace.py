@@ -50,9 +50,13 @@ def space_timesteps(num_timesteps: int, section_counts) -> Set[int]:
 class SpacedDiffusion(GaussianDiffusion):
     """GaussianDiffusion over a subsequence of base timesteps."""
 
-    def __init__(self, betas, *, timestep_map, original_num_steps: int, **kwargs: Any):
+    TABLES = {**GaussianDiffusion.TABLES, "timestep_map": np.int64}
+    CONFIG = GaussianDiffusion.CONFIG + ("original_num_steps",)
+
+    def __init__(self, betas, *, timestep_map=None, original_num_steps: int = 1000,
+                 **kwargs: Any):
         super().__init__(betas, **kwargs)
-        self.timestep_map = np.asarray(timestep_map, dtype=np.int64)
+        self.timestep_map = None if timestep_map is None else np.asarray(timestep_map, np.int64)
         self.original_num_steps = original_num_steps
 
     def scale_timesteps(self, t: torch.Tensor) -> torch.Tensor:
@@ -75,9 +79,5 @@ def create_spaced_diffusion(*, use_timesteps, betas: np.ndarray, **kwargs: Any) 
             new_betas.append(1.0 - alpha_cumprod / last_alpha_cumprod)
             last_alpha_cumprod = alpha_cumprod
             timestep_map.append(i)
-    return SpacedDiffusion(
-        np.array(new_betas),
-        timestep_map=timestep_map,
-        original_num_steps=len(betas),
-        **kwargs,
-    )
+    return SpacedDiffusion.create(np.array(new_betas), **kwargs).replace(
+        timestep_map=timestep_map, original_num_steps=len(betas))

@@ -5,8 +5,9 @@ backward included), the autograd pairs (K1/K2, K3 and its VJP), fuse_conv
 UNets that reach K4b on each conv kernel, a .ckpt round trip of a model on
 the card, complete_dataset on the card, a train step on the card
 against the same step on the CPU, the synthesis chain captured as a CUDA
-graph against the eager chain (an attention UNet's too), and a WavUNet's
-forward on the card against the CPU.
+graph against the eager chain (an attention UNet's too, and the unfused
+x0 projection's, K2 and K1 every step), and a WavUNet's forward on the
+card against the CPU.
 
 Marked ``cuda``: skipped where no GPU is present. This file imports no JAX,
 so it also runs where JAX is not installed:
@@ -651,6 +652,33 @@ def test_graphed_chain_equals_the_eager_chain(gen, flags, sampler):
     assert counts["eager", 0][site] > 0
     if flags.get("fuse_conv"):
         assert counts["eager", 0]["conv3d_wgmma"] > 0 and counts["eager", 0]["conv3d_splitk"] > 0
+
+
+def test_unfused_projection_chain_runs_k2_and_k1_each_step(gen):
+    """``fuse_clip_projection=False`` (the reference's IDWT → clamp → DWT
+    every step) on the _graph_case UNet in fp32: one K2 and one K1 a step
+    beside the output's K2 (the condition is made before), on both paths; the
+    graphed image equals the eager one bit for bit, and the fused
+    projection's within 1e-4."""
+    from fast_cwdm_tpu_torch import ops
+
+    model, diffusion, cond, mask = _graph_case(dict(dtype="float32"))
+    steps = diffusion.num_timesteps
+    imgs = {}
+    for fuse in (False, True):
+        for graphed in (False, True):
+            run = common.make_synthesis_fn(
+                model, diffusion.replace(fuse_clip_projection=fuse), crop_z=32, device="cuda",
+                cuda_graph=graphed)
+            ops.set_launch_counts(dict.fromkeys(ops.launch_counts(), 0))
+            imgs[fuse, graphed] = run(cond, mask, torch.Generator(device="cuda").manual_seed(3))
+            torch.cuda.synchronize()
+            got = {k: ops.launch_counts()[k] for k in ("haar_dwt3", "haar_idwt3")}
+            extra = 0 if fuse else steps
+            assert got == {"haar_dwt3": extra, "haar_idwt3": 1 + extra}, (fuse, graphed, got)
+    assert imgs[False, False].max() > 0.0
+    assert np.array_equal(imgs[False, True], imgs[False, False])
+    np.testing.assert_allclose(imgs[False, True], imgs[True, True], atol=1e-4)
 
 
 def test_attention_unet_graphed_chain_equals_the_eager_chain(gen):
