@@ -13,10 +13,13 @@ Phases, each printing one JSON object per line:
               one library call's where one computes the same function, and
               the least time the card could take (bytes or operations);
               the fused conv (K4a/K4b/K5) on each of its kernels that
-              takes the shape (wgmma, split-K, mma.sync) at nine shapes,
-              with the tolerance ratio (≤ 1 passes), differing elements
-              and two launches bit for bit, and the three kernels, cuDNN
-              and the bound at every distinct conv shape of the forward;
+              takes the shape (wgmma at 64 and at 32 output channels a
+              block, split-K, mma.sync) at fifteen shapes, the tp axis's
+              six Co/2 shapes among them, with the tolerance ratio (≤ 1
+              passes), differing elements and two launches bit for bit;
+              the kernels, cuDNN and the bound at every distinct conv
+              shape of the forward and at the six Co/2 shapes; the fp32
+              conv beside cuDNN's fp32 (TF32 off);
 4. forward  — the 81,511,048-parameter production UNet in bf16 at
               (1, 112, 112, 80, 32): unfused, fuse_gn_silu (K3) and
               fuse_conv (K4b), timed in turns; with ``--profile`` the
@@ -180,10 +183,12 @@ Phases, each printing one JSON object per line:
               ``param_spec`` shards (40,780,680 of 81,511,048): (a) the
               fp32 forward against one process (1e-4 of the output's
               scale); (b) the bf16 fuse_conv forward (within twice bf16's
-              own error), 54 K4b a rank by route, every Co/2 shape on its
-              routed kernel against the plain version, timed beside cuDNN
-              and the bound; (c) make_synthesis_fn's fuse_conv dpm++ at 3
-              evaluations, eager (K1 3, K2 1, K4b 54 an evaluation a rank;
+              own error), 54 K4b a rank by route (none on mma.sync: level
+              0's Co 32 and level 2's Co 64 on the 32-wide wgmma kernel),
+              every Co/2 shape on its routed kernel against the plain
+              version, timed beside cuDNN and the bound; (c)
+              make_synthesis_fn's fuse_conv dpm++ at 3 evaluations, eager
+              (K1 3, K2 1, K4b 54 an evaluation a rank, none on mma.sync;
               the same finite [0,1] image on both ranks, zero outside the
               mask; its difference from the unsharded one of 3
               evaluations, s/volume, the tp gathers' bytes, ms and calls a
@@ -256,6 +261,14 @@ CONV_SHAPES = (
     ("level 4 decoder concat, X = 7", 1, 512, (7, 7, 5), 256),
     ("B = 2, per-(B, C) statistics", 2, 128, (28, 28, 20), 128),
     ("Ci = 8 mod 16", 1, 24, (20, 20, 12), 64),
+    # the tp axis's Co/2 convs (tp 2) that route() gives the 32-wide wgmma
+    # kernel: level 0 off the 64-wide grid, level 2 short of blocks at 64
+    ("tp level 0, Co/2", 1, 64, (112, 112, 80), 32),
+    ("tp level 0 decoder concat, Co/2", 1, 128, (112, 112, 80), 32),
+    ("tp level 0 decoder concat 192, Co/2", 1, 192, (112, 112, 80), 32),
+    ("tp level 2, Co/2", 1, 128, (28, 28, 20), 64),
+    ("tp level 2 decoder concat, Co/2", 1, 256, (28, 28, 20), 64),
+    ("tp level 2 decoder concat 384, Co/2", 1, 384, (28, 28, 20), 64),
 )
 CONV_TOL = "1 ulp of plain in the output dtype + 2^-16 conv(|act|, |w|)"
 # ((X, Y, Z), Ci, Co): launches per forward) of every fused conv of the
@@ -269,6 +282,13 @@ PRODUCTION_CONVS = {
     ((14, 14, 10), 512, 256): 2,
     ((7, 7, 5), 256, 256): 11, ((7, 7, 5), 512, 256): 3,
 }
+# the same of the six Co/2 convs a rank computes at tp 2 that leave the
+# mma.sync kernel (20 of its 54 a forward)
+TP_N32_CONVS = {
+    ((112, 112, 80), 64, 32): 7, ((112, 112, 80), 128, 32): 2, ((112, 112, 80), 192, 32): 1,
+    ((28, 28, 20), 128, 64): 7, ((28, 28, 20), 256, 64): 2, ((28, 28, 20), 384, 64): 1,
+}
+CONV_KERNELS = ("wgmma", "wgmma_n32", "splitk", "mma_sync")  # conv3d_cuda's routes
 
 
 PHASE_SECONDS: dict = {}  # each emitted phase's seconds, in order
@@ -508,20 +528,22 @@ def conv_cost(x, co, extra_out: int = 0) -> tuple[int, int]:
 
 
 def phase_conv(torch, F) -> dict:
-    """The fused conv behind K4a, K4b and K5, the three hand-written
-    kernels against the plain version: the wgmma kernel
-    (``conv3d_wgmma.cu``) and the split-K kernel (``conv3d_splitk.cu``),
-    both bf16 with Ci % 16 == 0 and Co % 64 == 0 (split-K where its halo
-    fits), and the mma.sync kernel (``conv3d.cu``), at every shape of
-    CONV_SHAPES each takes (K4b with the GN prologue and without, K4a with
-    fold_taps both ways, K5 with temb and skip; the routed kernel through
-    each entry point, and twice, bit for bit) and the level-1 shape in
-    fp32 (mma.sync only). Then, at every distinct conv shape of the
-    production forward, the time of each kernel with the prologue, of
-    cuDNN (``F.conv3d`` bf16 channels_last_3d, the conv alone) and the
-    bound, beside the kernel ``route`` picks and the split-K plan; the
-    fp32 level-1 and the B = 2 shapes on their routed kernel; and at level
-    0 each entry point through the routed kernel."""
+    """The fused conv behind K4a, K4b and K5, the hand-written kernels
+    against the plain version: the wgmma kernel (``conv3d_wgmma.cu``, bf16
+    with Ci % 16 == 0 and Co % 64 == 0, or Co % 32 == 0 at 32-wide blocks,
+    ``wgmma_n32``) and the split-K kernel (``conv3d_splitk.cu``, bf16, Co %
+    64 == 0, where its halo fits), and the mma.sync kernel
+    (``conv3d.cu``), at every shape of CONV_SHAPES each takes (K4b with the
+    GN prologue and without, K4a with fold_taps both ways, K5 with temb and
+    skip; the routed kernel through each entry point, and twice, bit for
+    bit) and the level-1 shape in fp32 (mma.sync only). Then, at every
+    distinct conv shape of the production forward and at the tp axis's six
+    Co/2 shapes of TP_N32_CONVS, the time of each kernel with the prologue
+    (the routed one without it too), of cuDNN (``F.conv3d`` bf16
+    channels_last_3d, the conv alone) and the bound, beside the kernel
+    ``route`` picks and the split-K plan; the fp32 level-1 and the B = 2
+    shapes on their routed kernel beside cuDNN in their dtype (TF32 off);
+    and at level 0 each entry point through the routed kernel."""
     from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -546,7 +568,7 @@ def phase_conv(torch, F) -> dict:
         ref_v4 = tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip)
         # the entry points, on the kernel route() picks
         routed = tc.route(dtype, bsz, ci, co, *sp)
-        wp = tc.pack_wgmma_weights(w) if routed in ("wgmma", "splitk") else None
+        wp = packed_for(tc, routed, w)
         y = tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp)
         again = tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp)
         check("k4b", label, routed, y, ref, x, w, gn, prologue=True,
@@ -575,37 +597,13 @@ def phase_conv(torch, F) -> dict:
         del x, w, gn, temb, skip, ref, ref_np, ref_v4
     torch.cuda.empty_cache()
 
-    # every distinct production conv shape: the three kernels with the
-    # prologue (split-K where its halo fits), cuDNN's conv alone, the bound,
-    # the route and the split-K plan
-    timings = []
+    # every distinct production conv shape and the six tp Co/2 shapes:
+    # each kernel that takes the shape with the prologue (the routed one
+    # without it too), cuDNN's conv alone, the bound, the route and the
+    # split-K plan
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    for (sp, ci, co), per_forward in PRODUCTION_CONVS.items():
-        x, w, b, gn = conv_inputs(torch, g, 1, ci, sp, co, torch.bfloat16)
-        wp = tc.pack_wgmma_weights(w)
-        w_lib = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
-        b_lib = b.to(torch.bfloat16)
-        nb, fl = conv_cost(x, co)
-        b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS)
-        plan = tc.splitk_plan(1, ci, co, *sp, n_sm)
-        ms = {k: (time_ms(torch, lambda: tc._launch("k4b", x, w, b, gn, None, None, wp, k), reps=10)
-                  if k in takers(tc, torch, 1, ci, co, sp) else None)
-              for k in ("wgmma", "splitk", "mma_sync")}
-        routed = tc.route(x.dtype, 1, ci, co, *sp)
-        if routed == "splitk":  # the prologue's share of the split-K kernel
-            ms["splitk_no_prologue"] = time_ms(
-                torch, lambda: tc._launch("k4b", x, w, b, None, None, None, wp, "splitk"), reps=10)
-        timings.append(dict(
-            x=list(x.shape), co=co, per_forward=per_forward, route=routed,
-            wgmma_ms=ms["wgmma"], splitk_ms=ms["splitk"], mma_sync_ms=ms["mma_sync"],
-            splitk_no_prologue_ms=ms.get("splitk_no_prologue"),
-            cudnn_ms=time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1), reps=10),
-            bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9, mbytes=nb / 1e6,
-            splitk_plan=dict(bm=plan["bm"], S=plan["S"], grid=plan["grid"],
-                             ctas=plan["ctas"],
-                             workspace_mb=plan["workspace_bytes"] / 1e6,
-                             smem_bytes=plan["smem_bytes"], fits=plan["fits"])))
-        del x, w, wp, gn, w_lib
+    timings = conv_timings(torch, F, tc, g, PRODUCTION_CONVS, n_sm)
+    tp_timings = conv_timings(torch, F, tc, g, TP_N32_CONVS, n_sm)
     # the fp32 level-1 conv and the B = 2 conv of CONV_SHAPES, with the
     # prologue, on the kernel route() picks
     other_timings = []
@@ -615,12 +613,18 @@ def phase_conv(torch, F) -> dict:
         nb, fl = conv_cost(x, co)
         b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else
                               PEAK_FP32_FLOPS)
+        w_lib = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+        b_lib = b.to(dtype)
+        with no_tf32(torch):  # cuDNN's fp32 conv in fp32, as the kernel computes it
+            lib_ms = time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1), reps=10)
         other_timings.append(dict(
             shape=label, x=list(x.shape), co=co, dtype=str(dtype).split(".")[-1],
             route=tc.route(dtype, bsz, ci, co, *sp),
             ms=time_ms(torch, lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2), reps=10),
+            cudnn_ms=lib_ms, cudnn="F.conv3d in x's dtype, channels_last_3d, TF32 off, the "
+                                   "conv alone",
             bound_ms=b_ms, bound_by=b_by))
-        del x, w, gn
+        del x, w, gn, w_lib
     torch.cuda.empty_cache()
 
     # level 0, 64 → 64: each entry point through the routed kernel, its
@@ -665,22 +669,27 @@ def phase_conv(torch, F) -> dict:
     out["level0_mma_sync_no_prologue_ms"] = time_ms(
         torch, lambda: tc._launch("no prologue", x, w, b, None, None, None, kernel="mma_sync"))
     out["checks"], out["timings"], out["other_timings"] = checks, timings, other_timings
+    out["tp_timings"] = tp_timings
     # launch-weighted ms per forward of each kernel over the shapes route()
     # gives it, beside cuDNN's and the bound's over the same shapes
-    out["by_route"] = {
-        k: {f"{key}_per_forward": sum(r[key] * r["per_forward"] for r in timings
-                                      if r["route"] == k)
-            for key in (f"{k}_ms", "cudnn_ms", "bound_ms")}
-        | {"launches_per_forward": sum(r["per_forward"] for r in timings if r["route"] == k)}
-        for k in ("wgmma", "splitk", "mma_sync")}
+    out["by_route"] = by_route(timings)
+    # a tp rank's six Co/2 shapes (20 launches a forward): on their route,
+    # on mma.sync (their route before the 32-wide kernel), cuDNN, the bound
+    out["tp_co2_per_forward"] = {
+        f"{key}_per_forward": sum(r[key] * r["per_forward"] for r in tp_timings)
+        for key in ("routed_ms", "mma_sync_ms", "cudnn_ms", "bound_ms")} | {
+        "launches_per_forward": sum(r["per_forward"] for r in tp_timings),
+        "routes": sorted({r["route"] for r in tp_timings})}
     deep = next(r for r in timings if r["x"][2:] == [7, 7, 5] and r["x"][1] == 256)
     out["deep_levels"] = dict(out["by_route"]["splitk"], shape_7x7x5_256to256={
-        key: deep[key] for key in ("splitk_ms", "splitk_no_prologue_ms", "wgmma_ms", "mma_sync_ms", "cudnn_ms",
-                                   "bound_ms", "bound_by", "splitk_plan")})
+        key: deep[key] for key in ("splitk_ms", "routed_no_prologue_ms", "wgmma_ms", "mma_sync_ms",
+                                   "cudnn_ms", "bound_ms", "bound_by", "splitk_plan")})
     bad = [c for c in checks if not c["tol_ratio"] <= 1.0
            or not c.get("bit_identical_twice", True)]
     if bad:
         fail(f"the fused conv disagrees with its plain version or itself: {bad}")
+    if any(r["route"] == "mma_sync" for r in tp_timings):
+        fail(f"a tp Co/2 shape is routed to mma.sync: {tp_timings}")
     # the wgmma kernel's prologue divides by its own branch-free reciprocal
     out["wgmma_recip_mismatches_of_2_126_range"] = tc.recip_mismatches()
     if out["wgmma_recip_mismatches_of_2_126_range"]:
@@ -691,11 +700,69 @@ def phase_conv(torch, F) -> dict:
 def takers(tc, torch, bsz, ci, co, sp) -> list:
     """The conv kernels that take this bf16 shape."""
     out = ["mma_sync"]
+    if ci % tc.WG_BK == 0 and co % tc.WG_BN32 == 0:
+        out.append("wgmma_n32")
     if ci % tc.WG_BK == 0 and co % tc.WG_BN == 0:
         out.append("wgmma")
         if tc.splitk_plan(bsz, ci, co, *sp, 1)["fits"]:
             out.append("splitk")
     return out
+
+
+def packed_for(tc, kernel: str, w):
+    """``w`` packed for ``kernel`` at its width, or None where the kernel
+    reads the DHWIO weight (mma.sync)."""
+    return tc.pack_wgmma_weights(w, tc.PACK_WIDTH[kernel]) if kernel in tc.PACK_WIDTH else None
+
+
+def conv_timings(torch, F, tc, g, convs: dict, n_sm: int) -> list:
+    """For each ((X, Y, Z), Ci, Co): per_forward of ``convs``, B = 1, bf16:
+    the ms of each kernel that takes it with the prologue (None where
+    none), of the routed one without the prologue, of cuDNN's conv alone,
+    and the bound; the route and the split-K plan."""
+    rows = []
+    for (sp, ci, co), per_forward in convs.items():
+        x, w, b, gn = conv_inputs(torch, g, 1, ci, sp, co, torch.bfloat16)
+        w_lib = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+        b_lib = b.to(torch.bfloat16)
+        nb, fl = conv_cost(x, co)
+        b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS)
+        plan = tc.splitk_plan(1, ci, co, *sp, n_sm) if co % tc.WG_BN == 0 else None
+        take = takers(tc, torch, 1, ci, co, sp)
+        routed = tc.route(x.dtype, 1, ci, co, *sp)
+        ms = {}
+        for k in CONV_KERNELS:
+            wp = packed_for(tc, k, w) if k in take else None
+            ms[k] = (time_ms(torch, lambda: tc._launch("k4b", x, w, b, gn, None, None, wp, k),
+                             reps=10) if k in take else None)
+            if k == routed:  # the prologue's share of the routed kernel
+                ms["no_prologue"] = time_ms(
+                    torch, lambda: tc._launch("k4b", x, w, b, None, None, None, wp, k), reps=10)
+            del wp
+        rows.append(dict(
+            x=list(x.shape), co=co, per_forward=per_forward, route=routed,
+            **{f"{k}_ms": ms[k] for k in CONV_KERNELS}, routed_ms=ms[routed],
+            routed_no_prologue_ms=ms["no_prologue"],
+            cudnn_ms=time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1), reps=10),
+            bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9, mbytes=nb / 1e6,
+            splitk_plan=plan and dict(bm=plan["bm"], S=plan["S"], grid=plan["grid"],
+                                      ctas=plan["ctas"],
+                                      workspace_mb=plan["workspace_bytes"] / 1e6,
+                                      smem_bytes=plan["smem_bytes"], fits=plan["fits"])))
+        del x, w, gn, w_lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+def by_route(timings: list) -> dict:
+    """Launch-weighted ms per forward of each kernel over the shapes
+    ``route`` gives it, beside cuDNN's and the bound's over the same
+    shapes."""
+    return {k: {f"{key}_per_forward": sum(r[key] * r["per_forward"] for r in timings
+                                          if r["route"] == k)
+                for key in (f"{k}_ms", "cudnn_ms", "bound_ms")}
+            | {"launches_per_forward": sum(r["per_forward"] for r in timings if r["route"] == k)}
+            for k in CONV_KERNELS}
 
 
 @functools.lru_cache(maxsize=1)
@@ -939,13 +1006,13 @@ def phase_synthesis(torch, tmp: str) -> tuple[dict, dict]:
     routes = {shape: tc.route(torch.bfloat16, 1, shape[1], shape[2], *shape[0])
               for shape in PRODUCTION_CONVS}
     want = {k: 10 * sum(n for shape, n in PRODUCTION_CONVS.items() if routes[shape] == k)
-            for k in ("wgmma", "splitk", "mma_sync")}
+            for k in CONV_KERNELS}
     res["fuse_conv_dpm"]["launches_expected_by_kernel"] = want
     if (conv_counts["conv3d_fused_k4b"] != 54 * 10 or conv_counts["conv3d_fused_k4a"]
             or conv_counts["conv3d_fused_v4"] or conv_counts["haar_dwt3"] < 3
             or conv_counts["haar_idwt3"] != 1
             or any(conv_counts[f"conv3d_{k}"] != n for k, n in want.items())
-            or want["mma_sync"]
+            or want["mma_sync"] or want["wgmma_n32"]
             or any(routes[shape] != "wgmma" for shape in PRODUCTION_CONVS if shape[0][0] >= 56)
             or any(routes[shape] != "splitk" for shape in PRODUCTION_CONVS if shape[0][0] <= 14)):
         fail(f"the fused-conv path did not run through its kernels as expected: {conv_counts}")
@@ -984,9 +1051,11 @@ FP32_VARIANTS = ("fp32", "faithful")
 SYNTH_WANT = {"unfused": {"affine_silu": 0, "conv3d_fused_k4b": 0},
               "fused": {"affine_silu": 710, "conv3d_fused_k4b": 0},
               "fuse_conv_ddpm": {"affine_silu": 0, "conv3d_fused_k4b": 540, "conv3d_wgmma": 300,
-                                 "conv3d_splitk": 240, "conv3d_mma_sync": 0},
+                                 "conv3d_wgmma_n32": 0, "conv3d_splitk": 240,
+                                 "conv3d_mma_sync": 0},
               "fuse_conv_dpm": {"affine_silu": 0, "conv3d_fused_k4b": 540, "conv3d_wgmma": 300,
-                                "conv3d_splitk": 240, "conv3d_mma_sync": 0},
+                                "conv3d_wgmma_n32": 0, "conv3d_splitk": 240,
+                                "conv3d_mma_sync": 0},
               "fp32": {"haar_dwt3": 3, "haar_idwt3": 1, "affine_silu": 0, "conv3d_fused_k4b": 0},
               "faithful": {"haar_dwt3": 3 + 10, "haar_idwt3": 1 + 10, "affine_silu": 0,
                            "conv3d_fused_k4b": 0}}
@@ -1176,7 +1245,8 @@ def check_completed(np, in_dir: str, out_dir: str, case: str, missing: str | Non
 # every launch counter but K1's and K2's, at 0: a path that launches none
 # of K3, its VJP or the fused conv
 IDLE = {"affine_silu": 0, "affine_silu_bwd": 0, "conv3d_fused_k4a": 0, "conv3d_fused_k4b": 0,
-        "conv3d_fused_v4": 0, "conv3d_wgmma": 0, "conv3d_splitk": 0, "conv3d_mma_sync": 0}
+        "conv3d_fused_v4": 0, "conv3d_wgmma": 0, "conv3d_wgmma_n32": 0, "conv3d_splitk": 0,
+        "conv3d_mma_sync": 0}
 
 
 def phase_completion(torch, tmp: str) -> dict:
@@ -3524,7 +3594,7 @@ def slice_routes(torch, F, shapes: list, phase: str, timed: bool = False) -> lis
             continue
         seen.add(key)
         x, w, b, gn = conv_inputs(torch, g, bsz, ci, tuple(sp), co, torch.bfloat16)
-        wp = tc.pack_wgmma_weights(w) if kernel in ("wgmma", "splitk") else None
+        wp = packed_for(tc, kernel, w)
         with torch.inference_mode():
             got = tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp)
             ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
@@ -3627,8 +3697,9 @@ def spatial_forward_and_synthesis(torch, F, tmp: str, recs: list, ref: dict) -> 
         fail(f"spatial (b): the sharded bf16 forward differs by {b_err} > {bound}")
     for r in recs:
         got = r["b"]["launches"]
-        if got["conv3d_fused_k4b"] != 54 or got["conv3d_wgmma"] + got["conv3d_splitk"] \
-                + got["conv3d_mma_sync"] != 54:
+        # the slabs keep the unsharded forward's routes: none 32 wide
+        if got["conv3d_fused_k4b"] != 54 or got["conv3d_wgmma_n32"] \
+                or sum(got[f"conv3d_{k}"] for k in CONV_KERNELS) != 54:
             fail(f"spatial (b): rank {r['rank']} K4b launches {got}")
     res["b_bf16_fuse_conv_forward"]["routes"] = slice_routes(
         torch, F, [s for r in recs for s in r["b"]["shapes"]], "spatial")
@@ -3990,9 +4061,14 @@ def phase_tensor(torch, F, tmp: str, seed_ckpt: str, ref: dict, job: tuple) -> d
         fail(f"tensor: a rank holds {res['params_held_a_rank']} parameters, not 40,780,680")
     for r in recs:
         got = r["b"]["launches"]
-        if got["conv3d_fused_k4b"] != 54 or got["conv3d_wgmma"] + got["conv3d_splitk"] \
-                + got["conv3d_mma_sync"] != 54:
-            fail(f"tensor (b): rank {r['rank']} K4b launches {got}")
+        # by kernel, what route() gave the shapes the rank reached; none
+        # on mma.sync, level 0's and level 2's Co/2 on the 32-wide kernel
+        r["want"] = {k: sum(s[-1] for s in r["b"]["shapes"] if s[4] == k) for k in CONV_KERNELS}
+        if got["conv3d_fused_k4b"] != 54 or r["want"]["mma_sync"] \
+                or r["want"]["wgmma_n32"] != sum(TP_N32_CONVS.values()) \
+                or any(got[f"conv3d_{k}"] != n for k, n in r["want"].items()):
+            fail(f"tensor (b): rank {r['rank']} K4b launches {got}, by route {r['want']} "
+                 f"(none may be on mma.sync)")
         if any(s[3] * TP not in (64, 128, 256) for s in r["b"]["shapes"]):
             fail(f"tensor (b): rank {r['rank']} K4b shapes not Co/{TP}: {r['b']['shapes']}")
     res["b_bf16_fuse_conv_forward"]["routes"] = slice_routes(
@@ -4012,8 +4088,10 @@ def phase_tensor(torch, F, tmp: str, seed_ckpt: str, ref: dict, job: tuple) -> d
     for r in recs:
         got = r["c"]["launches"]
         if (got["haar_dwt3"], got["haar_idwt3"], got["conv3d_fused_k4b"]) != (
-                3, 1, 54 * TP_SYNTH_EVALS):
-            fail(f"tensor (c): rank {r['rank']} launches {got}")
+                3, 1, 54 * TP_SYNTH_EVALS) \
+                or any(got[f"conv3d_{k}"] != TP_SYNTH_EVALS * n for k, n in r["want"].items()):
+            fail(f"tensor (c): rank {r['rank']} launches {got}, by route "
+                 f"{TP_SYNTH_EVALS} × {r['want']} (none may be on mma.sync)")
     # (d): the fp32 step against phase spatial's one process on the same
     # data, weights and flags
     one = ref["one_fp32_step"]
@@ -4053,7 +4131,8 @@ def phase_tensor(torch, F, tmp: str, seed_ckpt: str, ref: dict, job: tuple) -> d
 
 # the conv entries run on one of three hand-written kernels, by
 # conv3d_cuda.route
-CONV_SOURCES = ("fast_cwdm_tpu_torch/ops/csrc/conv3d_wgmma.cu (bf16, wgmma, levels 0-2) + "
+CONV_SOURCES = ("fast_cwdm_tpu_torch/ops/csrc/conv3d_wgmma.cu (bf16, wgmma, levels 0-2; 32-wide "
+                "blocks for the tp axis's Co/2 convs) + "
                 "fast_cwdm_tpu_torch/ops/csrc/conv3d_splitk.cu (bf16, split-K, levels 3-4) + "
                 "fast_cwdm_tpu_torch/ops/csrc/conv3d.cu (mma.sync, fp32)")
 KERNELS = {  # name: (source, replaces, key of its kernels-phase record)
@@ -4348,7 +4427,14 @@ def main(argv=None) -> int:
             **{f"probes_{probe}": n.get(name, 0) for probe, n in probes["launches"].items()}}
         if name.startswith("conv3d"):
             line[-1]["launches_by_kernel"] = {
-                kn: conv_counts[f"conv3d_{kn}"] for kn in ("wgmma", "splitk", "mma_sync")}
+                kn: conv_counts[f"conv3d_{kn}"] for kn in CONV_KERNELS}
+            # the tp path's routes, rank 0: (b) a forward, (c) a volume
+            line[-1]["launches_by_kernel_tensor"] = {
+                run: {kn: tensor[key]["ranks"][0]["launches"].get(f"conv3d_{kn}", 0)
+                      for kn in CONV_KERNELS}
+                for run, key in (("b", "b_bf16_fuse_conv_forward"),
+                                 ("c", "c_synthesis_fuse_conv_dpm"))}
+            line[-1]["tp_co2_per_forward"] = kern["tp_co2_per_forward"]
             line[-1]["deep_levels"] = kern["deep_levels"]
     emit({"kernels": line})
     print(nvidia_smi())

@@ -44,7 +44,8 @@ from fast_cwdm_tpu_torch.models.nn import (
 )
 from fast_cwdm_tpu_torch.ops import wavelet as wv
 from fast_cwdm_tpu_torch.ops.wavelet import dtype_scalar
-from fast_cwdm_tpu_torch.ops.conv3d_cuda import conv3d_fused, group_stats, pack_wgmma_weights
+from fast_cwdm_tpu_torch.ops.conv3d_cuda import (WG_BN, conv3d_fused, group_stats,
+                                                  pack_wgmma_weights)
 from fast_cwdm_tpu_torch.parallel.mesh import (
     all_gather_sp,
     all_gather_tp,
@@ -199,26 +200,27 @@ class FusableConv3d(Conv3d):
     package's fallback to an XLA conv (C > 128, X odd) is a TPU VMEM and
     tiling limit, and computes the same function. The conv is handed
     :meth:`packed_weight`, which it calls only where the card's route is
-    the wgmma or the split-K kernel: the weight is repacked once and kept
-    until the parameter changes (its version, storage, shape or device).
+    the wgmma (either width) or the split-K kernel: the weight is repacked
+    once at the route's width and kept until the parameter changes (its
+    version, storage, shape or device).
     Under the tp axis the weight is this rank's slice of the output
     channels (``shard_params``): K4b computes them with the bias's slice
     and the output is gathered over the tp group."""
 
     def __init__(self, in_ch: int, out_ch: int, *, dtype=None, zero_init: bool = False):
         super().__init__(in_ch, out_ch, 3, dtype=dtype, zero_init=zero_init, follow_input=True)
-        self._packed = (None, None)  # (key, pack_wgmma_weights of the weight)
+        self._packed = {}  # width → (key, pack_wgmma_weights of the weight)
 
-    def packed_weight(self) -> torch.Tensor:
-        """``pack_wgmma_weights`` of the DHWIO weight, rebuilt only when the
-        parameter was written (``load_state_dict``, an optimizer step) or
-        moved."""
+    def packed_weight(self, bn: int = WG_BN) -> torch.Tensor:
+        """``pack_wgmma_weights`` of the DHWIO weight at output-channel
+        width ``bn``, kept per width and rebuilt only when the parameter
+        was written (``load_state_dict``, an optimizer step) or moved."""
         wt = self.weight
         key = (wt._version, wt.data_ptr(), tuple(wt.shape), wt.device)
-        if self._packed[0] != key:
+        if self._packed.get(bn, (None,))[0] != key:
             with torch.no_grad():
-                self._packed = (key, pack_wgmma_weights(wt.permute(2, 3, 4, 1, 0)))
-        return self._packed[1]
+                self._packed[bn] = (key, pack_wgmma_weights(wt.permute(2, 3, 4, 1, 0), bn))
+        return self._packed[bn][1]
 
     def forward(self, x: torch.Tensor, gn=None) -> torch.Tensor:
         if gn is None:

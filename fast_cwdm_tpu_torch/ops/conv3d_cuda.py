@@ -16,12 +16,15 @@ Co). ``gn`` is (mean, inv, scale, bias), each (Ci,) or (B, Ci).
 
 Three hand-written kernels compute the function on the card:
 ``csrc/conv3d_wgmma.cu`` (bf16 on ``wgmma``, an 8×8×8-voxel by 64-channel
-block, a two-stage staging ring; the large levels), ``csrc/conv3d_splitk.cu``
-(bf16, K split across CTAs by :func:`splitk_plan` and reduced in a fixed
-order; the small deep levels), both reading the weight repacked once by
-:func:`pack_wgmma_weights`, and ``csrc/conv3d.cu`` (``mma.sync`` bf16 or
-fp32 FMA, any Ci and Co multiple of 8). :func:`route` picks one from the
-dtype and shape alone, by a rule fixed from the card's per-shape timings.
+block, a two-stage staging ring; the large levels; and the same kernel
+with 32-channel blocks, ``wgmma_n32``, for Co a multiple of 32 only or a
+grid short of blocks at 64, as the tp axis's Co/2 convs),
+``csrc/conv3d_splitk.cu`` (bf16, K split across CTAs by :func:`splitk_plan`
+and reduced in a fixed order; the small deep levels), all reading the
+weight repacked once by :func:`pack_wgmma_weights` at their width, and
+``csrc/conv3d.cu`` (``mma.sync`` bf16 or fp32 FMA, any Ci and Co multiple
+of 8). :func:`route` picks one from the dtype and shape alone, by a rule
+fixed from the card's per-shape timings.
 
 A CPU tensor takes the plain torch version; a CUDA tensor launches the
 routed kernel or raises. ``conv3d_fused.launches_k4a`` / ``launches_k4b``
@@ -143,9 +146,10 @@ def tol_ratio(ours: torch.Tensor, ref: torch.Tensor, x: torch.Tensor, w: torch.T
 
 
 # The wgmma kernel's block (csrc/conv3d_wgmma.cu): TX × TY × TZ output
-# voxels by BN output channels, BK input channels per staged chunk.
+# voxels by BN output channels (WG_BN, or WG_BN32 on the wgmma_n32 route),
+# BK input channels per staged chunk.
 WG_TILE = (8, 8, 8)
-WG_BN, WG_BK = 64, 16
+WG_BN, WG_BN32, WG_BK = 64, 32, 16
 # Fewest blocks (of 132 SMs) at which the wgmma kernel is taken. Measured
 # on an H100 at every production conv shape (PERF.md, Findings, PR 4 and
 # 5): it wins from 96 blocks up (28×28×20 and larger); at 32 and fewer
@@ -153,22 +157,29 @@ WG_BN, WG_BK = 64, 16
 WG_MIN_BLOCKS = 64
 
 
-def wgmma_layout() -> dict:
-    """The wgmma kernel's shared-memory addressing, in bytes: the halo of
-    one chunk is [BK/8][halo voxel][8 channels] (16 B per voxel row); the
-    A descriptor of x-plane ``q`` and tap (dx, dy, dz) starts at
-    ``a_offset(q, tap)``, its 8-row core matrices (8 z-consecutive voxels)
-    step by ``a_sbo`` along M (one y-line) and by ``a_lbo`` along K (the
-    next 8 channels). B (the packed weight, [27][BK/8][BN][8]) starts at
-    ``b_offset(tap)`` with ``b_sbo`` along N and ``b_lbo`` along K."""
+def wgmma_blocks(B: int, Co: int, X: int, Y: int, Z: int, bn: int = WG_BN) -> int:
+    """The wgmma kernel's grid at output-channel width ``bn``."""
+    tx, ty, tz = WG_TILE
+    return B * -(-X // tx) * -(-Y // ty) * -(-Z // tz) * (Co // bn)
+
+
+def wgmma_layout(bn: int = WG_BN) -> dict:
+    """The wgmma kernel's shared-memory addressing at output-channel width
+    ``bn``, in bytes: the halo of one chunk is [BK/8][halo voxel][8
+    channels] (16 B per voxel row); the A descriptor of x-plane ``q`` and
+    tap (dx, dy, dz) starts at ``a_offset(q, tap)``, its 8-row core
+    matrices (8 z-consecutive voxels) step by ``a_sbo`` along M (one
+    y-line) and by ``a_lbo`` along K (the next 8 channels). B (the packed
+    weight, [27][BK/8][bn][8]) starts at ``b_offset(tap)`` with ``b_sbo``
+    along N and ``b_lbo`` along K."""
     tx, ty, tz = WG_TILE
     hx, hy, hz = tx + 2, ty + 2, tz + 2
     hv = hx * hy * hz
     return dict(
         tile=WG_TILE, halo=(hx, hy, hz), a_lbo=hv * 16, a_sbo=hz * 16,
-        b_lbo=WG_BN * 16, b_sbo=8 * 16,
+        b_lbo=bn * 16, b_sbo=8 * 16,
         a_offset=lambda q, tap: (((q + tap // 9) * hy + (tap // 3) % 3) * hz + tap % 3) * 16,
-        b_offset=lambda tap: tap * (WG_BK // 8) * WG_BN * 16,
+        b_offset=lambda tap: tap * (WG_BK // 8) * bn * 16,
     )
 
 
@@ -249,44 +260,56 @@ def _n_sm(index: int) -> int:
 
 def route(dtype, B: int, Ci: int, Co: int, X: int, Y: int, Z: int) -> str:
     """Which kernel a CUDA tensor of this dtype and shape goes to. bf16
-    with Ci % 16 == 0 and Co % 64 == 0: ``"wgmma"`` (``csrc/conv3d_wgmma.cu``)
-    where its grid has at least ``WG_MIN_BLOCKS`` blocks, else
-    ``"splitk"`` (``csrc/conv3d_splitk.cu``) where its halo box fits the
-    shared memory; everything else ``"mma_sync"`` (``csrc/conv3d.cu``).
-    All three are hand-written kernels; no shape goes to the plain
-    version on the card."""
-    if dtype != torch.bfloat16 or Ci % WG_BK or Co % WG_BN:
+    with Ci % 16 == 0, in this order: with Co % 64 == 0, ``"wgmma"``
+    (``csrc/conv3d_wgmma.cu``) where its grid has at least
+    ``WG_MIN_BLOCKS`` blocks, else ``"splitk"`` (``csrc/conv3d_splitk.cu``)
+    where its halo box fits the shared memory; then, with Co % 32 == 0,
+    ``"wgmma_n32"`` (the wgmma kernel at 32-wide blocks) where its grid has
+    at least ``WG_MIN_BLOCKS`` blocks. Everything else (fp32, Ci or Co off
+    that grid, a grid too small for both) ``"mma_sync"``
+    (``csrc/conv3d.cu``). All are hand-written kernels; no shape goes to
+    the plain version on the card."""
+    if dtype != torch.bfloat16 or Ci % WG_BK:
         return "mma_sync"
-    tx, ty, tz = WG_TILE
-    blocks = B * -(-X // tx) * -(-Y // ty) * -(-Z // tz) * (Co // WG_BN)
-    if blocks >= WG_MIN_BLOCKS:
-        return "wgmma"
-    return "splitk" if splitk_plan(B, Ci, Co, X, Y, Z, 1)["fits"] else "mma_sync"
+    if Co % WG_BN == 0:
+        if wgmma_blocks(B, Co, X, Y, Z) >= WG_MIN_BLOCKS:
+            return "wgmma"
+        if splitk_plan(B, Ci, Co, X, Y, Z, 1)["fits"]:
+            return "splitk"
+    if Co % WG_BN32 == 0 and wgmma_blocks(B, Co, X, Y, Z, WG_BN32) >= WG_MIN_BLOCKS:
+        return "wgmma_n32"
+    return "mma_sync"
 
 
-def pack_wgmma_weights(w: torch.Tensor) -> torch.Tensor:
-    """(3,3,3,Ci,Co) DHWIO → (Co/64, Ci/16, 27, 2, 64, 8) bf16, contiguous:
-    for each 64-wide output block and 16-channel chunk, the 27 taps' B
-    operands K-major (8 input channels of one output channel per 16-byte
-    row), one contiguous slice per chunk for the kernel's bulk copy."""
+def pack_wgmma_weights(w: torch.Tensor, bn: int = WG_BN) -> torch.Tensor:
+    """(3,3,3,Ci,Co) DHWIO → (Co/bn, Ci/16, 27, 2, bn, 8) bf16, contiguous:
+    for each ``bn``-wide output block (64, or 32 for the wgmma_n32 route)
+    and 16-channel chunk, the 27 taps' B operands K-major (8 input channels
+    of one output channel per 16-byte row), one contiguous slice per chunk
+    for the kernel's bulk copy."""
     ci, co = w.shape[3], w.shape[4]
-    if ci % WG_BK or co % WG_BN:
-        raise ValueError(f"pack_wgmma_weights: needs Ci % {WG_BK} == 0 and Co % {WG_BN} == 0, "
+    if bn not in (WG_BN, WG_BN32):
+        raise ValueError(f"pack_wgmma_weights: bn must be {WG_BN} or {WG_BN32}, got {bn}")
+    if ci % WG_BK or co % bn:
+        raise ValueError(f"pack_wgmma_weights: needs Ci % {WG_BK} == 0 and Co % {bn} == 0, "
                          f"got {ci}, {co}")
-    t = w.to(torch.bfloat16).reshape(27, ci // WG_BK, WG_BK // 8, 8, co // WG_BN, WG_BN)
+    t = w.to(torch.bfloat16).reshape(27, ci // WG_BK, WG_BK // 8, 8, co // bn, bn)
     return t.permute(4, 1, 0, 2, 5, 3).contiguous()
 
 
-kernel_launches = {"conv3d_wgmma": 0, "conv3d_splitk": 0, "conv3d_mma_sync": 0}
+kernel_launches = {"conv3d_wgmma": 0, "conv3d_wgmma_n32": 0, "conv3d_splitk": 0,
+                   "conv3d_mma_sync": 0}
 
 
 # kernel → (source in csrc/, its C entry point, its pointer arguments, its
 # int arguments: B, X, Y, Z, Ci, Co, then conv3d.cu's dtype code or the
 # split-K kernel's bm and S)
 _ENTRY = {"wgmma": ("conv3d_wgmma", "conv3d_wgmma", 10, 6),
+          "wgmma_n32": ("conv3d_wgmma", "conv3d_wgmma_n32", 10, 6),
           "splitk": ("conv3d_splitk", "conv3d_splitk", 11, 8),
           "mma_sync": ("conv3d", "conv3d_fused", 10, 7)}
-_PACKED = ("wgmma", "splitk")  # the kernels that read pack_wgmma_weights(w)
+# the kernels that read pack_wgmma_weights(w, bn), by their bn
+PACK_WIDTH = {"wgmma": WG_BN, "wgmma_n32": WG_BN32, "splitk": WG_BN}
 
 
 def _entry(kernel: str):
@@ -313,11 +336,11 @@ def recip_mismatches() -> int:
 
 def _launch(name, x, w, b, gn, temb, skip, w_packed=None, kernel=None) -> torch.Tensor:
     """Check what the kernel takes, allocate the output, launch the kernel
-    that :func:`route` picks. ``w_packed`` is ``pack_wgmma_weights(w)`` or a
-    zero-argument function returning it, used only on the wgmma and splitk
-    routes (packed here when None). ``kernel`` ("wgmma", "splitk" or
-    "mma_sync") overrides the route, for measurements that compare the
-    kernels on one shape. One call counts once in ``kernel_launches``,
+    that :func:`route` picks. ``w_packed`` is ``pack_wgmma_weights(w, bn)``
+    at the kernel's width (``PACK_WIDTH``) or a function of ``bn`` returning
+    it, used only on the kernels of ``PACK_WIDTH`` (packed here when None).
+    ``kernel`` (a key of ``_ENTRY``) overrides the route, for measurements
+    that compare the kernels on one shape. One call counts once in ``kernel_launches``,
     whatever the number of CUDA launches (the split-K kernel's reduction
     is a second one)."""
     if x.device.type != "cuda":
@@ -347,9 +370,10 @@ def _launch(name, x, w, b, gn, temb, skip, w_packed=None, kernel=None) -> torch.
     kernel = kernel or route(x.dtype, bsz, ci, co, X, Y, Z)
     if kernel not in _ENTRY:
         raise ValueError(f"{name}: kernel must be one of {tuple(_ENTRY)}, got {kernel!r}")
-    if kernel in _PACKED and (x.dtype != torch.bfloat16 or ci % WG_BK or co % WG_BN):
+    bn = PACK_WIDTH.get(kernel)
+    if bn and (x.dtype != torch.bfloat16 or ci % WG_BK or co % bn):
         raise ValueError(f"{name}: the {kernel} kernel takes bfloat16 with Ci % {WG_BK} == 0 and "
-                         f"Co % {WG_BN} == 0, got {x.dtype}, {ci}, {co}")
+                         f"Co % {bn} == 0, got {x.dtype}, {ci}, {co}")
     dev = x.device
     plan = None
     if kernel == "splitk":
@@ -357,15 +381,15 @@ def _launch(name, x, w, b, gn, temb, skip, w_packed=None, kernel=None) -> torch.
         if not plan["fits"]:
             raise ValueError(f"{name}: the split-K kernel's halo needs {plan['smem_bytes']} B "
                              f"of shared memory at {(X, Y, Z)}, more than {SK_SMEM_MAX}")
-    if kernel in _PACKED:
+    if bn:
         if w_packed is None:
-            w = pack_wgmma_weights(w.to(dev))
+            w = pack_wgmma_weights(w.to(dev), bn)
         else:
-            w = w_packed() if callable(w_packed) else w_packed
-        if w.shape != (co // WG_BN, ci // WG_BK, 27, 2, WG_BN, 8) or w.dtype != torch.bfloat16 \
+            w = w_packed(bn) if callable(w_packed) else w_packed
+        if w.shape != (co // bn, ci // WG_BK, 27, 2, bn, 8) or w.dtype != torch.bfloat16 \
                 or w.device != dev or not w.is_contiguous():
-            raise ValueError(f"{name}: w_packed must be pack_wgmma_weights(w) on {dev}, got "
-                             f"{w.dtype} {tuple(w.shape)}")
+            raise ValueError(f"{name}: w_packed must be pack_wgmma_weights(w, {bn}) on {dev}, "
+                             f"got {w.dtype} {tuple(w.shape)}")
     else:
         w = w.to(dev, x.dtype).contiguous()
     b = b.to(dev, torch.float32).contiguous()
@@ -412,9 +436,9 @@ def conv3d_fused(x, w, b, *, gn=None, fold_taps=True, block_x=None,
     """K4a (``block_x`` None) / K4b (``block_x`` set): fused [GN-apply +
     SiLU] + 3³ SAME conv + b. ``x`` (B, Ci, X, Y, Z); ``w`` (3,3,3,Ci,Co);
     ``b`` (Co,); ``gn`` None for a plain conv. On the card, ``w_packed``
-    (``pack_wgmma_weights(w)`` kept by the caller, or a zero-argument
-    function returning it) spares the wgmma and splitk routes a repack per
-    call; the mma_sync route never reads it."""
+    (``pack_wgmma_weights(w, bn)`` kept by the caller, or a function of
+    ``bn`` returning it) spares the wgmma, wgmma_n32 and splitk routes a
+    repack per call; the mma_sync route never reads it."""
     if x.device.type == "cpu":
         return conv3d_fused_plain(x, w, b, gn=gn)
     y = _launch("conv3d_fused", x, w, b, gn, None, None, w_packed)

@@ -42,9 +42,13 @@
 // register tile per thread. Both use about 80 KB of shared memory, so two
 // CTAs share an SM and one stages while the other computes.
 //
-// In bf16 the UNet's convs go to conv3d_wgmma.cu (large levels) and
-// conv3d_splitk.cu (small deep levels) instead (conv3d_cuda.route); this
-// kernel keeps fp32 and Ci or Co not multiples of 16 and 64.
+// In bf16 the UNet's convs go to conv3d_wgmma.cu (large levels; with
+// 32-wide output blocks where Co is a multiple of 32 only, or where 64-wide
+// blocks are too few, as the tp axis's Co/2 convs) and conv3d_splitk.cu
+// (small deep levels) instead (conv3d_cuda.route). This kernel keeps fp32,
+// Ci not a multiple of 16, Co not a multiple of 32, and bf16 grids too
+// small for both wgmma widths where the split-K halo does not fit: no conv
+// of the production UNet, unsharded or on the sp or tp axis.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -15,7 +15,7 @@
 // Bound on the H100: operations (level 0, 64 -> 64: 222 GFLOP, 0.224 ms at
 // the bf16 dense rate). conv3d.cu reached 16% of it; what held it back and
 // what this design does about each:
-//   - mma.sync: here wgmma.mma_async m64n64k16 with A and B read from
+//   - mma.sync: here wgmma.mma_async m64nBNk16 with A and B read from
 //     shared memory by descriptor;
 //   - every 128-voxel CTA re-read all weights from L2: here a CTA owns an
 //     8x8x8 output block (M = 512), so each staged weight byte serves 4x
@@ -34,15 +34,23 @@
 //         half HV * 16 B further (its leading byte offset). One m64 wgmma
 //         covers the 8 (y) x 8 (z) patch of one x-plane, and tap (dx, dy,
 //         dz) is the same descriptor moved by ((dx*HY + dy)*HZ + dz) * 16 B.
-//   wts   [27][2][64][8] bf16: per tap, per 8-channel half, the 64 output
-//         channels' 16-byte rows (B K-major: LBO 64 * 16 B, SBO 128 B),
+//   wts   [27][2][BN][8] bf16: per tap, per 8-channel half, the BN output
+//         channels' 16-byte rows (B K-major: LBO BN * 16 B, SBO 128 B),
 //         repacked once on the host (conv3d_cuda.pack_wgmma_weights) so
 //         that a chunk's slice is one contiguous cp.async.bulk.
 //
 // Threads: warpgroups 0 and 1 consume (each owns TX/2 x-planes: TX/2 m64
-// x n64 fp32 accumulators), warpgroup 2 produces (halo through registers
+// x nBN fp32 accumulators), warpgroup 2 produces (halo through registers
 // with the prologue applied, fence.proxy.async, mbarrier arrive; the weight
 // slice by one bulk copy completing on the same mbarrier).
+//
+// BN, the block's output channels, is 64 (conv3d_wgmma, m64n64k16) or 32
+// (conv3d_wgmma_n32, m64n32k16: Co a multiple of 32 only, as the tp axis's
+// Co/2 convs, and twice the blocks of a grid that is short of SMs at 64).
+// At 32 a stage's weight slice is 27,648 B instead of 55,296 and a thread
+// holds 16 accumulators per plane instead of 32; the halo staging and the
+// prologue per block stay the same, so it does half the MMAs of a 64-wide
+// block for the same producer work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,23 +66,30 @@ using namespace hopper;
 constexpr int TX = 8, TY = 8, TZ = 8;                  // output block
 constexpr int HX = TX + 2, HY = TY + 2, HZ = TZ + 2;   // halo block
 constexpr int HV = HX * HY * HZ;                       // 1000 halo voxels
-constexpr int BN = 64;                                 // output channels
 constexpr int BK = 16;                                 // input channels/chunk
 constexpr int PLANES = TX / 2;                         // x-planes per consumer
 constexpr int kConsumers = 256, kThreads = 384;
 constexpr int HALO_BYTES = 2 * HV * 16;                // 32,000
-constexpr int W_BYTES = 27 * BK * BN * 2;              // 55,296
-constexpr int STAGE_BYTES = HALO_BYTES + W_BYTES;
 constexpr int STAGES = 2;                              // the staging ring
 constexpr int HEAD_BYTES = 128;                        // the mbarriers
-constexpr int SMEM_BYTES = HEAD_BYTES + STAGES * STAGE_BYTES;  // 174,720
-static_assert(HALO_BYTES % 128 == 0 && W_BYTES % 128 == 0, "alignment");
+static_assert(HALO_BYTES % 128 == 0, "alignment");
+
+// What the block's output channels BN (64 or 32) set.
+template <int BN>
+struct Width {
+  static constexpr int W_BYTES = 27 * BK * BN * 2;     // 55,296 or 27,648
+  static constexpr int STAGE_BYTES = HALO_BYTES + W_BYTES;
+  static constexpr int SMEM_BYTES =                    // 174,720 or 119,424
+      HEAD_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int ACC = BN / 2;                   // fp32 per plane a thread
+  static_assert(W_BYTES % 128 == 0, "alignment");
+};
 
 using bf16 = __nv_bfloat16;
 
 struct Args {
   const bf16* x;        // (B, X, Y, Z, Ci)
-  const bf16* w;        // packed: (Co/64, Ci/16, 27, 2, 64, 8)
+  const bf16* w;        // packed: (Co/BN, Ci/16, 27, 2, BN, 8)
   const float* b;       // (Co,)
   const float* mean;    // (B, Ci) or null
   const float* inv;
@@ -111,9 +126,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving accumulator reads or writes across the
 // asynchronous MMAs.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 64, fp32) += A (64 x 16, bf16) * B (16 x 64, bf16), both K-major
@@ -136,13 +152,40 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64 x 32, fp32) += A (64 x 16, bf16) * B (16 x 32, bf16), both K-major
+// in shared memory.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[BN / 2], uint64_t da,
+                                             uint64_t db) {
+  if constexpr (BN == 64)
+    wgmma_m64n64k16(d, da, db);
+  else
+    wgmma_m64n32k16(d, da, db);
+}
+
 // ------------------------------------------------------------ producer --
 
-template <bool PRO>
+template <int BN, bool PRO>
 __device__ __forceinline__ void produce(const Args& p, unsigned char* stages,
                                         uint64_t* full, uint64_t* empty,
                                         int bidx, int nb, int x0, int y0,
                                         int z0) {
+  constexpr int W_BYTES = Width<BN>::W_BYTES;
+  constexpr int STAGE_BYTES = Width<BN>::STAGE_BYTES;
   const int pt = threadIdx.x - kConsumers;  // 0..127
   const int half = pt & 1;                  // this thread's 8 channels
   const int nchunks = p.Ci / BK;
@@ -228,18 +271,19 @@ __device__ __forceinline__ void store2(const Args& p, int bidx, int gx, int gy,
   *reinterpret_cast<__nv_bfloat162*>(p.out + off) = r;
 }
 
-template <bool TEMB, bool SKIP>
+template <int BN, bool TEMB, bool SKIP>
 __device__ __forceinline__ void consume(const Args& p, unsigned char* stages,
                                         uint64_t* full, uint64_t* empty,
                                         int wg, int bidx, int nb, int x0,
                                         int y0, int z0) {
   // wg (0 or 1): this warpgroup's planes are wg * PLANES ...
+  constexpr int STAGE_BYTES = Width<BN>::STAGE_BYTES;
   const int nchunks = p.Ci / BK;
-  float acc[PLANES][32];
+  float acc[PLANES][Width<BN>::ACC];
 #pragma unroll
   for (int q = 0; q < PLANES; ++q) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[q][i] = 0.0f;
+    for (int i = 0; i < Width<BN>::ACC; ++i) acc[q][i] = 0.0f;
     fence_acc(acc[q]);
   }
   const uint32_t base = smem_addr(stages);
@@ -258,7 +302,7 @@ __device__ __forceinline__ void consume(const Args& p, unsigned char* stages,
 #pragma unroll
         for (int q = 0; q < PLANES; ++q) {
           const int hv = ((wg * PLANES + q + dx) * HY + dy) * HZ + dz;
-          wgmma_m64n64k16(acc[q], da + hv, db + tap * (2 * BN));
+          wgmma_m64k16<BN>(acc[q], da + hv, db + tap * (2 * BN));
         }
       }
     }
@@ -293,7 +337,7 @@ __device__ __forceinline__ void consume(const Args& p, unsigned char* stages,
   }
 }
 
-template <bool PRO, bool TEMB, bool SKIP>
+template <int BN, bool PRO, bool TEMB, bool SKIP>
 __global__ void __launch_bounds__(kThreads, 1) conv3d_wgmma_kernel(const Args p) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -318,15 +362,16 @@ __global__ void __launch_bounds__(kThreads, 1) conv3d_wgmma_kernel(const Args p)
   // the warpgroup index through a shuffle: warp-uniform to the compiler
   const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
   if (wg == kConsumers / 128)
-    produce<PRO>(p, stages, full, empty, bidx, nb, x0, y0, z0);
+    produce<BN, PRO>(p, stages, full, empty, bidx, nb, x0, y0, z0);
   else
-    consume<TEMB, SKIP>(p, stages, full, empty, wg, bidx, nb, x0, y0,
-                                z0);
+    consume<BN, TEMB, SKIP>(p, stages, full, empty, wg, bidx, nb, x0, y0,
+                            z0);
 }
 
-template <bool PRO, bool TEMB, bool SKIP>
+template <int BN, bool PRO, bool TEMB, bool SKIP>
 int launch(const Args& p, int B, cudaStream_t stream) {
-  auto kernel = conv3d_wgmma_kernel<PRO, TEMB, SKIP>;
+  constexpr int SMEM_BYTES = Width<BN>::SMEM_BYTES;
+  auto kernel = conv3d_wgmma_kernel<BN, PRO, TEMB, SKIP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -347,27 +392,17 @@ __global__ void recip_check_kernel(unsigned long long* bad) {
   if (n) atomicAdd(bad, n);
 }
 
-}  // namespace
-
-// Count the floats d in [1, 2^126) where recip_normal(d) differs from the
-// IEEE quotient 1.0f / d (the prologue relies on 0) into *bad, a zeroed
-// device counter.
-extern "C" int recip_normal_mismatches(unsigned long long* bad, void* stream) {
-  recip_check_kernel<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(bad);
-  return (int)cudaGetLastError();
-}
-
-// x: (B, X, Y, Z, Ci) bf16; w: the packed weight (Co/64, Ci/16, 27, 2, 64,
+// x: (B, X, Y, Z, Ci) bf16; w: the packed weight (Co/BN, Ci/16, 27, 2, BN,
 // 8) bf16; out and skip: (B, X, Y, Z, Co) bf16; b (Co,), temb (B, Co) and
 // mean/inv/scale/bias (B, Ci) fp32; all contiguous. mean == null: no
-// prologue; temb/skip == null: no such add. Needs Ci % 16 == 0, Co % 64 ==
+// prologue; temb/skip == null: no such add. Needs Ci % 16 == 0, Co % BN ==
 // 0 and 16-byte aligned x and w.
-extern "C" int conv3d_wgmma(const void* x, const void* w, const float* b,
-                            const float* mean, const float* inv,
-                            const float* scale, const float* bias,
-                            const float* temb, const void* skip, void* out,
-                            int B, int X, int Y, int Z, int Ci, int Co,
-                            void* stream) {
+template <int BN>
+int conv3d_wgmma_bn(const void* x, const void* w, const float* b,
+                    const float* mean, const float* inv, const float* scale,
+                    const float* bias, const float* temb, const void* skip,
+                    void* out, int B, int X, int Y, int Z, int Ci, int Co,
+                    void* stream) {
   if (Ci % BK || Co % BN ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
     return (int)cudaErrorInvalidValue;
@@ -379,13 +414,46 @@ extern "C" int conv3d_wgmma(const void* x, const void* w, const float* b,
   cudaStream_t s = (cudaStream_t)stream;
   const int code = (mean ? 4 : 0) | (temb ? 2 : 0) | (skip ? 1 : 0);
   switch (code) {
-    case 0: return launch<false, false, false>(p, B, s);
-    case 1: return launch<false, false, true>(p, B, s);
-    case 2: return launch<false, true, false>(p, B, s);
-    case 3: return launch<false, true, true>(p, B, s);
-    case 4: return launch<true, false, false>(p, B, s);
-    case 5: return launch<true, false, true>(p, B, s);
-    case 6: return launch<true, true, false>(p, B, s);
-    default: return launch<true, true, true>(p, B, s);
+    case 0: return launch<BN, false, false, false>(p, B, s);
+    case 1: return launch<BN, false, false, true>(p, B, s);
+    case 2: return launch<BN, false, true, false>(p, B, s);
+    case 3: return launch<BN, false, true, true>(p, B, s);
+    case 4: return launch<BN, true, false, false>(p, B, s);
+    case 5: return launch<BN, true, false, true>(p, B, s);
+    case 6: return launch<BN, true, true, false>(p, B, s);
+    default: return launch<BN, true, true, true>(p, B, s);
   }
+}
+
+}  // namespace
+
+// Count the floats d in [1, 2^126) where recip_normal(d) differs from the
+// IEEE quotient 1.0f / d (the prologue relies on 0) into *bad, a zeroed
+// device counter.
+extern "C" int recip_normal_mismatches(unsigned long long* bad, void* stream) {
+  recip_check_kernel<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(bad);
+  return (int)cudaGetLastError();
+}
+
+// The conv with 64-wide output blocks (Co % 64 == 0; conv3d_wgmma_bn).
+extern "C" int conv3d_wgmma(const void* x, const void* w, const float* b,
+                            const float* mean, const float* inv,
+                            const float* scale, const float* bias,
+                            const float* temb, const void* skip, void* out,
+                            int B, int X, int Y, int Z, int Ci, int Co,
+                            void* stream) {
+  return conv3d_wgmma_bn<64>(x, w, b, mean, inv, scale, bias, temb, skip, out,
+                             B, X, Y, Z, Ci, Co, stream);
+}
+
+// The conv with 32-wide output blocks (Co % 32 == 0), the same arguments
+// with w packed at BN 32.
+extern "C" int conv3d_wgmma_n32(const void* x, const void* w, const float* b,
+                                const float* mean, const float* inv,
+                                const float* scale, const float* bias,
+                                const float* temb, const void* skip, void* out,
+                                int B, int X, int Y, int Z, int Ci, int Co,
+                                void* stream) {
+  return conv3d_wgmma_bn<32>(x, w, b, mean, inv, scale, bias, temb, skip, out,
+                             B, X, Y, Z, Ci, Co, stream);
 }

@@ -58,20 +58,27 @@ def _both(gn):
 
 
 @pytest.mark.parametrize(
-    "block_x,fold_taps,gn_kind",
+    "block_x,fold_taps,gn_kind,ci,co",
     [
-        (None, True, None),
-        (None, False, "channel"),
-        (None, True, "batch"),
-        (2, True, "channel"),
-        (2, True, "batch"),
-        (4, True, None),
+        *(pytest.param(*case, 8, 16, id="-".join(map(str, case))) for case in (
+            (None, True, None),
+            (None, False, "channel"),
+            (None, True, "batch"),
+            (2, True, "channel"),
+            (2, True, "batch"),
+            (4, True, None),
+        )),
+        # Co 32: the output width of the 32-wide wgmma kernel (the tp
+        # axis's level-0 convs), whose CPU path is this plain version
+        pytest.param(2, True, "batch", 16, 32, id="2-True-batch-16to32"),
+        pytest.param(None, True, "channel", 16, 32, id="None-True-channel-16to32"),
     ],
 )
-def test_conv3d_fused_matches_pallas(block_x, fold_taps, gn_kind):
+def test_conv3d_fused_matches_pallas(block_x, fold_taps, gn_kind, ci, co):
     """K4a (block_x None, fold_taps either way) and K4b (block_x 2, 4) at
-    tests/test_conv3d_pallas.py's sizes, fp32, atol 1e-5."""
-    rng, x, w, b = _inputs()
+    tests/test_conv3d_pallas.py's sizes (Ci 8 → Co 16), and at Ci 16 → Co
+    32, fp32, atol 1e-5."""
+    rng, x, w, b = _inputs(shape=(2, 6, 8, 8, ci), co=co)
     if block_x:
         x = x[:, :4]  # the Pallas slab kernel needs X % block_x == 0
     jgn, tgn = _both(_gn(rng, x, gn_kind))

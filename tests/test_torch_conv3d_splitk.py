@@ -209,11 +209,15 @@ def test_kernel_model_matches_plain(case):
 
 def test_route_sends_the_deep_levels_to_splitk_only_where_the_halo_fits():
     """bf16 shapes with too few wgmma blocks go to the split-K kernel where
-    its halo box fits the shared memory, else to the mma.sync kernel."""
+    its halo box fits the shared memory, else to the 32-wide wgmma kernel
+    where its grid is large enough, else to the mma.sync kernel."""
     assert tc.route(torch.bfloat16, 1, 256, 256, 7, 7, 5) == "splitk"
     assert tc.route(torch.bfloat16, 2, 32, 64, 5, 7, 9) == "splitk"
     plan = tc.splitk_plan(1, 16, 64, 1, 7, 400, 1)  # a tile over 2 y-lines of 400
-    assert not plan["fits"] and tc.route(torch.bfloat16, 1, 16, 64, 1, 7, 400) == "mma_sync"
+    # 50 blocks at 64 wide, 100 at 32
+    assert not plan["fits"] and tc.route(torch.bfloat16, 1, 16, 64, 1, 7, 400) == "wgmma_n32"
+    plan = tc.splitk_plan(1, 16, 64, 1, 7, 240, 1)  # 30 blocks at 64 wide, 60 at 32
+    assert not plan["fits"] and tc.route(torch.bfloat16, 1, 16, 64, 1, 7, 240) == "mma_sync"
     # a tile crossing an x-plane of 28×28×20 needs four whole planes of
     # halo, more than the shared memory; level 2 stays on wgmma
     plan = tc.splitk_plan(1, 128, 128, 28, 28, 20, N_SM)

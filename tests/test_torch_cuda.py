@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels on the card: K1/K2/K3 and the three fused
-conv kernels behind K4a/K4b/K5 (mma.sync, wgmma and split-K), each against
+"""The hand-written CUDA kernels on the card: K1/K2/K3 and the fused conv
+kernels behind K4a/K4b/K5 (mma.sync, wgmma at 64 and 32 output channels a
+block, and split-K), each against
 its plain torch version, their wrappers' refusals (the fused conv's
 backward included), the autograd pairs (K1/K2, K3 and its VJP), fuse_conv
 UNets that reach K4b on each conv kernel, a .ckpt round trip of a model on
@@ -221,11 +222,74 @@ def test_conv3d_wgmma_matches_plain(gen, case):
     before = tc.kernel_launches["conv3d_wgmma"]
     for y in (tc._launch("k4b", x, w, b, gn, None, None, kernel="wgmma"),
               tc._launch("k4a", x, w, b, gn, None, None, wp, "wgmma"),
-              tc._launch("getter", x, w, b, gn, None, None, lambda: wp, "wgmma")):
+              tc._launch("getter", x, w, b, gn, None, None, lambda bn: wp, "wgmma")):
         torch.cuda.synchronize()
         assert y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last_3d)
         assert tc.tol_ratio(y, ref, x, w, gn) <= 1.0
     assert tc.kernel_launches["conv3d_wgmma"] == before + 3
+
+
+# (B, Ci, Co, spatial, gn): the 32-wide wgmma kernel at Co 32 (one output
+# block) ragged in X, Y and Z, Co 96 (three blocks) with per-(B, C)
+# statistics at B = 2, a plain conv, and Ci 192
+WGMMA_N32_CASES = [
+    (1, 64, 32, (9, 12, 10), "channel"),
+    (2, 32, 96, (10, 9, 11), "batch"),
+    (1, 16, 32, (8, 8, 17), None),
+    (1, 192, 32, (9, 8, 8), "channel"),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_N32_CASES)
+def test_conv3d_wgmma_n32_matches_plain(gen, case):
+    """The 32-wide wgmma kernel (conv3d_wgmma_n32 in conv3d_wgmma.cu)
+    against the plain version within tc.tol_ratio, packed by the wrapper,
+    handed a 32-wide pack and a getter called with its width; each launch
+    counted on that kernel alone; two launches bit for bit; a 64-wide pack
+    refused."""
+    x, w, b, gn = _conv_case(gen, torch.bfloat16, *case)
+    ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
+    wp = tc.pack_wgmma_weights(w, 32)
+    widths = []
+
+    def getter(bn):
+        widths.append(bn)
+        return wp
+
+    before = dict(tc.kernel_launches)
+    ys = [tc._launch("k4b", x, w, b, gn, None, None, kernel="wgmma_n32"),
+          tc._launch("k4a", x, w, b, gn, None, None, wp, "wgmma_n32"),
+          tc._launch("getter", x, w, b, gn, None, None, getter, "wgmma_n32")]
+    torch.cuda.synchronize()
+    for y in ys:
+        assert y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last_3d)
+        assert tc.tol_ratio(y, ref, x, w, gn) <= 1.0
+        assert torch.equal(y, ys[0])
+    assert widths == [32]
+    for k, n in tc.kernel_launches.items():
+        assert n == before[k] + (3 if k == "conv3d_wgmma_n32" else 0), k
+    if case[2] % 64 == 0:
+        with pytest.raises(ValueError):
+            tc._launch("k4b", x, w, b, gn, None, None, tc.pack_wgmma_weights(w), "wgmma_n32")
+
+
+def test_conv3d_wgmma_n32_is_the_route_at_co_32(gen):
+    """Where route() picks the 32-wide kernel (Co 32, 64 blocks of 8³), the
+    entry points launch it: K4b with the prologue and K5 with temb and
+    skip, each against its plain version."""
+    bsz, ci, co, sp = 1, 32, 32, (32, 32, 32)
+    assert tc.route(torch.bfloat16, bsz, ci, co, *sp) == "wgmma_n32"
+    x, w, b, gn = _conv_case(gen, torch.bfloat16, bsz, ci, co, sp, "batch")
+    temb = torch.randn((bsz, co), generator=gen, device="cuda")
+    skip = torch.randn((bsz, *sp, co), generator=gen, device="cuda").bfloat16().permute(0, 4, 1, 2, 3)
+    before = tc.kernel_launches["conv3d_wgmma_n32"]
+    y = tc.conv3d_fused(x, w, b, gn=gn, block_x=2)
+    y5 = tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip)
+    torch.cuda.synchronize()
+    assert tc.kernel_launches["conv3d_wgmma_n32"] == before + 2
+    assert tc.tol_ratio(y, tc.conv3d_fused_plain(x, w, b, gn=gn), x, w, gn) <= 1.0
+    ref5 = tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip)
+    assert tc.tol_ratio(y5, ref5, x, w, gn) <= 1.0
 
 
 def test_conv3d_wgmma_v4_matches_plain(gen):
@@ -251,9 +315,11 @@ def test_fuse_conv_unet_launches_wgmma(gen, monkeypatch):
     """A bf16 fuse_conv UNet whose convs all route to the wgmma kernel
     (WG_MIN_BLOCKS lowered for its small grid) launches it at every fused
     conv, never the plain version; with WG_MIN_BLOCKS out of reach every
-    conv goes to the split-K kernel instead; both agree with the same model
-    on the mma.sync kernel (the route forced there) to within twice that
-    model's own bf16 error against fp32 on the CPU."""
+    conv goes to the split-K kernel instead, and with the route forced to
+    the 32-wide wgmma kernel (the module's packed weight at width 32) to
+    that; each agrees with the same model on the mma.sync kernel (the
+    route forced there) to within twice that model's own bf16 error
+    against fp32 on the CPU."""
     cfg = dict(image_size=16, in_channels=16, model_channels=64, out_channels=8,
                num_res_blocks=1, attention_resolutions=(), channel_mult=(1, 2),
                num_groups=8, resblock_updown=True, bottleneck_attention=False,
@@ -274,6 +340,7 @@ def test_fuse_conv_unet_launches_wgmma(gen, monkeypatch):
         monkeypatch.setattr(tc, "conv3d_fused_plain", None)  # a call would raise
         for kernel, patch in (("wgmma", ("WG_MIN_BLOCKS", 1)),
                               ("splitk", ("WG_MIN_BLOCKS", 10**9)),
+                              ("wgmma_n32", ("route", lambda *shape: "wgmma_n32")),
                               ("mma_sync", ("route", lambda *shape: "mma_sync"))):
             monkeypatch.setattr(tc, *patch)
             before = dict(tc.kernel_launches)
@@ -281,9 +348,9 @@ def test_fuse_conv_unet_launches_wgmma(gen, monkeypatch):
             torch.cuda.synchronize()
             for k, n in tc.kernel_launches.items():
                 assert n == before[k] + (2 * n_fused if k == f"conv3d_{kernel}" else 0), k
-    assert torch.isfinite(outs["wgmma"]).all() and torch.isfinite(outs["splitk"]).all()
+    assert all(torch.isfinite(outs[k]).all() for k in ("wgmma", "splitk", "wgmma_n32"))
     bf16_err = float((outs["mma_sync"].cpu() - ref32).abs().max())
-    for kernel in ("wgmma", "splitk"):
+    for kernel in ("wgmma", "splitk", "wgmma_n32"):
         assert float((outs[kernel] - outs["mma_sync"]).abs().max()) <= 2 * bf16_err
 
 
@@ -321,18 +388,18 @@ def test_conv3d_splitk_matches_plain(gen, case):
     wp = tc.pack_wgmma_weights(w)
     calls = []
 
-    def getter():
-        calls.append(1)
+    def getter(bn):
+        calls.append(bn)
         return wp
 
     before = tc.kernel_launches["conv3d_splitk"]
     ys = [tc._launch("k4b", x, w, b, gn, temb, skip, getter) for _ in range(2)]
     torch.cuda.synchronize()
-    assert tc.kernel_launches["conv3d_splitk"] == before + 2 and len(calls) == 2
+    assert tc.kernel_launches["conv3d_splitk"] == before + 2 and calls == [64, 64]
     assert ys[0].dtype == torch.bfloat16 and ys[0].is_contiguous(memory_format=torch.channels_last_3d)
     assert torch.equal(ys[0], ys[1])  # no atomics: the same bits every launch
     assert tc.tol_ratio(ys[0], ref, x, w, gn) <= 1.0
-    negated = tc._launch("k4b", x, w, b, gn, temb, skip, lambda: tc.pack_wgmma_weights(-w))
+    negated = tc._launch("k4b", x, w, b, gn, temb, skip, lambda bn: tc.pack_wgmma_weights(-w, bn))
     assert not torch.equal(negated, ys[0])
     if epilogue:
         y = tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip, w_packed=wp)
