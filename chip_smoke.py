@@ -14,16 +14,25 @@ Phases, each printing one JSON object per line:
               the least time the card could take (bytes or operations);
               the fused conv (K4a/K4b/K5) on each of its kernels that
               takes the shape (wgmma at 64 and at 32 output channels a
-              block, split-K, mma.sync) at fifteen shapes, the tp axis's
-              six Co/2 shapes among them, with the tolerance ratio (≤ 1
-              passes), differing elements and two launches bit for bit;
-              the kernels, cuDNN and the bound at every distinct conv
-              shape of the forward and at the six Co/2 shapes; the fp32
-              conv beside cuDNN's fp32 (TF32 off);
+              block, split-K, the fp32 3×TF32 wgmma kernel, mma.sync) at
+              fifteen bf16 shapes, the tp axis's six Co/2 shapes among
+              them, and at the seventeen fp32 shapes of FP32_CONV_SHAPES
+              (every production shape, and B = 2), with the tolerance
+              ratio (≤ 1 passes; the 3×TF32 kernel ≤ TF32_TOL_RATIO, 0.1),
+              differing elements and two launches bit
+              for bit; the kernels, cuDNN and the bound at every distinct
+              conv shape of the forward (in bf16 and in fp32, there beside
+              cuDNN's fp32 with TF32 off, the plain version and the FFMA
+              bound) and at the six Co/2 shapes; how the 3×TF32 kernel's
+              split rounds and how its tensor cores read fp32;
 4. forward  — the 81,511,048-parameter production UNet in bf16 at
               (1, 112, 112, 80, 32): unfused, fuse_gn_silu (K3) and
               fuse_conv (K4b), timed in turns; with ``--profile`` the
-              device time by kernel;
+              device time by kernel; then in fp32 with fuse_conv (every
+              conv on the 3×TF32 kernel) against the unfused fp32 forward
+              (1e-4 of the output's scale), its launches by kernel and
+              device ms by kind, beside the same forward with every fused
+              conv on conv3d.cu's FFMA path;
 5. synthesis— the ``fast_cwdm_tpu_torch.cli.sample`` entry point on one
               synthetic 240×240×155 BraTS case with seeded weights, 10-step
               sampled schedule, twice: every GN→SiLU through K3 (ddpm),
@@ -32,7 +41,7 @@ Phases, each printing one JSON object per line:
               run, by entry point and by kernel (levels 0-2 on wgmma,
               3-4 on split-K, by ``conv3d_cuda.route``), and that each
               went through the captured CUDA graph chain (one capture,
-              eight replays); then ``make_synthesis_fn`` of six variants,
+              eight replays); then ``make_synthesis_fn`` of eight variants,
               each eager (``cuda_graph=False``) and graphed, in turns: the
               images of the two paths (bit for bit expected), launches per
               volume, capture seconds and graph pool memory; two of them
@@ -41,7 +50,10 @@ Phases, each printing one JSON object per line:
               fuse_clip_projection=False)``: the reference's IDWT → clamp
               → DWT every step, one K2 and one K1 a step, K1 13 and K2 11
               a volume, eager and graphed bit for bit) and the same chain
-              with the fused projection (the images within 1e-4); a ``devtime``
+              with the fused projection (the images within 1e-4), and that
+              chain with fuse_conv in fp32 (540 K4b a volume by route, its
+              image within 1e-4 of the unfused fp32 one), once on the
+              3×TF32 kernel and once on conv3d.cu's FFMA path; a ``devtime``
               trace of the fuse_conv dpm++ synthesis on each path (device
               ms, wall ms, busy share); a 100-step fuse_conv ddpm chain,
               graphed, with ``chunk`` None and 32, equal bit for bit;
@@ -245,6 +257,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM TF32 dense tensor cores
 VOLUME = (224, 224, 160)
 LATENT = (112, 112, 80)
 # (channels, spatial) of the production UNet's levels where GN→SiLU runs
@@ -288,7 +301,14 @@ TP_N32_CONVS = {
     ((112, 112, 80), 64, 32): 7, ((112, 112, 80), 128, 32): 2, ((112, 112, 80), 192, 32): 1,
     ((28, 28, 20), 128, 64): 7, ((28, 28, 20), 256, 64): 2, ((28, 28, 20), 384, 64): 1,
 }
-CONV_KERNELS = ("wgmma", "wgmma_n32", "splitk", "mma_sync")  # conv3d_cuda's routes
+CONV_KERNELS = ("wgmma", "wgmma_n32", "splitk", "wgmma_tf32", "mma_sync")  # conv3d_cuda's routes
+# the fp32 fused convs checked against the plain version on each kernel
+# that takes them: every production shape (route() gives each the 3×TF32
+# kernel), and B = 2 at level 1
+FP32_CONV_SHAPES = tuple(
+    (f"fp32 {'x'.join(map(str, sp))} {ci}→{co}", 1, ci, sp, co)
+    for (sp, ci, co) in PRODUCTION_CONVS) + (
+    ("fp32 B = 2, per-(B, C) statistics", 2, 128, (56, 56, 40), 128),)
 
 
 PHASE_SECONDS: dict = {}  # each emitted phase's seconds, in order
@@ -367,6 +387,21 @@ class no_tf32:
     def __exit__(self, *exc):
         b = self.b
         b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic = self.saved
+
+
+@contextlib.contextmanager
+def fp32_on_conv3d_cu(torch, tc):
+    """``conv3d_cuda.route`` with every fp32 conv sent to ``conv3d.cu``'s
+    FFMA path inside the block: the fp32 fused conv as it ran before the
+    3×TF32 kernel, measured beside it on the same inputs (that path's code
+    is unchanged since)."""
+    routed = tc.route
+    tc.route = lambda dtype, *shape: ("mma_sync" if dtype == torch.float32 else
+                                      routed(dtype, *shape))
+    try:
+        yield
+    finally:
+        tc.route = routed
 
 
 def nvidia_smi() -> str:
@@ -557,8 +592,12 @@ def phase_conv(torch, F) -> dict:
                            tol_ratio=ratio, n_differ=int((y != ref).sum()), **info))
         worst[entry] = [max(worst[entry][0], err), max(worst[entry][1], ratio)]
 
+    def twice(fn):
+        y, again = fn(), fn()
+        return y, bool(torch.equal(y, again))
+
     shapes = [(lab, b, ci, sp, co, torch.bfloat16) for lab, b, ci, sp, co in CONV_SHAPES]
-    shapes.append(("level 1, fp32", 1, 128, (56, 56, 40), 128, torch.float32))
+    shapes += [(lab, b, ci, sp, co, torch.float32) for lab, b, ci, sp, co in FP32_CONV_SHAPES]
     for label, bsz, ci, sp, co, dtype in shapes:
         x, w, b, gn = conv_inputs(torch, g, bsz, ci, sp, co, dtype)
         temb = torch.randn((bsz, co), generator=g, device="cuda")
@@ -566,32 +605,34 @@ def phase_conv(torch, F) -> dict:
         ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
         ref_np = tc.conv3d_fused_plain(x, w, b)
         ref_v4 = tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip)
-        # the entry points, on the kernel route() picks
+        # the entry points, on the kernel route() picks, each twice
         routed = tc.route(dtype, bsz, ci, co, *sp)
+        if dtype == torch.float32 and bsz == 1 and routed != "wgmma_tf32":
+            fail(f"the fp32 production conv {label} is routed to {routed}")
         wp = packed_for(tc, routed, w)
-        y = tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp)
-        again = tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp)
-        check("k4b", label, routed, y, ref, x, w, gn, prologue=True,
-              bit_identical_twice=bool(torch.equal(y, again)))
-        del y, again
-        if dtype == torch.float32:
-            continue
+        y, same = twice(lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2, w_packed=wp))
+        check("k4b", label, routed, y, ref, x, w, gn, prologue=True, bit_identical_twice=same)
+        del y
         for fold in (True, False):
-            check("k4a", label, routed, tc.conv3d_fused(x, w, b, gn=gn, fold_taps=fold, w_packed=wp),
-                  ref, x, w, gn, prologue=True, fold_taps=fold)
-        check("k4b", label, routed, tc.conv3d_fused(x, w, b, block_x=2, w_packed=wp), ref_np,
-              x, w, None, prologue=False)
-        check("k5", label, routed,
-              tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip, w_packed=wp), ref_v4, x, w,
-              gn, prologue=True, temb=True, skip=True)
+            y, same = twice(lambda: tc.conv3d_fused(x, w, b, gn=gn, fold_taps=fold, w_packed=wp))
+            check("k4a", label, routed, y, ref, x, w, gn, prologue=True, fold_taps=fold,
+                  bit_identical_twice=same)
+        y, same = twice(lambda: tc.conv3d_fused(x, w, b, block_x=2, w_packed=wp))
+        check("k4b", label, routed, y, ref_np, x, w, None, prologue=False, bit_identical_twice=same)
+        y, same = twice(lambda: tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip,
+                                                   w_packed=wp))
+        check("k5", label, routed, y, ref_v4, x, w, gn, prologue=True, temb=True, skip=True,
+              bit_identical_twice=same)
+        del y
         # the other kernels, where they take the shape
-        for other in takers(tc, torch, bsz, ci, co, sp):
+        for other in takers(tc, torch, bsz, ci, co, sp, dtype):
             if other == routed:
                 continue
             for entry, (g_, t_, s_, r_) in {"k4b": (gn, None, None, ref),
                                             "k4b_np": (None, None, None, ref_np),
                                             "k5": (gn, temb, skip, ref_v4)}.items():
-                check(entry[:3], label, other, tc._launch(entry, x, w, b, g_, t_, s_, kernel=other),
+                check(entry[:3], label, other,
+                      tc._launch(entry, x, w, b, g_, t_, s_, packed_for(tc, other, w), other),
                       r_, x, w, g_, prologue=g_ is not None, temb=t_ is not None,
                       skip=s_ is not None)
         del x, w, gn, temb, skip, ref, ref_np, ref_v4
@@ -604,27 +645,26 @@ def phase_conv(torch, F) -> dict:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     timings = conv_timings(torch, F, tc, g, PRODUCTION_CONVS, n_sm)
     tp_timings = conv_timings(torch, F, tc, g, TP_N32_CONVS, n_sm)
-    # the fp32 level-1 conv and the B = 2 conv of CONV_SHAPES, with the
-    # prologue, on the kernel route() picks
-    other_timings = []
-    b2 = next(shape for shape in shapes if shape[1] == 2)
-    for label, bsz, ci, sp, co, dtype in (shapes[-1], b2):
-        x, w, b, gn = conv_inputs(torch, g, bsz, ci, sp, co, dtype)
-        nb, fl = conv_cost(x, co)
-        b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else
-                              PEAK_FP32_FLOPS)
-        w_lib = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
-        b_lib = b.to(dtype)
-        with no_tf32(torch):  # cuDNN's fp32 conv in fp32, as the kernel computes it
-            lib_ms = time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1), reps=10)
-        other_timings.append(dict(
-            shape=label, x=list(x.shape), co=co, dtype=str(dtype).split(".")[-1],
-            route=tc.route(dtype, bsz, ci, co, *sp),
-            ms=time_ms(torch, lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2), reps=10),
-            cudnn_ms=lib_ms, cudnn="F.conv3d in x's dtype, channels_last_3d, TF32 off, the "
-                                   "conv alone",
-            bound_ms=b_ms, bound_by=b_by))
-        del x, w, gn, w_lib
+    # the same 16 shapes in fp32: the 3×TF32 kernel and conv3d.cu's fp32
+    # path, each with and without the prologue, cuDNN fp32 (TF32 off), the
+    # plain version, the 3×TF32 and the FFMA bounds
+    fp32_timings = conv_timings(torch, F, tc, g, PRODUCTION_CONVS, n_sm, torch.float32)
+    # the B = 2 conv of CONV_SHAPES, with the prologue, on the kernel
+    # route() picks
+    label, bsz, ci, sp, co, dtype = next(shape for shape in shapes if shape[1] == 2)
+    x, w, b, gn = conv_inputs(torch, g, bsz, ci, sp, co, dtype)
+    nb, fl = conv_cost(x, co)
+    b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS)
+    w_lib = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+    b_lib = b.to(dtype)
+    other_timings = [dict(
+        shape=label, x=list(x.shape), co=co, dtype=str(dtype).split(".")[-1],
+        route=tc.route(dtype, bsz, ci, co, *sp),
+        ms=time_ms(torch, lambda: tc.conv3d_fused(x, w, b, gn=gn, block_x=2), reps=10),
+        cudnn_ms=time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1), reps=10),
+        cudnn="F.conv3d in x's dtype, channels_last_3d, the conv alone",
+        bound_ms=b_ms, bound_by=b_by)]
+    del x, w, gn, w_lib
     torch.cuda.empty_cache()
 
     # level 0, 64 → 64: each entry point through the routed kernel, its
@@ -669,7 +709,7 @@ def phase_conv(torch, F) -> dict:
     out["level0_mma_sync_no_prologue_ms"] = time_ms(
         torch, lambda: tc._launch("no prologue", x, w, b, None, None, None, kernel="mma_sync"))
     out["checks"], out["timings"], out["other_timings"] = checks, timings, other_timings
-    out["tp_timings"] = tp_timings
+    out["tp_timings"], out["fp32_timings"] = tp_timings, fp32_timings
     # launch-weighted ms per forward of each kernel over the shapes route()
     # gives it, beside cuDNN's and the bound's over the same shapes
     out["by_route"] = by_route(timings)
@@ -684,10 +724,44 @@ def phase_conv(torch, F) -> dict:
     out["deep_levels"] = dict(out["by_route"]["splitk"], shape_7x7x5_256to256={
         key: deep[key] for key in ("splitk_ms", "routed_no_prologue_ms", "wgmma_ms", "mma_sync_ms",
                                    "cudnn_ms", "bound_ms", "bound_by", "splitk_plan")})
-    bad = [c for c in checks if not c["tol_ratio"] <= 1.0
+    # an fp32 forward's 54 convs, launch-weighted: on their route, on each
+    # fp32 kernel, cuDNN fp32, the plain version, both bounds; by route and
+    # over levels 0-2 (30 launches)
+    keys = ("routed_ms", "wgmma_tf32_ms", "mma_sync_ms", "cudnn_ms", "plain_ms", "bound_ms",
+            "bound_ffma_ms")
+    out["fp32_per_forward"] = {
+        f"{key}_per_forward": sum(r[key] * r["per_forward"] for r in fp32_timings) for key in keys
+    } | {"levels_0_2": {key: sum(r[key] * r["per_forward"] for r in fp32_timings
+                                 if r["x"][2] >= 28) for key in keys},
+         "by_route": {k: v for k, v in by_route(fp32_timings).items()
+                      if v["launches_per_forward"]}}
+    # the kernels line's fp32 record: level 1, 128 → 128, on the 3×TF32
+    # kernel, beside conv3d.cu's fp32 path, cuDNN fp32 and the plain version
+    lvl1 = next(r for r in fp32_timings if r["x"] == [1, 128, 56, 56, 40] and r["co"] == 128)
+    tf = [c for c in checks if c["kernel"] == "wgmma_tf32"]
+    out["fp32"] = dict(
+        shape=lvl1["x"], co=128, dtype="float32", kernel="wgmma_tf32",
+        max_abs_err=max(c["max_abs_err"] for c in tf), tol_ratio=max(c["tol_ratio"] for c in tf),
+        tol=CONV_TOL, ms=lvl1["wgmma_tf32_ms"], no_prologue_ms=lvl1["wgmma_tf32_no_prologue_ms"],
+        mma_sync_ms=lvl1["mma_sync_ms"], plain_ms=lvl1["plain_ms"], library_ms=lvl1["cudnn_ms"],
+        library="F.conv3d fp32 channels_last_3d (cuDNN), TF32 off, the conv alone",
+        bound_ms=lvl1["bound_ms"], bound_by=lvl1["bound_by"], bound_ffma_ms=lvl1["bound_ffma_ms"],
+        bound="3 TF32 products a term at 495 TFLOP/s (bound_ffma_ms: 1 at 67 TFLOP/s)")
+    # how the kernel's split and its tensor cores read fp32
+    out["tf32_rna_mismatches"] = tc.tf32_rna_mismatches()
+    out["tf32_read"] = tc.tf32_read_mode()
+    if out["tf32_rna_mismatches"][0] or out["tf32_read"]["mode"] not in ("truncate", "round"):
+        fail(f"the 3×TF32 kernel's split or operand reading is not as modelled: "
+             f"{out['tf32_rna_mismatches']} {out['tf32_read']}")
+    # every kernel within tol_ratio 1; the 3×TF32 kernel within its own
+    # TF32_TOL_RATIO, below which a truncating sum over all of K stays
+    bad = [c for c in checks
+           if not c["tol_ratio"] <= (tc.TF32_TOL_RATIO if c["kernel"] == "wgmma_tf32" else 1.0)
            or not c.get("bit_identical_twice", True)]
     if bad:
         fail(f"the fused conv disagrees with its plain version or itself: {bad}")
+    if any(r["route"] != "wgmma_tf32" for r in fp32_timings):
+        fail(f"an fp32 production conv is routed to mma.sync: {fp32_timings}")
     if any(r["route"] == "mma_sync" for r in tp_timings):
         fail(f"a tp Co/2 shape is routed to mma.sync: {tp_timings}")
     # the wgmma kernel's prologue divides by its own branch-free reciprocal
@@ -697,9 +771,11 @@ def phase_conv(torch, F) -> dict:
     return out
 
 
-def takers(tc, torch, bsz, ci, co, sp) -> list:
-    """The conv kernels that take this bf16 shape."""
+def takers(tc, torch, bsz, ci, co, sp, dtype=None) -> list:
+    """The conv kernels that take this shape in ``dtype`` (bf16 when None)."""
     out = ["mma_sync"]
+    if dtype == torch.float32:
+        return out + (["wgmma_tf32"] if ci % tc.TF_BK == 0 and co % tc.TF_BN == 0 else [])
     if ci % tc.WG_BK == 0 and co % tc.WG_BN32 == 0:
         out.append("wgmma_n32")
     if ci % tc.WG_BK == 0 and co % tc.WG_BN == 0:
@@ -710,45 +786,58 @@ def takers(tc, torch, bsz, ci, co, sp) -> list:
 
 
 def packed_for(tc, kernel: str, w):
-    """``w`` packed for ``kernel`` at its width, or None where the kernel
-    reads the DHWIO weight (mma.sync)."""
-    return tc.pack_wgmma_weights(w, tc.PACK_WIDTH[kernel]) if kernel in tc.PACK_WIDTH else None
+    """``w`` packed as ``kernel`` reads it, or None where the kernel reads
+    the DHWIO weight (mma.sync)."""
+    return tc.pack_weights(w, *tc.PACK[kernel]) if kernel in tc.PACK else None
 
 
-def conv_timings(torch, F, tc, g, convs: dict, n_sm: int) -> list:
-    """For each ((X, Y, Z), Ci, Co): per_forward of ``convs``, B = 1, bf16:
-    the ms of each kernel that takes it with the prologue (None where
-    none), of the routed one without the prologue, of cuDNN's conv alone,
-    and the bound; the route and the split-K plan."""
+def conv_timings(torch, F, tc, g, convs: dict, n_sm: int, dtype=None) -> list:
+    """For each ((X, Y, Z), Ci, Co): per_forward of ``convs``, B = 1, in
+    ``dtype`` (bf16 when None): the ms of each kernel that takes it with the
+    prologue (None where none), of the routed one without the prologue, of
+    cuDNN's conv alone (TF32 off), and the bound; the route and, in bf16,
+    the split-K plan. In fp32 also each kernel without the prologue, the
+    plain version (3 reps), and two bounds: ``bound_ms`` at three TF32
+    products a term (the 3×TF32 kernel's work) and ``bound_ffma_ms`` at
+    the fp32 FFMA rate."""
+    fp32 = dtype == torch.float32
+    dtype = dtype or torch.bfloat16
     rows = []
     for (sp, ci, co), per_forward in convs.items():
-        x, w, b, gn = conv_inputs(torch, g, 1, ci, sp, co, torch.bfloat16)
-        w_lib = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
-        b_lib = b.to(torch.bfloat16)
+        x, w, b, gn = conv_inputs(torch, g, 1, ci, sp, co, dtype)
+        w_lib = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+        b_lib = b.to(dtype)
         nb, fl = conv_cost(x, co)
-        b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS)
-        plan = tc.splitk_plan(1, ci, co, *sp, n_sm) if co % tc.WG_BN == 0 else None
-        take = takers(tc, torch, 1, ci, co, sp)
+        b_ms, b_by = (bound_ms(nb, 3 * fl, PEAK_TF32_FLOPS) if fp32 else
+                      bound_ms(nb, fl, PEAK_BF16_FLOPS))
+        plan = tc.splitk_plan(1, ci, co, *sp, n_sm) if co % tc.WG_BN == 0 and not fp32 else None
+        take = takers(tc, torch, 1, ci, co, sp, dtype)
         routed = tc.route(x.dtype, 1, ci, co, *sp)
         ms = {}
         for k in CONV_KERNELS:
             wp = packed_for(tc, k, w) if k in take else None
             ms[k] = (time_ms(torch, lambda: tc._launch("k4b", x, w, b, gn, None, None, wp, k),
                              reps=10) if k in take else None)
-            if k == routed:  # the prologue's share of the routed kernel
-                ms["no_prologue"] = time_ms(
+            if k == routed or (fp32 and k in take):  # the prologue's share
+                ms[f"{k}_no_prologue"] = time_ms(
                     torch, lambda: tc._launch("k4b", x, w, b, None, None, None, wp, k), reps=10)
             del wp
+        with no_tf32(torch):
+            cudnn_ms = time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1), reps=10)
         rows.append(dict(
             x=list(x.shape), co=co, per_forward=per_forward, route=routed,
             **{f"{k}_ms": ms[k] for k in CONV_KERNELS}, routed_ms=ms[routed],
-            routed_no_prologue_ms=ms["no_prologue"],
-            cudnn_ms=time_ms(torch, lambda: F.conv3d(x, w_lib, b_lib, padding=1), reps=10),
+            routed_no_prologue_ms=ms[f"{routed}_no_prologue"], cudnn_ms=cudnn_ms,
             bound_ms=b_ms, bound_by=b_by, gflop=fl / 1e9, mbytes=nb / 1e6,
             splitk_plan=plan and dict(bm=plan["bm"], S=plan["S"], grid=plan["grid"],
                                       ctas=plan["ctas"],
                                       workspace_mb=plan["workspace_bytes"] / 1e6,
                                       smem_bytes=plan["smem_bytes"], fits=plan["fits"])))
+        if fp32:
+            rows[-1].update(
+                {f"{k}_no_prologue_ms": ms[f"{k}_no_prologue"] for k in take},
+                plain_ms=time_ms(torch, lambda: tc.conv3d_fused_plain(x, w, b, gn=gn), reps=3),
+                bound_ffma_ms=bound_ms(nb, fl)[0])
         del x, w, gn, w_lib
     torch.cuda.empty_cache()
     return rows
@@ -798,6 +887,7 @@ def profile_device(torch, fn) -> dict:
     res = devtime(fn, iters=1, detail=True)
     kinds = (("K3 VJP affine_silu_bwd", ("affine_silu_bwd",)),
              ("K3 affine_silu", ("affine_silu",)),
+             ("K4b fused conv3d, 3xTF32 wgmma (fp32)", ("conv3d_tf32",)),
              ("K4b fused conv3d, wgmma", ("conv3d_wgmma",)),
              ("K4b fused conv3d, split-K", ("conv3d_splitk_kernel",)),
              ("K4b fused conv3d, split-K reduction", ("conv3d_splitk_reduce",)),
@@ -827,8 +917,15 @@ def phase_forward(torch, profile: bool = False) -> dict:
     """The production forward unfused, with fuse_gn_silu (K3) and with
     fuse_conv (K4b), timed in turns (u, f, c, c, f, u; two rounds; host
     clock around a synchronised forward), and the fp32 forward as the
-    yardstick of bf16's own error."""
+    yardstick of bf16's own error. Then the fp32 forward with fuse_conv
+    (its 54 convs on the 3×TF32 kernel) against the unfused fp32 forward
+    (TF32 off), within 1e-4 of the output's scale: its launches by kernel,
+    each forward's device ms (CUDA events) and the fused one's device ms by
+    kind (``devtime``'s profiler)."""
+    from fast_cwdm_tpu_torch import ops
     from fast_cwdm_tpu_torch.cli import common
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
+    from fast_cwdm_tpu_torch.utils.devtime import devtime
 
     cfg, sd = seeded_production(torch)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -858,12 +955,45 @@ def phase_forward(torch, profile: bool = False) -> dict:
             res["profile"] = {name: profile_device(torch, lambda: m(x, t))
                               for name, m in models.items()}
     del models
-    m32, _ = common.build_model_and_diffusion(dict(cfg, dtype="float32"))
-    m32.load_state_dict(sd)
-    torch.backends.cudnn.allow_tf32 = False
-    with torch.inference_mode():
-        y32 = m32.cuda().eval()(x, t)
-    torch.backends.cudnn.allow_tf32 = True
+    m32 = {}
+    for name, flags in (("fp32", {}), ("fp32_fuse_conv", dict(fuse_conv=True))):
+        m, _ = common.build_model_and_diffusion(dict(cfg, dtype="float32", **flags))
+        m.load_state_dict(sd)
+        m32[name] = m.cuda().eval()
+    with no_tf32(torch), torch.inference_mode():
+        before = ops.launch_counts()
+        y32, y32c = (m(x, t) for m in m32.values())
+        launched = ops.launches_since(before)
+        dev_ms = {name: devtime(lambda: m(x, t), iters=2, events=True)["total_ms"]
+                  for name, m in m32.items()}
+        prof = profile_device(torch, lambda: m32["fp32_fuse_conv"](x, t))
+        with fp32_on_conv3d_cu(torch, tc):  # the same forward on conv3d.cu's FFMA path
+            before = ops.launch_counts()
+            y32f = m32["fp32_fuse_conv"](x, t)
+            launched_ffma = ops.launches_since(before)
+            dev_ms["ffma"] = devtime(lambda: m32["fp32_fuse_conv"](x, t), iters=2,
+                                     events=True)["total_ms"]
+            prof_ffma = profile_device(torch, lambda: m32["fp32_fuse_conv"](x, t))
+    del m32
+    want = {f"conv3d_{k}": sum(n for (sp, ci, co), n in PRODUCTION_CONVS.items()
+                               if tc.route(torch.float32, 1, ci, co, *sp) == k)
+            for k in CONV_KERNELS}
+    res["fp32_fuse_conv"] = {
+        "max_abs_diff_vs_fp32": float((y32c - y32).abs().max()),
+        "tol": 1e-4 * float(y32.abs().max()), "launches": launched,
+        "launches_expected_by_kernel": want, "device_ms": dev_ms["fp32_fuse_conv"],
+        "fp32_unfused_device_ms": dev_ms["fp32"], "profile": prof,
+        # conv3d.cu's FFMA path for every fused conv (fp32_on_conv3d_cu)
+        "ffma": {"max_abs_diff_vs_fp32": float((y32f - y32).abs().max()),
+                 "launches": launched_ffma, "device_ms": dev_ms["ffma"], "profile": prof_ffma}}
+    if not (max(res["fp32_fuse_conv"]["max_abs_diff_vs_fp32"],
+                res["fp32_fuse_conv"]["ffma"]["max_abs_diff_vs_fp32"])
+            <= res["fp32_fuse_conv"]["tol"]
+            and bool(torch.isfinite(y32c).all()) and launched.get("conv3d_fused_k4b") == 54
+            and all(launched.get(k, 0) == n for k, n in want.items())
+            and launched_ffma.get("conv3d_mma_sync") == 54):
+        fail(f"the fp32 fuse_conv forward disagrees with the fp32 one or its routes: "
+             f"{res['fp32_fuse_conv']}")
     y0 = outs["unfused"]
     for y in outs.values():
         if tuple(y.shape) != (1, 8, *LATENT) or not bool(torch.isfinite(y).all()):
@@ -1038,13 +1168,20 @@ def check_graph_counts(volumes: int, steps: int = 10) -> dict:
 # name: (model flags, sampler, diffusion fields replaced). "faithful" is
 # bench.py's faithful leg: fp32, unfused, the reference's IDWT → clamp →
 # DWT every step (K2 → clamp → K1); "fp32" the same chain with the fused
-# projection. Both run with TF32 off and cuDNN deterministic.
+# projection; "fp32_fuse_conv" the "fp32" chain with every ResBlock conv
+# through K4b in fp32 (on the 3×TF32 kernel). All three run
+# with TF32 off and cuDNN deterministic.
 SYNTH_VARIANTS = {"unfused": ({}, "ddpm", {}), "fused": (dict(fuse_gn_silu=True), "ddpm", {}),
                   "fuse_conv_ddpm": (dict(fuse_conv=True), "ddpm", {}),
                   "fuse_conv_dpm": (dict(fuse_conv=True), "dpm++", {}),
                   "fp32": (dict(dtype="float32"), "ddpm", {}),
-                  "faithful": (dict(dtype="float32"), "ddpm", dict(fuse_clip_projection=False))}
-FP32_VARIANTS = ("fp32", "faithful")
+                  "faithful": (dict(dtype="float32"), "ddpm", dict(fuse_clip_projection=False)),
+                  "fp32_fuse_conv": (dict(dtype="float32", fuse_conv=True), "ddpm", {}),
+                  "fp32_fuse_conv_ffma": (dict(dtype="float32", fuse_conv=True), "ddpm", {})}
+FP32_VARIANTS = ("fp32", "faithful", "fp32_fuse_conv", "fp32_fuse_conv_ffma")
+# run inside fp32_on_conv3d_cu: the fp32 fuse_conv chain on conv3d.cu's FFMA
+# path, the yardstick of the 3×TF32 kernel's image
+FFMA_VARIANTS = ("fp32_fuse_conv_ffma",)
 # launches per volume of each variant on the graph path: K1 3 (condition)
 # and K2 1 (output) a volume, and with the unfused projection one K2 and
 # one K1 more for each of the 10 steps
@@ -1058,7 +1195,15 @@ SYNTH_WANT = {"unfused": {"affine_silu": 0, "conv3d_fused_k4b": 0},
                                 "conv3d_mma_sync": 0},
               "fp32": {"haar_dwt3": 3, "haar_idwt3": 1, "affine_silu": 0, "conv3d_fused_k4b": 0},
               "faithful": {"haar_dwt3": 3 + 10, "haar_idwt3": 1 + 10, "affine_silu": 0,
-                           "conv3d_fused_k4b": 0}}
+                           "conv3d_fused_k4b": 0},
+              # every level's convs (54 a forward) on the 3×TF32 kernel
+              "fp32_fuse_conv": {"haar_dwt3": 3, "haar_idwt3": 1, "affine_silu": 0,
+                                 "conv3d_fused_k4b": 540, "conv3d_wgmma_tf32": 540,
+                                 "conv3d_mma_sync": 0, "conv3d_wgmma": 0,
+                                 "conv3d_wgmma_n32": 0, "conv3d_splitk": 0},
+              "fp32_fuse_conv_ffma": {"haar_dwt3": 3, "haar_idwt3": 1, "affine_silu": 0,
+                                      "conv3d_fused_k4b": 540, "conv3d_wgmma_tf32": 0,
+                                      "conv3d_mma_sync": 540}}
 
 
 def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
@@ -1069,13 +1214,15 @@ def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
     the host. The graph path's image against the eager one (expected bit
     for bit, and held so in fp32), its launches per volume, its capture
     seconds and pool memory; the faithful leg's image against the fused
-    projection's (1e-4). Then one ``devtime``
+    projection's (1e-4), and the fp32 fuse_conv image against the unfused
+    fp32 one (1e-4). Then one ``devtime``
     trace of the fuse_conv dpm++ synthesis, eager and graphed (device ms,
     wall ms, busy share); and a 100-step fuse_conv ddpm chain, graphed, with
     ``chunk=None`` and ``chunk=32`` (a ragged last segment of 4)."""
     from fast_cwdm_tpu_torch.cli import common
     from fast_cwdm_tpu_torch.data import brats
     from fast_cwdm_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
     from fast_cwdm_tpu_torch.utils.devtime import devtime
 
     item = brats.BRATSVolumes(os.path.dirname(case))[0]
@@ -1098,7 +1245,9 @@ def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(0)
         reset_counts()
         exact = no_tf32(torch, deterministic=True)
-        with exact if variant[name] in FP32_VARIANTS else contextlib.nullcontext():
+        ffma = (fp32_on_conv3d_cu(torch, tc) if variant[name] in FFMA_VARIANTS else
+                contextlib.nullcontext())
+        with exact if variant[name] in FP32_VARIANTS else contextlib.nullcontext(), ffma:
             t0 = time.perf_counter()
             cond = common.prepare_condition(batch, "t1c", device="cuda")
             img = runs[name](cond, batch["t1n"], gen)
@@ -1149,6 +1298,23 @@ def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
     if not (res["faithful"]["max_abs_diff_image_vs_fused_projection"] <= 1e-4
             and res["faithful"]["finite_in_unit_range"] and res["faithful"]["max_image"] > 0):
         fail(f"the faithful leg disagrees with the fused projection: {res['faithful']}")
+    # the fp32 fuse_conv chain, on the 3×TF32 kernel and on conv3d.cu's
+    # FFMA path, against the unfused fp32 chain (cuDNN fp32) and each other:
+    # same weights and noise, the convs on other kernels
+    for name in ("fp32_fuse_conv", "fp32_fuse_conv_ffma"):
+        img = imgs[f"{name}_graph"]
+        diff = np.abs(img - imgs["fp32_graph"])
+        res[name] = {
+            "max_abs_diff_image_vs_fp32": float(diff.max()),
+            "mean_abs_diff_image_vs_fp32": float(diff.mean()), "tol": 1e-4,
+            "finite_in_unit_range": bool(np.isfinite(img).all() and 0.0 <= img.min()
+                                         and img.max() <= 1.0),
+            "max_image": float(img.max())}
+        if not (res[name]["max_abs_diff_image_vs_fp32"] <= 1e-4
+                and res[name]["finite_in_unit_range"] and res[name]["max_image"] > 0):
+            fail(f"the {name} chain disagrees with the unfused fp32 one: {res[name]}")
+    res["fp32_fuse_conv"]["max_abs_diff_image_vs_ffma"] = float(
+        np.abs(imgs["fp32_fuse_conv_graph"] - imgs["fp32_fuse_conv_ffma_graph"]).max())
     if bad:
         fail(f"the graphed synthesis disagrees with the eager one or with the expected "
              f"launches: {bad}: { {k: v for k, v in res.items() if k.startswith('graph_')} }")
@@ -4129,12 +4295,13 @@ def phase_tensor(torch, F, tmp: str, seed_ckpt: str, ref: dict, job: tuple) -> d
     return res
 
 
-# the conv entries run on one of three hand-written kernels, by
+# the conv entries run on one of four hand-written kernels, by
 # conv3d_cuda.route
 CONV_SOURCES = ("fast_cwdm_tpu_torch/ops/csrc/conv3d_wgmma.cu (bf16, wgmma, levels 0-2; 32-wide "
                 "blocks for the tp axis's Co/2 convs) + "
                 "fast_cwdm_tpu_torch/ops/csrc/conv3d_splitk.cu (bf16, split-K, levels 3-4) + "
-                "fast_cwdm_tpu_torch/ops/csrc/conv3d.cu (mma.sync, fp32)")
+                "fast_cwdm_tpu_torch/ops/csrc/conv3d_tf32.cu (fp32, 3xTF32 wgmma) + "
+                "fast_cwdm_tpu_torch/ops/csrc/conv3d.cu (mma.sync; fp32 FFMA off that grid)")
 KERNELS = {  # name: (source, replaces, key of its kernels-phase record)
     "haar_dwt3": ("fast_cwdm_tpu_torch/ops/csrc/haar3d.cu",
                   "fast_cwdm_tpu/ops/wavelet_pallas.py:53 (_dwt3_kernel)", "haar_dwt3"),
@@ -4148,6 +4315,11 @@ KERNELS = {  # name: (source, replaces, key of its kernels-phase record)
                          "k4b"),
     "conv3d_fused_v4": (CONV_SOURCES, "fast_cwdm_tpu/ops/conv3d_pallas.py:341 (_v4_make_kernel)",
                         "k5"),
+    # the fp32 route of the three entries above, by kernel: its record is
+    # level 1, 128 → 128, in fp32
+    "conv3d_wgmma_tf32": ("fast_cwdm_tpu_torch/ops/csrc/conv3d_tf32.cu",
+                          "fast_cwdm_tpu/ops/conv3d_pallas.py:154 (_blocked_kernel, run in fp32; "
+                          "also :36 and :341 in fp32)", "fp32"),
     # the K3 VJP replaces plain XLA (a custom VJP with no pallas_call)
     "affine_silu_bwd": ("fast_cwdm_tpu_torch/ops/csrc/affine_silu.cu",
                         "fast_cwdm_tpu/ops/elementwise_pallas.py:155 (_affine_silu_bwd, the VJP of "
@@ -4360,8 +4532,11 @@ def main(argv=None) -> int:
         k = kern[key]
         # launches: from the main path that runs the kernel (K1-K3: the
         # K3 CLI run; the conv entries: the fused-conv CLI run; the K3 VJP:
-        # the fuse_gn_silu training run)
+        # the fuse_gn_silu training run; the 3×TF32 kernel: phase
+        # synthesis's fp32 fuse_conv volume, graphed)
+        fp32_volume = res["graph_fp32_fuse_conv"]["launches_per_volume"]
         launches = (train["fuse_gn_silu"]["launches"] if name == "affine_silu_bwd" else
+                    fp32_volume if name == "conv3d_wgmma_tf32" else
                     conv_counts if name.startswith("conv3d") else counts)[name]
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4380,6 +4555,10 @@ def main(argv=None) -> int:
             # phase synthesis: bench.py's faithful leg (make_synthesis_fn,
             # graphed, fuse_clip_projection=False) per volume
             "synthesis_faithful": res["graph_faithful"]["launches_per_volume"][name],
+            # phase synthesis's fp32 fuse_conv volume (graphed) and phase
+            # forward's fp32 fuse_conv forward
+            "synthesis_fp32_fuse_conv": fp32_volume[name],
+            "forward_fp32_fuse_conv": fwd["fp32_fuse_conv"]["launches"].get(name, 0),
             **{run: comp[run]["launches"][name] // len(comp[run]["s_per_case"])
                for run in ("complete_a", "complete_b", "sample_auto")},
             **{f"train_{run}_per_step": train[run]["launches_per_step"][name]
@@ -4428,6 +4607,8 @@ def main(argv=None) -> int:
         if name.startswith("conv3d"):
             line[-1]["launches_by_kernel"] = {
                 kn: conv_counts[f"conv3d_{kn}"] for kn in CONV_KERNELS}
+            line[-1]["launches_by_kernel_fp32_fuse_conv"] = {
+                kn: fp32_volume[f"conv3d_{kn}"] for kn in CONV_KERNELS}
             # the tp path's routes, rank 0: (b) a forward, (c) a volume
             line[-1]["launches_by_kernel_tensor"] = {
                 run: {kn: tensor[key]["ranks"][0]["launches"].get(f"conv3d_{kn}", 0)

@@ -44,8 +44,7 @@ from fast_cwdm_tpu_torch.models.nn import (
 )
 from fast_cwdm_tpu_torch.ops import wavelet as wv
 from fast_cwdm_tpu_torch.ops.wavelet import dtype_scalar
-from fast_cwdm_tpu_torch.ops.conv3d_cuda import (WG_BN, conv3d_fused, group_stats,
-                                                  pack_wgmma_weights)
+from fast_cwdm_tpu_torch.ops.conv3d_cuda import WG_BN, conv3d_fused, group_stats, pack_weights
 from fast_cwdm_tpu_torch.parallel.mesh import (
     all_gather_sp,
     all_gather_tp,
@@ -200,27 +199,33 @@ class FusableConv3d(Conv3d):
     package's fallback to an XLA conv (C > 128, X odd) is a TPU VMEM and
     tiling limit, and computes the same function. The conv is handed
     :meth:`packed_weight`, which it calls only where the card's route is
-    the wgmma (either width) or the split-K kernel: the weight is repacked
-    once at the route's width and kept until the parameter changes (its
-    version, storage, shape or device).
+    the wgmma (either width, or fp32's 3×TF32), or the split-K kernel: the
+    weight is repacked once as the route reads it (its pack's dtype and
+    width) and kept until the parameter changes (its version, storage,
+    shape or device).
     Under the tp axis the weight is this rank's slice of the output
     channels (``shard_params``): K4b computes them with the bias's slice
     and the output is gathered over the tp group."""
 
     def __init__(self, in_ch: int, out_ch: int, *, dtype=None, zero_init: bool = False):
         super().__init__(in_ch, out_ch, 3, dtype=dtype, zero_init=zero_init, follow_input=True)
-        self._packed = {}  # width → (key, pack_wgmma_weights of the weight)
+        self._packed = {}  # (dtype, width) → (key, the packed weight)
 
-    def packed_weight(self, bn: int = WG_BN) -> torch.Tensor:
-        """``pack_wgmma_weights`` of the DHWIO weight at output-channel
-        width ``bn``, kept per width and rebuilt only when the parameter
-        was written (``load_state_dict``, an optimizer step) or moved."""
+    def packed_weight(self, bn: int = WG_BN, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        """The DHWIO weight packed for the routes that read it at
+        output-channel width ``bn`` in ``dtype``: ``pack_wgmma_weights`` in
+        bf16 (wgmma, wgmma_n32, splitk), ``pack_tf32_weights`` in fp32
+        (wgmma_tf32). Kept per (dtype, width), so a bf16 and an fp32 pack of
+        one width never stand in for each other, and rebuilt only when the
+        parameter was written (``load_state_dict``, an optimizer step) or
+        moved."""
         wt = self.weight
         key = (wt._version, wt.data_ptr(), tuple(wt.shape), wt.device)
-        if self._packed.get(bn, (None,))[0] != key:
+        slot = (dtype, bn)
+        if self._packed.get(slot, (None,))[0] != key:
             with torch.no_grad():
-                self._packed[bn] = (key, pack_wgmma_weights(wt.permute(2, 3, 4, 1, 0), bn))
-        return self._packed[bn][1]
+                self._packed[slot] = (key, pack_weights(wt.permute(2, 3, 4, 1, 0), dtype, bn))
+        return self._packed[slot][1]
 
     def forward(self, x: torch.Tensor, gn=None) -> torch.Tensor:
         if gn is None:

@@ -14,17 +14,21 @@ the output (B, Co, X, Y, Z) in ``channels_last_3d`` memory, which is the
 JAX package's (B, X, Y, Z, C). ``w`` keeps the JAX layout (3, 3, 3, Ci,
 Co). ``gn`` is (mean, inv, scale, bias), each (Ci,) or (B, Ci).
 
-Three hand-written kernels compute the function on the card:
+Four hand-written kernels compute the function on the card:
 ``csrc/conv3d_wgmma.cu`` (bf16 on ``wgmma``, an 8×8×8-voxel by 64-channel
 block, a two-stage staging ring; the large levels; and the same kernel
 with 32-channel blocks, ``wgmma_n32``, for Co a multiple of 32 only or a
 grid short of blocks at 64, as the tp axis's Co/2 convs),
 ``csrc/conv3d_splitk.cu`` (bf16, K split across CTAs by :func:`splitk_plan`
-and reduced in a fixed order; the small deep levels), all reading the
-weight repacked once by :func:`pack_wgmma_weights` at their width, and
-``csrc/conv3d.cu`` (``mma.sync`` bf16 or fp32 FMA, any Ci and Co multiple
-of 8). :func:`route` picks one from the dtype and shape alone, by a rule
-fixed from the card's per-shape timings.
+and reduced in a fixed order; the small deep levels), both reading the
+weight repacked once by :func:`pack_wgmma_weights` at their width;
+``csrc/conv3d_tf32.cu`` (fp32 on ``wgmma`` as three TF32 products a term,
+``wgmma_tf32``, a 4×8×8-voxel by 64-channel block; every production
+level), reading the weight split and repacked once by
+:func:`pack_tf32_weights`; and ``csrc/conv3d.cu``
+(``mma.sync`` bf16 or fp32 FMA, any Ci and Co multiple of 8). :func:`route`
+picks one from the dtype and shape alone, by a rule fixed from the card's
+per-shape timings.
 
 A CPU tensor takes the plain torch version; a CUDA tensor launches the
 routed kernel or raises. ``conv3d_fused.launches_k4a`` / ``launches_k4b``
@@ -145,6 +149,14 @@ def tol_ratio(ours: torch.Tensor, ref: torch.Tensor, x: torch.Tensor, w: torch.T
     return float(((ours.float() - ref).abs() / (ulp + 2.0**-16 * mag)).max())
 
 
+# The 3×TF32 kernel's own bound on tol_ratio, below the shared 1: its
+# tensor cores sum with truncation, and a design that summed all of K in
+# them read 0.2-0.5 on an H100 while its 10-step fp32 volume missed the
+# image bar by 8.6×; the kernel, a fresh tensor-core sum every 9 taps,
+# reads below 0.04 (PERF.md, Findings).
+TF32_TOL_RATIO = 0.1
+
+
 # The wgmma kernel's block (csrc/conv3d_wgmma.cu): TX × TY × TZ output
 # voxels by BN output channels (WG_BN, or WG_BN32 on the wgmma_n32 route),
 # BK input channels per staged chunk.
@@ -155,10 +167,15 @@ WG_BN, WG_BN32, WG_BK = 64, 32, 16
 # 5): it wins from 96 blocks up (28×28×20 and larger); at 32 and fewer
 # (14×14×10, 7×7×5) the split-K kernel is 2.5-10.5× faster than it.
 WG_MIN_BLOCKS = 64
+# The fp32 kernel (csrc/conv3d_tf32.cu): a TF_TILE block of output voxels
+# (half the wgmma kernel's in X: two accumulators a plane) by TF_BN output
+# channels, TF_BK input channels (one k8 step) per chunk.
+TF_TILE = (4, 8, 8)
+TF_BN, TF_BK = 64, 8
 
 
 def wgmma_blocks(B: int, Co: int, X: int, Y: int, Z: int, bn: int = WG_BN) -> int:
-    """The wgmma kernel's grid at output-channel width ``bn``."""
+    """The wgmma kernels' grid at output-channel width ``bn``."""
     tx, ty, tz = WG_TILE
     return B * -(-X // tx) * -(-Y // ty) * -(-Z // tz) * (Co // bn)
 
@@ -180,6 +197,28 @@ def wgmma_layout(bn: int = WG_BN) -> dict:
         b_lbo=bn * 16, b_sbo=8 * 16,
         a_offset=lambda q, tap: (((q + tap // 9) * hy + (tap // 3) % 3) * hz + tap % 3) * 16,
         b_offset=lambda tap: tap * (WG_BK // 8) * bn * 16,
+    )
+
+
+def tf32_layout(bn: int = TF_BN) -> dict:
+    """The fp32 kernel's shared-memory addressing, in bytes: one chunk's
+    halo is [hi, lo][TF_BK/4][halo voxel][4 fp32] (16 B per voxel row, a
+    core-matrix row of 4 channels; ``a_lo`` from hi to lo); the A
+    descriptor of x-plane ``q`` and tap (dx, dy, dz) starts at ``a_offset(q,
+    tap)``, its core matrices step by ``a_sbo`` along M (one y-line) and by
+    ``a_lbo`` along K (the other 4 channels of the k8 step). B, one weight
+    slot (chunk ``c``, dx-plane ``dx`` of ``pack_tf32_weights``: [hi,
+    lo][9][2][bn][4]), starts at ``b_offset(tap % 9)`` (``b_lo`` from hi to
+    lo) with ``b_sbo`` along N and ``b_lbo`` along K."""
+    tx, ty, tz = TF_TILE
+    hx, hy, hz = tx + 2, ty + 2, tz + 2
+    hv = hx * hy * hz
+    return dict(
+        tile=TF_TILE, halo=(hx, hy, hz), a_lbo=hv * 16, a_sbo=hz * 16,
+        a_lo=(TF_BK // 4) * hv * 16, b_lbo=bn * 16, b_sbo=8 * 16,
+        b_lo=9 * (TF_BK // 4) * bn * 16,
+        a_offset=lambda q, tap: (((q + tap // 9) * hy + (tap // 3) % 3) * hz + tap % 3) * 16,
+        b_offset=lambda t9: t9 * (TF_BK // 4) * bn * 16,
     )
 
 
@@ -259,16 +298,21 @@ def _n_sm(index: int) -> int:
 
 
 def route(dtype, B: int, Ci: int, Co: int, X: int, Y: int, Z: int) -> str:
-    """Which kernel a CUDA tensor of this dtype and shape goes to. bf16
-    with Ci % 16 == 0, in this order: with Co % 64 == 0, ``"wgmma"``
-    (``csrc/conv3d_wgmma.cu``) where its grid has at least
-    ``WG_MIN_BLOCKS`` blocks, else ``"splitk"`` (``csrc/conv3d_splitk.cu``)
-    where its halo box fits the shared memory; then, with Co % 32 == 0,
-    ``"wgmma_n32"`` (the wgmma kernel at 32-wide blocks) where its grid has
-    at least ``WG_MIN_BLOCKS`` blocks. Everything else (fp32, Ci or Co off
-    that grid, a grid too small for both) ``"mma_sync"``
-    (``csrc/conv3d.cu``). All are hand-written kernels; no shape goes to
-    the plain version on the card."""
+    """Which kernel a CUDA tensor of this dtype and shape goes to. fp32
+    with Ci % 8 == 0 and Co % 64 == 0: ``"wgmma_tf32"``
+    (``csrc/conv3d_tf32.cu``; on an H100 it took half the time of
+    conv3d.cu's fp32 path or less at every production shape, down to level
+    4's 8 blocks: PERF.md, Findings). bf16 with Ci % 16 == 0, in this
+    order: with Co % 64 == 0, ``"wgmma"`` (``csrc/conv3d_wgmma.cu``) where
+    its grid has at least ``WG_MIN_BLOCKS`` blocks, else ``"splitk"``
+    (``csrc/conv3d_splitk.cu``) where its halo box fits the shared memory;
+    then, with Co % 32 == 0, ``"wgmma_n32"`` (the wgmma kernel at 32-wide
+    blocks) where its grid has at least ``WG_MIN_BLOCKS`` blocks.
+    Everything else (Ci or Co off those grids, a bf16 grid too small for
+    both wgmma widths) ``"mma_sync"`` (``csrc/conv3d.cu``). All are
+    hand-written kernels; no shape goes to the plain version on the card."""
+    if dtype == torch.float32:
+        return "wgmma_tf32" if Ci % TF_BK == 0 and Co % TF_BN == 0 else "mma_sync"
     if dtype != torch.bfloat16 or Ci % WG_BK:
         return "mma_sync"
     if Co % WG_BN == 0:
@@ -297,8 +341,35 @@ def pack_wgmma_weights(w: torch.Tensor, bn: int = WG_BN) -> torch.Tensor:
     return t.permute(4, 1, 0, 2, 5, 3).contiguous()
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 → fp32 rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, the low 13 bits zero: ``cvt.rna.tf32.f32``, as the
+    fp32 kernel splits its activations (finite values)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_tf32_weights(w: torch.Tensor, bn: int = TF_BN) -> torch.Tensor:
+    """(3,3,3,Ci,Co) DHWIO → (Co/bn, Ci/8, 3, 2, 9, 2, bn, 4) fp32,
+    contiguous: for each ``bn``-wide output block, 8-channel chunk and
+    dx-plane, the 9 taps' B operands K-major (4 input channels of one output
+    channel per 16-byte row), first hi = :func:`tf32_round` of the fp32
+    weight, then lo = w − hi (exact in fp32); one contiguous slice a (chunk,
+    dx-plane) for the kernel's bulk copy."""
+    ci, co = w.shape[3], w.shape[4]
+    if bn != TF_BN:
+        raise ValueError(f"pack_tf32_weights: bn must be {TF_BN}, got {bn}")
+    if ci % TF_BK or co % bn:
+        raise ValueError(f"pack_tf32_weights: needs Ci % {TF_BK} == 0 and Co % {bn} == 0, "
+                         f"got {ci}, {co}")
+    w = w.float()
+    hi = tf32_round(w)
+    t = torch.stack([hi, w - hi]).reshape(2, 3, 9, ci // TF_BK, 2, 4, co // bn, bn)
+    return t.permute(6, 3, 1, 0, 2, 4, 7, 5).contiguous()
+
+
 kernel_launches = {"conv3d_wgmma": 0, "conv3d_wgmma_n32": 0, "conv3d_splitk": 0,
-                   "conv3d_mma_sync": 0}
+                   "conv3d_wgmma_tf32": 0, "conv3d_mma_sync": 0}
 
 
 # kernel → (source in csrc/, its C entry point, its pointer arguments, its
@@ -307,9 +378,25 @@ kernel_launches = {"conv3d_wgmma": 0, "conv3d_wgmma_n32": 0, "conv3d_splitk": 0,
 _ENTRY = {"wgmma": ("conv3d_wgmma", "conv3d_wgmma", 10, 6),
           "wgmma_n32": ("conv3d_wgmma", "conv3d_wgmma_n32", 10, 6),
           "splitk": ("conv3d_splitk", "conv3d_splitk", 11, 8),
+          "wgmma_tf32": ("conv3d_tf32", "conv3d_wgmma_tf32", 10, 6),
           "mma_sync": ("conv3d", "conv3d_fused", 10, 7)}
-# the kernels that read pack_wgmma_weights(w, bn), by their bn
-PACK_WIDTH = {"wgmma": WG_BN, "wgmma_n32": WG_BN32, "splitk": WG_BN}
+# the kernels that read a packed weight → (its dtype, its width):
+# pack_wgmma_weights(w, bn) in bf16, pack_tf32_weights(w, bn) in fp32
+PACK = {"wgmma": (torch.bfloat16, WG_BN), "wgmma_n32": (torch.bfloat16, WG_BN32),
+        "splitk": (torch.bfloat16, WG_BN), "wgmma_tf32": (torch.float32, TF_BN)}
+
+
+def pack_weights(w: torch.Tensor, dtype: torch.dtype, bn: int) -> torch.Tensor:
+    """``w`` packed as the kernels of ``PACK`` entry (``dtype``, ``bn``)
+    read it."""
+    return (pack_wgmma_weights if dtype == torch.bfloat16 else pack_tf32_weights)(w, bn)
+
+
+def _packed_shape(kernel: str, ci: int, co: int) -> tuple:
+    dtype, bn = PACK[kernel]
+    if dtype == torch.bfloat16:
+        return (co // bn, ci // WG_BK, 27, 2, bn, 8)
+    return (co // bn, ci // TF_BK, 3, 2, 9, 2, bn, 4)
 
 
 def _entry(kernel: str):
@@ -334,11 +421,51 @@ def recip_mismatches() -> int:
     return int(bad.item())
 
 
+def tf32_rna_mismatches() -> tuple[int, int]:
+    """Finite floats where the fp32 kernel's TF32 rounding of an activation
+    (``cvt.rna.tf32.f32``, low bits cleared) differs from
+    :func:`tf32_round`, the weights' split, counted on the card: (normal,
+    zero or subnormal). (0, 0) makes the two splits one function."""
+    fn = _build.load("conv3d_tf32").tf32_rna_mismatches
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bad = torch.zeros(2, dtype=torch.int64, device="cuda")
+    _build.check(fn(bad.data_ptr(), torch.cuda.current_stream().cuda_stream),
+                 "tf32_rna_mismatches")
+    return int(bad[0]), int(bad[1])
+
+
+def tf32_read_mode() -> dict:
+    """How one TF32 ``wgmma`` reads an fp32 operand from shared memory, on
+    the card: 64 values 1 + j·2⁻²³ (j = 128·m + 64: low 13 bits below,
+    at and above half a TF32 ulp) go through a product with 1. Returns the
+    count that came out as each model (``truncate``: the low 13 bits
+    dropped; ``round``: :func:`tf32_round`; ``exact``: kept) and ``mode``,
+    the one model that all 64 match, or None."""
+    fn = _build.load("conv3d_tf32").tf32_read_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    j = torch.arange(64, dtype=torch.int64) * 128 + 64
+    a = (1.0 + j.double() * 2.0**-23).float()
+    got = torch.empty(64, dtype=torch.float32, device="cuda")
+    ac = a.cuda()
+    _build.check(fn(ac.data_ptr(), got.data_ptr(), torch.cuda.current_stream().cuda_stream),
+                 "tf32_read_probe")
+    got = got.cpu()
+    models = {"truncate": (a.view(torch.int32) & -0x2000).view(torch.float32),
+              "round": tf32_round(a), "exact": a}
+    counts = {k: int((got == m).sum()) for k, m in models.items()}
+    mode = [k for k, n in counts.items() if n == 64]
+    return {**counts, "mode": mode[0] if len(mode) == 1 else None}
+
+
 def _launch(name, x, w, b, gn, temb, skip, w_packed=None, kernel=None) -> torch.Tensor:
     """Check what the kernel takes, allocate the output, launch the kernel
-    that :func:`route` picks. ``w_packed`` is ``pack_wgmma_weights(w, bn)``
-    at the kernel's width (``PACK_WIDTH``) or a function of ``bn`` returning
-    it, used only on the kernels of ``PACK_WIDTH`` (packed here when None).
+    that :func:`route` picks. ``w_packed`` is the weight packed as the
+    kernel reads it (``PACK``: ``pack_wgmma_weights(w, bn)`` in bf16,
+    ``pack_tf32_weights(w, bn)`` in fp32) or a function returning it, called
+    with ``bn`` on the bf16 kernels and with ``(bn, torch.float32)`` on the
+    fp32 one; used only on the kernels of ``PACK`` (packed here when None).
     ``kernel`` (a key of ``_ENTRY``) overrides the route, for measurements
     that compare the kernels on one shape. One call counts once in ``kernel_launches``,
     whatever the number of CUDA launches (the split-K kernel's reduction
@@ -370,9 +497,10 @@ def _launch(name, x, w, b, gn, temb, skip, w_packed=None, kernel=None) -> torch.
     kernel = kernel or route(x.dtype, bsz, ci, co, X, Y, Z)
     if kernel not in _ENTRY:
         raise ValueError(f"{name}: kernel must be one of {tuple(_ENTRY)}, got {kernel!r}")
-    bn = PACK_WIDTH.get(kernel)
-    if bn and (x.dtype != torch.bfloat16 or ci % WG_BK or co % bn):
-        raise ValueError(f"{name}: the {kernel} kernel takes bfloat16 with Ci % {WG_BK} == 0 and "
+    pdt, bn = PACK.get(kernel, (None, None))
+    bk = WG_BK if pdt == torch.bfloat16 else TF_BK
+    if bn and (x.dtype != pdt or ci % bk or co % bn):
+        raise ValueError(f"{name}: the {kernel} kernel takes {pdt} with Ci % {bk} == 0 and "
                          f"Co % {bn} == 0, got {x.dtype}, {ci}, {co}")
     dev = x.device
     plan = None
@@ -383,12 +511,15 @@ def _launch(name, x, w, b, gn, temb, skip, w_packed=None, kernel=None) -> torch.
                              f"of shared memory at {(X, Y, Z)}, more than {SK_SMEM_MAX}")
     if bn:
         if w_packed is None:
-            w = pack_wgmma_weights(w.to(dev), bn)
+            w = pack_weights(w.to(dev), pdt, bn)
+        elif callable(w_packed):
+            w = w_packed(bn) if pdt == torch.bfloat16 else w_packed(bn, pdt)
         else:
-            w = w_packed(bn) if callable(w_packed) else w_packed
-        if w.shape != (co // bn, ci // WG_BK, 27, 2, bn, 8) or w.dtype != torch.bfloat16 \
+            w = w_packed
+        if w.shape != _packed_shape(kernel, ci, co) or w.dtype != pdt \
                 or w.device != dev or not w.is_contiguous():
-            raise ValueError(f"{name}: w_packed must be pack_wgmma_weights(w, {bn}) on {dev}, "
+            packer = "pack_wgmma_weights" if pdt == torch.bfloat16 else "pack_tf32_weights"
+            raise ValueError(f"{name}: w_packed must be {packer}(w, {bn}) on {dev}, "
                              f"got {w.dtype} {tuple(w.shape)}")
     else:
         w = w.to(dev, x.dtype).contiguous()
@@ -436,8 +567,8 @@ def conv3d_fused(x, w, b, *, gn=None, fold_taps=True, block_x=None,
     """K4a (``block_x`` None) / K4b (``block_x`` set): fused [GN-apply +
     SiLU] + 3³ SAME conv + b. ``x`` (B, Ci, X, Y, Z); ``w`` (3,3,3,Ci,Co);
     ``b`` (Co,); ``gn`` None for a plain conv. On the card, ``w_packed``
-    (``pack_wgmma_weights(w, bn)`` kept by the caller, or a function of
-    ``bn`` returning it) spares the wgmma, wgmma_n32 and splitk routes a
+    (the route's pack kept by the caller, or a getter, as :func:`_launch`
+    takes it) spares the wgmma, wgmma_n32, splitk and wgmma_tf32 routes a
     repack per call; the mma_sync route never reads it."""
     if x.device.type == "cpu":
         return conv3d_fused_plain(x, w, b, gn=gn)

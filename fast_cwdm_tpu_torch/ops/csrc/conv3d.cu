@@ -42,13 +42,15 @@
 // register tile per thread. Both use about 80 KB of shared memory, so two
 // CTAs share an SM and one stages while the other computes.
 //
-// In bf16 the UNet's convs go to conv3d_wgmma.cu (large levels; with
-// 32-wide output blocks where Co is a multiple of 32 only, or where 64-wide
-// blocks are too few, as the tp axis's Co/2 convs) and conv3d_splitk.cu
-// (small deep levels) instead (conv3d_cuda.route). This kernel keeps fp32,
-// Ci not a multiple of 16, Co not a multiple of 32, and bf16 grids too
-// small for both wgmma widths where the split-K halo does not fit: no conv
-// of the production UNet, unsharded or on the sp or tp axis.
+// The UNet's convs go elsewhere (conv3d_cuda.route): in bf16 to
+// conv3d_wgmma.cu (large levels; with 32-wide output blocks where Co is a
+// multiple of 32 only, or where 64-wide blocks are too few, as the tp
+// axis's Co/2 convs) and conv3d_splitk.cu (small deep levels), in fp32 to
+// conv3d_tf32.cu (three TF32 tensor-core products a term, every level).
+// This kernel keeps bf16 with Ci not a multiple of 16, Co not a multiple of
+// 32, or a grid too small for both wgmma widths where the split-K halo does
+// not fit, and fp32 with Co not a multiple of 64: no conv of the production
+// UNet, unsharded or on the sp or tp axis, in either dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -104,34 +104,6 @@ struct Args {
 
 // --------------------------------------------------------------- wgmma --
 
-// Shared-memory matrix descriptor, no swizzle: start, leading and stride
-// byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous MMAs.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (64 x 64, fp32) += A (64 x 16, bf16) * B (16 x 64, bf16), both K-major
 // in shared memory.
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,

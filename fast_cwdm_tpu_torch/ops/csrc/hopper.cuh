@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the bf16 fused-conv kernels
-// (conv3d_wgmma.cu, conv3d_splitk.cu): shared-memory mbarriers, the bulk
-// global -> shared copy that completes on one, and the fp32 GN-apply + SiLU
-// prologue of one 8-channel bf16 vector with its branch-free reciprocal.
+// Hopper building blocks shared by the fused-conv kernels (conv3d_wgmma.cu,
+// conv3d_splitk.cu, conv3d_tf32.cu): shared-memory mbarriers, the bulk
+// global -> shared copy that completes on one, the warpgroup-MMA
+// descriptor and fences, and the fp32 GN-apply + SiLU prologue of one
+// 8-channel bf16 vector with its branch-free reciprocal.
 
 #pragma once
 
@@ -85,6 +86,36 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// --------------------------------------------------------------- wgmma --
+
+// Shared-memory matrix descriptor, no swizzle: start, leading and stride
+// byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous MMAs.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // ------------------------------------------------------------ prologue --

@@ -113,7 +113,7 @@ def k4b_leg(x, w, flops):
     b = torch.zeros(co, dtype=x.dtype, device=x.device)
     mean, inv = tc.group_stats(xn, math.gcd(ci, 32))
     gn = (mean, inv, torch.ones(ci, device=x.device), torch.zeros(ci, device=x.device))
-    packed = tc.pack_wgmma_weights(w, tc.PACK_WIDTH[route])
+    packed = tc.pack_wgmma_weights(w, tc.PACK[route][1])
     before = launch_counts()
     ms = devtime(lambda: tc.conv3d_fused(xn, w, b, gn=gn, block_x=2, w_packed=packed),
                  events=True)["total_ms"]

@@ -30,6 +30,7 @@ PORT_KERNELS = {
     "affine_silu_bwd": ("affine_silu_bwd_reduce",),
     "conv3d_wgmma": ("conv3d_wgmma_kernel",),
     "conv3d_splitk": ("conv3d_splitk_kernel",),
+    "conv3d_wgmma_tf32": ("conv3d_tf32_kernel",),
     "conv3d_mma_sync": ("conv3d_bf16_kernel", "conv3d_f32_kernel"),
 }
 

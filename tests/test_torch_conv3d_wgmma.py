@@ -234,9 +234,9 @@ def test_descriptor_addressing_model_matches_plain(bsz, ci, co, spatial, with_gn
 @pytest.mark.parametrize("shape", PRODUCTION_CONVS, ids=lambda s: f"{s[0][0]}-{s[1]}to{s[2]}")
 def test_route_production_shapes(shape):
     """bf16 at levels 0-1 goes to the wgmma kernel and at levels 3-4 to the
-    split-K kernel, never to the 32-wide one; fp32 and Ci or Co off the
-    16/32 grid go to the mma.sync kernel; the route never names the plain
-    version."""
+    split-K kernel, never to the 32-wide one; fp32 to the 3×TF32 wgmma
+    kernel, and bf16 with Ci or Co off the 16/32 grid to the mma.sync
+    kernel; the route never names the plain version."""
     sp, ci, co = shape
     bf = tc.route(torch.bfloat16, 1, ci, co, *sp)
     assert bf in ("wgmma", "splitk")
@@ -244,7 +244,7 @@ def test_route_production_shapes(shape):
         assert bf == "wgmma"
     if sp[0] <= 14:
         assert bf == "splitk"
-    assert tc.route(torch.float32, 1, ci, co, *sp) == "mma_sync"
+    assert tc.route(torch.float32, 1, ci, co, *sp) == "wgmma_tf32"
     assert tc.route(torch.bfloat16, 1, ci + 8, co, *sp) == "mma_sync"
     assert tc.route(torch.bfloat16, 1, ci, co + 8, *sp) == "mma_sync"
     # the rule between the bf16 kernels is a function of the number of
@@ -262,19 +262,21 @@ def test_route_production_shapes(shape):
 def test_route_sharded_shapes(shape, want):
     """The tp axis's Co/2 convs leave the mma.sync kernel: level 0's Co 32
     and level 2's Co 64 go to the 32-wide wgmma kernel, the rest keep their
-    route, as every sp slab does. fp32, Ci 8 off the 16 grid (Ci 24 at Ci
+    route, as every sp slab does. Ci 8 off the 16 grid (Ci 24 at Ci
     16) and Co 8 off the 32 grid stay on mma.sync; a 32-wide route only
-    where its grid has WG_MIN_BLOCKS blocks."""
+    where its grid has WG_MIN_BLOCKS blocks. In fp32 a shape takes the
+    3×TF32 kernel where Co is on the 64 grid, else mma.sync."""
     sp, ci, co = shape
     got = tc.route(torch.bfloat16, 1, ci, co, *sp)
     assert got == want
-    assert tc.route(torch.float32, 1, ci, co, *sp) == "mma_sync"
+    tf32 = co % tc.TF_BN == 0
+    assert tc.route(torch.float32, 1, ci, co, *sp) == ("wgmma_tf32" if tf32 else "mma_sync")
     assert tc.route(torch.bfloat16, 1, ci + 8, co, *sp) == "mma_sync"
     assert tc.route(torch.bfloat16, 1, ci, co + 8, *sp) == "mma_sync"
     if got == "wgmma_n32":
         assert tc.wgmma_blocks(1, co, *sp, tc.WG_BN32) >= tc.WG_MIN_BLOCKS
         assert co % tc.WG_BN or tc.wgmma_blocks(1, co, *sp) < tc.WG_MIN_BLOCKS
-        tc.pack_wgmma_weights(_weight(16, co), tc.PACK_WIDTH[got])  # packs at its width
+        tc.pack_wgmma_weights(_weight(16, co), tc.PACK[got][1])  # packs at its width
 
 
 def test_route_small_32_wide_grids_stay_on_mma_sync():

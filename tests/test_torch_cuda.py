@@ -1,9 +1,10 @@
 """The hand-written CUDA kernels on the card: K1/K2/K3 and the fused conv
 kernels behind K4a/K4b/K5 (mma.sync, wgmma at 64 and 32 output channels a
-block, and split-K), each against
+block, split-K, and the fp32 3×TF32 wgmma kernel), each against
 its plain torch version, their wrappers' refusals (the fused conv's
 backward included), the autograd pairs (K1/K2, K3 and its VJP), fuse_conv
-UNets that reach K4b on each conv kernel, a .ckpt round trip of a model on
+UNets that reach K4b on each conv kernel (an fp32 one on the 3×TF32
+kernel), a .ckpt round trip of a model on
 the card, complete_dataset on the card, a train step on the card
 against the same step on the CPU, the synthesis chain captured as a CUDA
 graph against the eager chain (an attention UNet's too, and the unfused
@@ -352,6 +353,116 @@ def test_fuse_conv_unet_launches_wgmma(gen, monkeypatch):
     bf16_err = float((outs["mma_sync"].cpu() - ref32).abs().max())
     for kernel in ("wgmma", "splitk", "wgmma_n32"):
         assert float((outs[kernel] - outs["mma_sync"]).abs().max()) <= 2 * bf16_err
+
+
+# (B, Ci, Co, spatial, gn): the 3×TF32 kernel at 64→64 ragged in X, Y and
+# Z, 128→128 with per-(B, C) statistics at B = 2, Ci 24 (off the 16 grid,
+# on the 8 grid), a plain conv
+TF32_CASES = [
+    (1, 64, 64, (9, 12, 10), "channel"),
+    (2, 128, 128, (8, 9, 11), "batch"),
+    (1, 24, 64, (10, 9, 14), "channel"),
+    (1, 32, 64, (5, 7, 9), None),
+]
+
+
+@pytest.mark.parametrize("case", TF32_CASES)
+def test_conv3d_wgmma_tf32_matches_plain(gen, case):
+    """The 3×TF32 kernel (conv3d_tf32.cu) against the plain version within
+    tc.tol_ratio through K4b, K4a and K5 (temb + skip): packed by the
+    wrapper, handed a pack, and a getter called with (64, torch.float32);
+    two launches bit for bit; each launch counted on that kernel alone; a
+    bf16 pack and a bf16 input refused."""
+    x, w, b, gn = _conv_case(gen, torch.float32, *case)
+    bsz, ci, co, sp = case[:4]
+    temb = torch.randn((bsz, co), generator=gen, device="cuda")
+    skip = torch.randn((bsz, *sp, co), generator=gen, device="cuda").permute(0, 4, 1, 2, 3)
+    ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
+    ref5 = tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip)
+    wp = tc.pack_tf32_weights(w)
+    calls = []
+
+    def getter(*args):
+        calls.append(args)
+        return wp
+
+    before = dict(tc.kernel_launches)
+    ys = [tc._launch("k4b", x, w, b, gn, None, None, kernel="wgmma_tf32"),
+          tc._launch("k4a", x, w, b, gn, None, None, wp, "wgmma_tf32"),
+          tc._launch("getter", x, w, b, gn, None, None, getter, "wgmma_tf32")]
+    y5 = [tc._launch("k5", x, w, b, gn, temb, skip, wp, "wgmma_tf32") for _ in range(2)]
+    torch.cuda.synchronize()
+    for y in ys:
+        assert y.dtype == torch.float32 and y.is_contiguous(memory_format=torch.channels_last_3d)
+        assert tc.tol_ratio(y, ref, x, w, gn) <= 1.0
+        assert torch.equal(y, ys[0])
+    assert tc.tol_ratio(y5[0], ref5, x, w, gn) <= 1.0 and torch.equal(y5[0], y5[1])
+    assert calls == [(64, torch.float32)]
+    for k, n in tc.kernel_launches.items():
+        assert n == before[k] + (5 if k == "conv3d_wgmma_tf32" else 0), k
+    if ci % 16 == 0:
+        with pytest.raises(ValueError):
+            tc._launch("k4b", x, w, b, gn, None, None, tc.pack_wgmma_weights(w), "wgmma_tf32")
+    with pytest.raises(ValueError):
+        tc._launch("k4b", x.bfloat16(), w, b, gn, None, None, kernel="wgmma_tf32")
+
+
+def test_conv3d_wgmma_tf32_is_the_fp32_route(gen):
+    """Where route() picks the 3×TF32 kernel (fp32, 32³ at Co 64: 128
+    blocks of 4×8×8), the entry points launch it: K4b with the prologue, K4a, and K5
+    with temb and skip, each against its plain version; the kernel's
+    split rounds as the weights' (tf32_round) and its tensor cores read
+    the low part truncated, as the CPU tests model it."""
+    bsz, ci, co, sp = 1, 32, 64, (32, 32, 32)
+    assert tc.route(torch.float32, bsz, ci, co, *sp) == "wgmma_tf32"
+    x, w, b, gn = _conv_case(gen, torch.float32, bsz, ci, co, sp, "batch")
+    temb = torch.randn((bsz, co), generator=gen, device="cuda")
+    skip = torch.randn((bsz, *sp, co), generator=gen, device="cuda").permute(0, 4, 1, 2, 3)
+    before = tc.kernel_launches["conv3d_wgmma_tf32"]
+    ref = tc.conv3d_fused_plain(x, w, b, gn=gn)
+    for y in (tc.conv3d_fused(x, w, b, gn=gn, block_x=2), tc.conv3d_fused(x, w, b, gn=gn)):
+        assert tc.tol_ratio(y, ref, x, w, gn) <= 1.0
+    y5 = tc.conv3d_fused_v4(x, w, b, gn=gn, temb=temb, skip=skip)
+    torch.cuda.synchronize()
+    assert tc.kernel_launches["conv3d_wgmma_tf32"] == before + 3
+    ref5 = tc.conv3d_fused_v4_plain(x, w, b, gn=gn, temb=temb, skip=skip)
+    assert tc.tol_ratio(y5, ref5, x, w, gn) <= 1.0
+    assert tc.tf32_rna_mismatches()[0] == 0
+    assert tc.tf32_read_mode()["mode"] == "truncate"
+
+
+def test_fp32_fuse_conv_unet_runs_the_tf32_kernel(gen, monkeypatch):
+    """An fp32 fuse_conv UNet with the production widths of levels 0-1 on a
+    32³ latent: every fused conv launches K4b on the 3×TF32 kernel (128
+    and 32 blocks), never the plain version; the forward agrees with the
+    unfused fp32 forward on the card (TF32 off) within 1e-4 of its
+    scale."""
+    cfg = dict(image_size=32, in_channels=32, model_channels=64, out_channels=8,
+               num_res_blocks=1, attention_resolutions=(), channel_mult=(1, 2),
+               num_groups=32, resblock_updown=True, bottleneck_attention=False,
+               resample_2d=False)
+    torch.manual_seed(0)
+    unfused = UNetModel(**cfg).eval()
+    for p in unfused.parameters():  # nonzero output convs
+        torch.nn.init.normal_(p, std=0.05)
+    fused = UNetModel(**cfg, fuse_conv=True).eval()
+    fused.load_state_dict(unfused.state_dict())
+    unfused.cuda()
+    fused.cuda()
+    n_fused = sum(getattr(m, "fuse", False) for m in fused.modules())
+    x = torch.randn((1, 32, 32, 32, 32), generator=gen, device="cuda").permute(0, 4, 1, 2, 3)
+    t = torch.tensor([3], device="cuda")
+    with torch.no_grad():
+        ref = unfused(x, t)
+        monkeypatch.setattr(tc, "conv3d_fused_plain", None)  # a call would raise
+        before, k4b = dict(tc.kernel_launches), tc.conv3d_fused.launches_k4b
+        y = fused(x, t)
+        torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in tc.kernel_launches.items()}
+    assert tc.conv3d_fused.launches_k4b == k4b + 2 * n_fused
+    assert launched["conv3d_wgmma_tf32"] == 2 * n_fused
+    assert bool(torch.isfinite(y).all())
+    assert float((y - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
 # (B, Ci, Co, spatial, gn, epilogue): the deep levels' most-launched shapes,
