@@ -2482,24 +2482,19 @@ def native_decoder(tmp: str, evaluation: dict) -> dict:
 
 
 class ProbeRuns:
-    """Each probe's run through :meth:`run`: its seconds, its K1/K2/K3/K4b
-    launches, and its ``devtime`` calls whose trace held no kernel (timed
-    by CUDA events)."""
+    """Each probe's run through :meth:`run`: its seconds and its
+    K1/K2/K3/K4b launches."""
 
     def __init__(self, torch):
-        self.torch, self.seconds, self.launches, self.fallbacks = torch, {}, {}, {}
+        self.torch, self.seconds, self.launches = torch, {}, {}
 
     def run(self, name, fn):
-        from fast_cwdm_tpu_torch.utils.devtime import devtime
-
         reset_counts()
-        before = devtime.fallbacks
         t0 = time.perf_counter()
         out = fn()
         self.torch.cuda.synchronize()
         self.seconds[name] = time.perf_counter() - t0
         self.launches[name] = probe_launches(read_counts())
-        self.fallbacks[name] = devtime.fallbacks - before
         self.torch.cuda.empty_cache()
         return out
 
@@ -2584,8 +2579,7 @@ def probes_on_best(torch, tmp: str, evaluation: dict) -> dict:
         fail(f"probe_regression report: {rep}")
     res["regression"] = {k: rep[k] for k in ("legs", "agreement", "gt_region_means", "train",
                                              "config")}
-    return {**res, "launches": launches, "devtime_event_fallbacks": runs.fallbacks,
-            "seconds_by_probe": runs.seconds}
+    return {**res, "launches": launches, "seconds_by_probe": runs.seconds}
 
 
 def phase_probes(torch, tmp: str, evaluation: dict, on_best: dict) -> dict:
@@ -2670,7 +2664,6 @@ def phase_probes(torch, tmp: str, evaluation: dict, on_best: dict) -> dict:
         fail(f"a probe leg measured no device time: {timed}")
     res["core_inference"], res["regression"] = on_best["core_inference"], on_best["regression"]
     res["launches"] = {**runs.launches, **on_best["launches"]}
-    res["devtime_event_fallbacks"] = {**runs.fallbacks, **on_best["devtime_event_fallbacks"]}
     res["seconds_by_probe"] = {**seconds, **on_best["seconds_by_probe"]}
     return res
 

@@ -1,0 +1,10 @@
+"""Host ms a step of the program's ``cwdm.train.optimizer`` (AdamW) and
+``cwdm.train.ema`` spans; the median over the traced block's device-only
+steps (``cwdm_bench/spans.py``)."""
+
+from cwdm_bench import spans
+
+
+def read(rec):
+    return spans.per_item(rec, ("cwdm.train.step",),
+                          ("cwdm.train.optimizer", "cwdm.train.ema"), "host_ms")

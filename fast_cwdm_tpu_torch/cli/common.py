@@ -35,6 +35,7 @@ from fast_cwdm_tpu_torch.parallel.mesh import (
     y_slab,
 )
 from fast_cwdm_tpu_torch.training import checkpoints as ckpt
+from fast_cwdm_tpu_torch.utils.profiling import annotate
 
 PRODUCTION_OVERRIDES = dict(
     image_size=112,
@@ -151,20 +152,26 @@ def prepare_condition(batch: dict, contr: str, wavelet: str = "haar",
     ranks of a tp group transform the same slab)."""
     dev = resolve_device(device)
     sharded = mesh is not None and mesh.sp > 1
-    if sharded:
-        first = np.shape(batch[condition_order(contr)[0]])
-        lo, hi = local_batch_rows(mesh, first[0])
-        y0, y1 = y_slab(mesh, first[2])
-        batch = {m: batch[m][lo:hi, :, y0:y1] for m in condition_order(contr)}
-    conds = [
-        torch.as_tensor(batch[m], dtype=torch.float32, device=dev)
-        for m in condition_order(contr)
-    ]
-    with sp_active(mesh.sp_axis if sharded else None):
-        cond = torch.cat([wv.dwt_normalized(c, wavelet) for c in conds], dim=-1)
-    if sharded:
-        cond = all_gather_rows(mesh, all_gather_sp(cond, 2, mesh.sp_axis))
-    return cond
+    with annotate("cwdm.condition"):
+        if sharded:
+            first = np.shape(batch[condition_order(contr)[0]])
+            lo, hi = local_batch_rows(mesh, first[0])
+            y0, y1 = y_slab(mesh, first[2])
+            batch = {m: batch[m][lo:hi, :, y0:y1] for m in condition_order(contr)}
+        conds = [_upload(batch[m], dev, torch.float32) for m in condition_order(contr)]
+        with sp_active(mesh.sp_axis if sharded else None), annotate("cwdm.dwt"):
+            cond = torch.cat([wv.dwt_normalized(c, wavelet) for c in conds], dim=-1)
+        if sharded:
+            cond = all_gather_rows(mesh, all_gather_sp(cond, 2, mesh.sp_axis))
+        return cond
+
+
+def _upload(a, dev: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``torch.as_tensor(a, dtype, dev)`` as the span ``cwdm.upload``, which
+    counts the bytes of a host array (0 where ``a`` is on ``dev`` already)."""
+    here = isinstance(a, torch.Tensor) and a.device.type == dev.type
+    with annotate("cwdm.upload", bytes=0 if here else int(getattr(a, "nbytes", 0))):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
 
 
 def load_best_synthesis(checkpoint_dir: str, contr: str, *, dataset: str = "brats",
@@ -283,44 +290,51 @@ def make_synthesis_fn(model, diffusion, *, crop_z: int = 155, mesh=None,
     chain = CapturedChain(diffusion, model_fn, sampler, steps=steps, clip_denoised=clip_denoised,
                           parameters=model.parameters()) if cuda_graph else None
 
+    # the chain's model evaluations
+    n_evals = steps if sampler == "dpm++" else diffusion.num_timesteps
+
     @torch.inference_mode()
     def run(cond, mask_vol, generator: torch.Generator | None = None, *,
             noise=None, step_noise=None) -> np.ndarray:
-        cond = torch.as_tensor(cond, dtype=torch.float32, device=dev)
-        mask = torch.as_tensor(mask_vol, device=dev)
-        as_dev = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
-            a, dtype=torch.float32, device=dev)
-        noise, step_noise = as_dev(noise), as_dev(step_noise)
-        shape = (cond.shape[0], *cond.shape[1:-1], diffusion.target_channels)
-        if mesh is not None:
-            lo, hi = local_batch_rows(mesh, shape[0])
-            y0, y1 = y_slab(mesh, shape[2])  # of the latent; 2·y0, 2·y1 in the image
-            if noise is None:
-                noise = torch.randn(shape, generator=generator, device=dev)
-            n_steps = diffusion.num_timesteps
-            if sampler == "ddpm":
-                step_noise = (_RowsOfGlobalNoise(n_steps, shape, (lo, hi, y0, y1), generator,
-                                                 dev)
-                              if step_noise is None else step_noise[:, lo:hi, :, y0:y1])
-            cond, noise = cond[lo:hi, :, y0:y1], noise[lo:hi, :, y0:y1]
-            mask = mask[lo:hi, :, 2 * y0: 2 * y1]
-            shape = (hi - lo, shape[1], y1 - y0, *shape[3:])
-        kw = dict(cond=cond, noise=noise, generator=generator)
-        with sp_active(sp), tp_active(tp):
-            if chain is not None:
-                sample = chain(shape, step_noise=step_noise, chunk=chunk, **kw)
-            elif sampler == "dpm++":
-                sample = diffusion.dpm_solver_pp_loop(model_fn, shape, steps=steps, device=dev,
-                                                      clip_denoised=clip_denoised, **kw)
-            else:
-                kw.update(step_noise=step_noise, device=dev, clip_denoised=clip_denoised)
-                sample = (diffusion.ddim_sample_loop(model_fn, shape, **kw) if sampler == "ddim"
-                          else diffusion.p_sample_loop(model_fn, shape, chunk_size=chunk, **kw))
-            img = torch.clamp(wv.idwt_normalized(sample, 1, diffusion.wavelet), 0.0, 1.0)
-        img = torch.where(mask == 0, 0.0, img)
-        if mesh is not None:
-            img = all_gather_rows(mesh, all_gather_sp(img, 2, sp))
-        return img[..., 0].cpu().numpy()[:, :, :, :crop_z]
+        with annotate("cwdm.synthesize", batch=int(np.shape(cond)[0])):
+            cond = _upload(cond, dev, torch.float32)
+            mask = _upload(mask_vol, dev)
+            as_dev = lambda a: None if a is None else _upload(a, dev, torch.float32)  # noqa: E731
+            noise, step_noise = as_dev(noise), as_dev(step_noise)
+            shape = (cond.shape[0], *cond.shape[1:-1], diffusion.target_channels)
+            if mesh is not None:
+                lo, hi = local_batch_rows(mesh, shape[0])
+                y0, y1 = y_slab(mesh, shape[2])  # of the latent; 2·y0, 2·y1 in the image
+                if noise is None:
+                    noise = torch.randn(shape, generator=generator, device=dev)
+                n_steps = diffusion.num_timesteps
+                if sampler == "ddpm":
+                    step_noise = (_RowsOfGlobalNoise(n_steps, shape, (lo, hi, y0, y1), generator,
+                                                     dev)
+                                  if step_noise is None else step_noise[:, lo:hi, :, y0:y1])
+                cond, noise = cond[lo:hi, :, y0:y1], noise[lo:hi, :, y0:y1]
+                mask = mask[lo:hi, :, 2 * y0: 2 * y1]
+                shape = (hi - lo, shape[1], y1 - y0, *shape[3:])
+            kw = dict(cond=cond, noise=noise, generator=generator)
+            with sp_active(sp), tp_active(tp), annotate("cwdm.chain", steps=n_evals):
+                if chain is not None:
+                    sample = chain(shape, step_noise=step_noise, chunk=chunk, **kw)
+                elif sampler == "dpm++":
+                    sample = diffusion.dpm_solver_pp_loop(model_fn, shape, steps=steps, device=dev,
+                                                          clip_denoised=clip_denoised, **kw)
+                else:
+                    kw.update(step_noise=step_noise, device=dev, clip_denoised=clip_denoised)
+                    sample = (diffusion.ddim_sample_loop(model_fn, shape, **kw) if sampler == "ddim"
+                              else diffusion.p_sample_loop(model_fn, shape, chunk_size=chunk, **kw))
+            with annotate("cwdm.decode"):
+                with sp_active(sp), tp_active(tp):
+                    img = torch.clamp(wv.idwt_normalized(sample, 1, diffusion.wavelet), 0.0, 1.0)
+                img = torch.where(mask == 0, 0.0, img)
+                if mesh is not None:
+                    img = all_gather_rows(mesh, all_gather_sp(img, 2, sp))
+            img = img[..., 0]
+            with annotate("cwdm.readback", bytes=img.numel() * img.element_size()):
+                return img.cpu().numpy()[:, :, :, :crop_z]
 
     run.chain = chain
     return run

@@ -35,6 +35,7 @@ for the same state; a resume slices them.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import time
@@ -59,6 +60,7 @@ from fast_cwdm_tpu_torch.training.train import (
     make_train_step,
 )
 from fast_cwdm_tpu_torch.utils import logger
+from fast_cwdm_tpu_torch.utils.profiling import StepTimer
 
 SUBBAND_NAMES = ("lll", "llh", "lhl", "lhh", "hll", "hlh", "hhl", "hhh")
 
@@ -342,94 +344,48 @@ class TrainLoop:
             data_iter.close()
 
     def _steps(self, data_iter, put, preempted: list) -> TrainState:
-        t_data = t_step = t_log = t_save = 0.0
+        timer = StepTimer()
         last_metrics = None
         step = self.resume_step
         window_t0, window_step = time.perf_counter(), step
 
         while not self.lr_anneal_steps or step < self.lr_anneal_steps:
-            t0 = time.time()
-            batch = put(next(data_iter))
-            if self.state is None:
-                self.state = self._init_state(batch)
-                self._apply_resume()
-                step = self.resume_step
-                window_t0, window_step = time.perf_counter(), step
-            t1 = time.time()
-            t_data += t1 - t0
-            self.state, metrics = self.step_fn(self.state, batch, self.rng)
+            with timer.phase("data"):
+                batch = put(next(data_iter))
+                if self.state is None:
+                    self.state = self._init_state(batch)
+                    self._apply_resume()
+                    step = self.resume_step
+                    window_t0, window_step = time.perf_counter(), step
+            with timer.phase("step"):
+                self.state, metrics = self.step_fn(self.state, batch, self.rng)
             last_metrics = metrics
-            t2 = time.time()
-            t_step += t2 - t1
             step += 1
 
-            # one fetch per step even when log and save coincide; the image
-            # panels only on image-log steps (every other log window)
-            m = None
-            image_step = step % (2 * self.log_interval) == 0
-            if step % self.log_interval == 0 or step % self.save_interval == 0:
-                want = {k: v for k, v in metrics.items()
-                        if image_step or k not in IMAGE_METRIC_KEYS}
-                if image_step and self.mode == "i2i" and isinstance(batch, dict):
-                    for mod in sorted(batch):
-                        if mod != self.contr and batch[mod].dim() == 5:
-                            want[f"source/{mod}"] = batch[mod][0, :, :, batch[mod].shape[3] // 2, 0]
-                m = self._fetch(want)
-
-            if step % self.log_interval == 0:
-                loss = float(m["loss"])
-                now = time.perf_counter()
-                n_win = step - window_step
-                rec = {"step": step, "loss": loss, "seconds_per_step": (now - window_t0) / n_win}
-                # the gradient all-reduce and the sp collectives, by kind
-                for kind, (n_bytes, ms, _) in self.step_fn.comm.drain_by_kind().items():
-                    rec[f"{kind}_ms_per_step"] = ms / n_win
-                    rec[f"{kind}_bytes_per_step"] = n_bytes / n_win
-                    logger.logkv(f"time/{kind}_ms", rec[f"{kind}_ms_per_step"])
-                    logger.logkv(f"comm/{kind}_bytes", rec[f"{kind}_bytes_per_step"])
-                self.step_log.append(rec)
-                window_t0, window_step = now, step
-                if not np.isfinite(loss):
-                    logger.log(f"Encountered non-finite loss {loss}")
-                    if os.environ.get("FAST_CWDM_STRICT_FINITE"):
-                        raise FloatingPointError(f"non-finite loss {loss} at step {step}")
-                logger.logkv("step", step)
-                logger.logkv("loss", loss)
-                logger.logkv("loss/MSE", loss)
-                logger.logkv("time/load", round(t_data, 4))
-                logger.logkv("time/forward", round(t_step, 4))
-                logger.logkv("time/total", round(t_data + t_step, 4))
-                logger.logkv("norm/grad_max", float(m["grad_max"]))
-                logger.logkv("norm/param_max", float(m["param_max"]))
-                for i, name in enumerate(SUBBAND_NAMES):
-                    logger.logkv(f"loss/mse_wav_{name}", float(m["mse_wav"][i]))
-                for k in ("mse_lesion", "mse_lesion_core"):
-                    if k in m:
-                        logger.logkv(f"loss/{k}", float(m[k]))
-                T = self.diffusion.num_timesteps
-                for ls, ti in zip(np.atleast_1d(m["loss_per_sample"]), np.atleast_1d(m["t"])):
-                    logger.logkv_mean(f"loss_q{int(4 * int(ti) / T)}", float(ls))
-                logger.dumpkvs()
-                if image_step:
-                    imgs = {"sample/x_0": logger.visualize(m["sample_slice"][0])}
-                    for i, name in enumerate(SUBBAND_NAMES):
-                        imgs[f"sample/{name.upper()}"] = logger.visualize(
-                            m["subband_slices"][0, :, :, i])
-                    for k in sorted(m):
-                        if k.startswith("source/"):
-                            imgs[k] = logger.visualize(m[k])
-                    logger.log_images(imgs, step)
-                t3 = time.time()
-                t_log += t3 - t2
-                total = t_data + t_step + t_log + t_save
-                print(f"[PROFILE] Step {step}: Data={t_data:.2f}s Step={t_step:.2f}s "
-                      f"Log={t_log:.2f}s Save={t_save:.2f}s Total={total:.2f}s")
-                t_data = t_step = t_log = t_save = 0.0
+            log_step = step % self.log_interval == 0
+            with timer.phase("log") if log_step else contextlib.nullcontext():
+                # one fetch per step even when log and save coincide; the
+                # image panels only on image-log steps (every other log window)
+                m = None
+                image_step = step % (2 * self.log_interval) == 0
+                if log_step or step % self.save_interval == 0:
+                    want = {k: v for k, v in metrics.items()
+                            if image_step or k not in IMAGE_METRIC_KEYS}
+                    if image_step and self.mode == "i2i" and isinstance(batch, dict):
+                        for mod in sorted(batch):
+                            if mod != self.contr and batch[mod].dim() == 5:
+                                want[f"source/{mod}"] = batch[mod][0, :, :,
+                                                                   batch[mod].shape[3] // 2, 0]
+                    m = self._fetch(want)
+                if log_step:
+                    window_t0, window_step = self._log(m, step, window_t0, window_step,
+                                                       timer, image_step)
+            if log_step:
+                print(timer.report(step))
 
             if step % self.save_interval == 0:
-                t3 = time.time()
-                self.save_if_best(float(m["loss"]), step)
-                t_save += time.time() - t3
+                with timer.phase("save"):
+                    self.save_if_best(float(m["loss"]), step)
                 if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
                     logger.log("DIFFUSION_TRAINING_TEST: early exit")
                     return self.state
@@ -446,6 +402,54 @@ class TrainLoop:
                 and last_metrics is not None):
             self.save_if_best(float(last_metrics["loss"]), step)
         return self.state
+
+    def _log(self, m: dict, step: int, window_t0: float, window_step: int,
+             timer: StepTimer, image_step: bool) -> tuple[float, int]:
+        """Log step ``step``'s fetched metrics ``m``, the phase seconds of
+        ``timer`` and, on image steps, the panels; returns the next log
+        window's start (time, step)."""
+        loss = float(m["loss"])
+        now = time.perf_counter()
+        n_win = step - window_step
+        rec = {"step": step, "loss": loss, "seconds_per_step": (now - window_t0) / n_win}
+        # the gradient all-reduce and the sp collectives, by kind
+        for kind, (n_bytes, ms, _) in self.step_fn.comm.drain_by_kind().items():
+            rec[f"{kind}_ms_per_step"] = ms / n_win
+            rec[f"{kind}_bytes_per_step"] = n_bytes / n_win
+            logger.logkv(f"time/{kind}_ms", rec[f"{kind}_ms_per_step"])
+            logger.logkv(f"comm/{kind}_bytes", rec[f"{kind}_bytes_per_step"])
+        self.step_log.append(rec)
+        if not np.isfinite(loss):
+            logger.log(f"Encountered non-finite loss {loss}")
+            if os.environ.get("FAST_CWDM_STRICT_FINITE"):
+                raise FloatingPointError(f"non-finite loss {loss} at step {step}")
+        t_data, t_step = timer.acc["data"], timer.acc["step"]
+        logger.logkv("step", step)
+        logger.logkv("loss", loss)
+        logger.logkv("loss/MSE", loss)
+        logger.logkv("time/load", round(t_data, 4))
+        logger.logkv("time/forward", round(t_step, 4))
+        logger.logkv("time/total", round(t_data + t_step, 4))
+        logger.logkv("norm/grad_max", float(m["grad_max"]))
+        logger.logkv("norm/param_max", float(m["param_max"]))
+        for i, name in enumerate(SUBBAND_NAMES):
+            logger.logkv(f"loss/mse_wav_{name}", float(m["mse_wav"][i]))
+        for k in ("mse_lesion", "mse_lesion_core"):
+            if k in m:
+                logger.logkv(f"loss/{k}", float(m[k]))
+        T = self.diffusion.num_timesteps
+        for ls, ti in zip(np.atleast_1d(m["loss_per_sample"]), np.atleast_1d(m["t"])):
+            logger.logkv_mean(f"loss_q{int(4 * int(ti) / T)}", float(ls))
+        logger.dumpkvs()
+        if image_step:
+            imgs = {"sample/x_0": logger.visualize(m["sample_slice"][0])}
+            for i, name in enumerate(SUBBAND_NAMES):
+                imgs[f"sample/{name.upper()}"] = logger.visualize(m["subband_slices"][0, :, :, i])
+            for k in sorted(m):
+                if k.startswith("source/"):
+                    imgs[k] = logger.visualize(m[k])
+            logger.log_images(imgs, step)
+        return now, step
 
     # ------------------------------------------------------------------
     def _payload(self, step: int) -> dict:

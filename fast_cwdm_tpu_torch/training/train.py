@@ -38,6 +38,7 @@ from fast_cwdm_tpu_torch.diffusion.resample import LossSecondMomentResampler, Un
 from fast_cwdm_tpu_torch.models.convert import jax_params_from_state_dict, state_dict_from_jax
 from fast_cwdm_tpu_torch.parallel import mesh as pmesh
 from fast_cwdm_tpu_torch.training.state import TrainState, update_ema
+from fast_cwdm_tpu_torch.utils.profiling import annotate
 
 # metric leaves that are image panels (mid-plane slices), not scalars: the
 # loop fetches them only on image-log steps
@@ -304,13 +305,20 @@ def make_train_step(
         terms[IMAGE_METRIC_KEYS[1]] = model_out[:, :, :, model_out.shape[3] // 2, :]
         return loss, {k: v.detach() for k, v in terms.items()}
 
+    def loss_and_grads(batch, t, noise_img):
+        """A (micro)batch's loss, its gradients added to ``.grad``: the spans
+        ``cwdm.train.forward`` and ``cwdm.train.backward``."""
+        with annotate("cwdm.train.forward"):
+            loss, terms = loss_fn(batch, t, noise_img)
+        with annotate("cwdm.train.backward"):
+            loss.backward()
+        return loss.detach(), terms
+
     def forward_backward(state, batch, t, noise_img, bsz):
         for p in state.params.values():
             p.grad = None
         if accum_steps == 1:
-            loss, terms = loss_fn(batch, t, noise_img)
-            loss.backward()
-            return loss.detach(), terms, None
+            return (*loss_and_grads(batch, t, noise_img), None)
         if bsz % accum_steps != 0:
             raise ValueError(f"batch size {bsz} not divisible by accum_steps {accum_steps}")
         n, mb = accum_steps, bsz // accum_steps
@@ -321,9 +329,8 @@ def make_train_step(
             sl = slice(i * mb, (i + 1) * mb)
             mb_batch = ({k: v[sl] for k, v in batch.items()} if isinstance(batch, dict)
                         else batch[sl])
-            loss_i, terms_i = loss_fn(mb_batch, t[sl], noise_img[sl])
-            loss_i.backward()  # grads accumulate in order, as the JAX scan sums them
-            outs.append((loss_i.detach(), terms_i))
+            # grads accumulate in order, as the JAX scan sums them
+            outs.append(loss_and_grads(mb_batch, t[sl], noise_img[sl]))
         terms = {
             "mse_wav": torch.stack([o[1]["mse_wav"] for o in outs]).mean(dim=0),
             "loss_per_sample": torch.cat([o[1]["loss_per_sample"] for o in outs]),
@@ -334,83 +341,86 @@ def make_train_step(
 
     def step(state: TrainState, batch, rng: StepRNG | None = None, *,
              t: torch.Tensor | None = None, noise_img: torch.Tensor | None = None):
-        model.train()
         target = batch[contr] if isinstance(batch, dict) else batch
-        bsz, dev = target.shape[0], target.device
-        # the global batch's t and noise, drawn alike on every rank; this
-        # rank's rows (and Y slab) of them
-        gbsz = bsz * mesh.size if dp else bsz
-        lo, hi = pmesh.local_batch_rows(mesh, gbsz) if dp else (0, bsz)
-        ny = target.shape[2] * (sp.size if sp else 1)
-        y0, y1 = pmesh.y_slab(sp, ny)
-        if t is None:
-            if loss_aware:
-                t, _ = sampler.sample(rng.t if rng else None, gbsz, state.sampler_state)
-            else:
-                t, _ = sampler.sample(rng.t if rng else None, gbsz, device=dev)
-        t = t.to(dev)[lo:hi]
-        if noise_img is None:
-            # the full batch's noise in one draw (sliced per microbatch
-            # under accumulation), so accum_steps does not change it
-            noise_img = torch.randn((gbsz, target.shape[1], ny, *target.shape[3:]),
-                                    generator=rng.noise if rng else None,
-                                    dtype=target.dtype, device=dev)
-        noise_img = noise_img[lo:hi, :, y0:y1]
-        with pmesh.sp_active(sp), pmesh.tp_active(tp):
-            if dropout_on:
-                seed = int(torch.randint(2**62, (1,), generator=rng.dropout if rng else None))
-                devices = [dev] if dev.type == "cuda" else []
-                with torch.random.fork_rng(devices=devices, device_type=dev.type):
-                    torch.manual_seed(seed)
+        with annotate("cwdm.train.step", batch=int(target.shape[0])):
+            model.train()
+            bsz, dev = target.shape[0], target.device
+            # the global batch's t and noise, drawn alike on every rank; this
+            # rank's rows (and Y slab) of them
+            gbsz = bsz * mesh.size if dp else bsz
+            lo, hi = pmesh.local_batch_rows(mesh, gbsz) if dp else (0, bsz)
+            ny = target.shape[2] * (sp.size if sp else 1)
+            y0, y1 = pmesh.y_slab(sp, ny)
+            if t is None:
+                if loss_aware:
+                    t, _ = sampler.sample(rng.t if rng else None, gbsz, state.sampler_state)
+                else:
+                    t, _ = sampler.sample(rng.t if rng else None, gbsz, device=dev)
+            t = t.to(dev)[lo:hi]
+            if noise_img is None:
+                # the full batch's noise in one draw (sliced per microbatch
+                # under accumulation), so accum_steps does not change it
+                noise_img = torch.randn((gbsz, target.shape[1], ny, *target.shape[3:]),
+                                        generator=rng.noise if rng else None,
+                                        dtype=target.dtype, device=dev)
+            noise_img = noise_img[lo:hi, :, y0:y1]
+            with pmesh.sp_active(sp), pmesh.tp_active(tp):
+                if dropout_on:
+                    seed = int(torch.randint(2**62, (1,), generator=rng.dropout if rng else None))
+                    devices = [dev] if dev.type == "cuda" else []
+                    with torch.random.fork_rng(devices=devices, device_type=dev.type):
+                        torch.manual_seed(seed)
+                        loss, terms, accum = forward_backward(state, batch, t, noise_img, bsz)
+                else:
                     loss, terms, accum = forward_backward(state, batch, t, noise_img, bsz)
+            for axis in (sp, tp):
+                if axis is not None:
+                    axis.log.move_to(comm)
+            grads = {}
+            for k, p in state.params.items():
+                gk = p.grad if p.grad is not None else torch.zeros_like(p)
+                grads[k] = gk / accum if accum else gk
+            means = [k for k in ("mse_lesion", "mse_lesion_core") if k in terms]
+            if dp:
+                # one all-reduce per optimizer step: the gradients, then the
+                # loss and the batch-mean metrics in the same buffer
+                loss = loss.reshape(1).clone()
+                terms["mse_wav"] = terms["mse_wav"].clone()
+                for k in means:
+                    terms[k] = terms[k].reshape(1).clone()
+                # the tp slices first: they reduce over the replica group
+                sliced = pmesh.sharded_params(model) if tp is not None else {}
+                order = [k for k in grads if k in sliced] + [k for k in grads if k not in sliced]
+                pmesh.all_reduce_mean_(
+                    mesh, [*(grads[k] for k in order), loss, terms["mse_wav"],
+                           *(terms[k] for k in means)],
+                    comm, replicated=2 + len(means), sharded=len(sliced))
+                loss = loss[0]
+                for k in means:
+                    terms[k] = terms[k][0]
+            with annotate("cwdm.train.optimizer"):
+                opt.update_(state.params, grads, state.opt_state)
+            state.step += 1
+            with annotate("cwdm.train.ema"):
+                update_ema(state)
+            if loss_aware:
+                state.sampler_state = sampler.update(
+                    state.sampler_state, t, terms["loss_per_sample"],
+                    axis_name=pmesh.DATA_AXIS if dp else None, mesh=mesh)
+            metrics = {"loss": loss, "mse_wav": terms["mse_wav"],
+                       "loss_per_sample": terms["loss_per_sample"], "t": t,
+                       **{k: terms[k] for k in IMAGE_METRIC_KEYS}}
+            for k in means:
+                metrics[k] = terms[k]
+            if with_norms:
+                norms = pmesh.max_over_tp(mesh, torch.stack([
+                    _max_abs(grads.values()), _max_abs(p.detach() for p in state.params.values())]))
+                metrics["grad_max"], metrics["param_max"] = norms[0], norms[1]
             else:
-                loss, terms, accum = forward_backward(state, batch, t, noise_img, bsz)
-        for axis in (sp, tp):
-            if axis is not None:
-                axis.log.move_to(comm)
-        grads = {}
-        for k, p in state.params.items():
-            gk = p.grad if p.grad is not None else torch.zeros_like(p)
-            grads[k] = gk / accum if accum else gk
-        means = [k for k in ("mse_lesion", "mse_lesion_core") if k in terms]
-        if dp:
-            # one all-reduce per optimizer step: the gradients, then the
-            # loss and the batch-mean metrics in the same buffer
-            loss = loss.reshape(1).clone()
-            terms["mse_wav"] = terms["mse_wav"].clone()
-            for k in means:
-                terms[k] = terms[k].reshape(1).clone()
-            # the tp slices first: they reduce over the replica group
-            sliced = pmesh.sharded_params(model) if tp is not None else {}
-            order = [k for k in grads if k in sliced] + [k for k in grads if k not in sliced]
-            pmesh.all_reduce_mean_(
-                mesh, [*(grads[k] for k in order), loss, terms["mse_wav"],
-                       *(terms[k] for k in means)],
-                comm, replicated=2 + len(means), sharded=len(sliced))
-            loss = loss[0]
-            for k in means:
-                terms[k] = terms[k][0]
-        opt.update_(state.params, grads, state.opt_state)
-        state.step += 1
-        update_ema(state)
-        if loss_aware:
-            state.sampler_state = sampler.update(
-                state.sampler_state, t, terms["loss_per_sample"],
-                axis_name=pmesh.DATA_AXIS if dp else None, mesh=mesh)
-        metrics = {"loss": loss, "mse_wav": terms["mse_wav"],
-                   "loss_per_sample": terms["loss_per_sample"], "t": t,
-                   **{k: terms[k] for k in IMAGE_METRIC_KEYS}}
-        for k in means:
-            metrics[k] = terms[k]
-        if with_norms:
-            norms = pmesh.max_over_tp(mesh, torch.stack([
-                _max_abs(grads.values()), _max_abs(p.detach() for p in state.params.values())]))
-            metrics["grad_max"], metrics["param_max"] = norms[0], norms[1]
-        else:
-            metrics["grad_max"] = metrics["param_max"] = torch.zeros((), device=dev)
-        for p in state.params.values():
-            p.grad = None
-        return state, metrics
+                metrics["grad_max"] = metrics["param_max"] = torch.zeros((), device=dev)
+            for p in state.params.values():
+                p.grad = None
+            return state, metrics
 
     step.comm = comm
     return step

@@ -22,13 +22,15 @@ import torch
 __all__ = ["devtime"]
 
 # launch counter of a wrapper of the port (``ops.launch_counts``) → the
-# kernel it launches once a count, by substrings of its name in the trace
+# kernel it launches once a count, by substrings of its name in the trace;
+# both widths of the wgmma kernel are the symbol ``conv3d_wgmma_kernel``
 PORT_KERNELS = {
     "haar_dwt3": ("haar_dwt3_kernel",),
     "haar_idwt3": ("haar_idwt3_kernel",),
     "affine_silu": ("affine_silu_kernel",),
     "affine_silu_bwd": ("affine_silu_bwd_reduce",),
     "conv3d_wgmma": ("conv3d_wgmma_kernel",),
+    "conv3d_wgmma_n32": ("conv3d_wgmma_kernel",),
     "conv3d_splitk": ("conv3d_splitk_kernel",),
     "conv3d_wgmma_tf32": ("conv3d_tf32_kernel",),
     "conv3d_mma_sync": ("conv3d_bf16_kernel", "conv3d_f32_kernel"),
@@ -38,13 +40,20 @@ PORT_KERNELS = {
 def missing_records(launched: dict[str, int], records: dict[str, int]) -> dict[str, list]:
     """Counter → ``[records, launches]`` where the trace's ``records`` (count
     by kernel name) hold fewer of the counter's kernel than ``launched``
-    (counter → launches, ``ops.launches_since``) says ran."""
-    out = {}
+    (counter → launches, ``ops.launches_since``) says ran. Counters that
+    share a kernel are summed, under the names of those that launched
+    joined by ``+``."""
+    by_kernel: dict[tuple, list] = {}
     for counter, names in PORT_KERNELS.items():
-        n = launched.get(counter, 0)
+        entry = by_kernel.setdefault(names, [[], 0])
+        if launched.get(counter, 0):
+            entry[0].append(counter)
+            entry[1] += launched[counter]
+    out = {}
+    for names, (counters, n) in by_kernel.items():
         got = sum(c for k, c in records.items() if any(s in k for s in names))
         if got < n:
-            out[counter] = [got, n]
+            out["+".join(counters)] = [got, n]
     return out
 
 
@@ -83,7 +92,7 @@ def devtime(fn, *args, iters: int = 3, detail: bool = False, events: bool = Fals
     them for the kernels of the port's ctypes libraries). ``total_ms`` is
     then the CUDA-event time of ``iters`` more calls enqueued behind a spin
     of the card, so that their kernels run back to back as the host's
-    launches wait in the queue (``devtime.fallbacks`` counts these calls).
+    launches wait in the queue.
     A kernel replayed from a CUDA graph moves no counter, so its records
     are not checked. ``events=True`` times that way without the profiler:
     the reliable device time of a call of one or a few kernels. Without a
@@ -139,11 +148,7 @@ def devtime(fn, *args, iters: int = 3, detail: bool = False, events: bool = Fals
         out["source"] = "profiler" if total and not out["records_missing"] else "cuda_events"
         if out["source"] == "cuda_events":
             out["total_ms"] = total = _spun_events_ms(fn, args, iters, wall_ms * iters)
-            devtime.fallbacks += 1
     out["busy_share"] = total / wall_ms if wall_ms else 0.0
     if detail:
         out["ops"] = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
     return out
-
-
-devtime.fallbacks = 0

@@ -403,6 +403,20 @@ def test_devtime_finds_kernel_records_missing_from_a_trace():
     assert devtime.missing_records({"conv3d_wgmma": 1}, {}) == {"conv3d_wgmma": [0, 1]}
 
 
+def test_devtime_sees_a_lost_record_of_the_32_wide_wgmma_kernel():
+    """Both wgmma widths are the symbol ``conv3d_wgmma_kernel``: their
+    counters are summed against its records, so a lost 32-wide record shows
+    under the names of the counters that launched."""
+    records = {"void conv3d_wgmma_kernel<64, true, false>(Args)": 30,
+               "void conv3d_wgmma_kernel<32, true, false>(Args)": 19}
+    launched = {"conv3d_wgmma": 30, "conv3d_wgmma_n32": 20}
+    assert devtime.missing_records(launched, records) == {
+        "conv3d_wgmma+conv3d_wgmma_n32": [49, 50]}
+    assert devtime.missing_records({"conv3d_wgmma_n32": 20}, {}) == {
+        "conv3d_wgmma_n32": [0, 20]}
+    assert devtime.missing_records(launched, {**records, "conv3d_wgmma_kernel<32>": 1}) == {}
+
+
 def test_step_timer_report_equals_jax():
     ours, ref = profiling.StepTimer(), jprofiling.StepTimer()
     for timer in (ours, ref):
