@@ -535,7 +535,46 @@ def phase_kernels(torch, F) -> dict:
             fail(f"{name} disagrees with its plain version: {out[name]['max_abs_err']}")
     if not worst_ratio <= 1.0:
         fail(f"affine_silu disagrees with its plain version: {checks}")
+    out["gn_stats"] = gn_stats_leg(torch, ec, g)
     return out
+
+
+def gn_stats_leg(torch, ec, g) -> dict:
+    """GroupNorm's statistics kernel at the forward's largest site (level
+    0, 192 channels, bf16 channels_last_3d, 192.7 M elements), both
+    formulas against the plain version (the torch statistics synthesis ran
+    before the kernel) on the same tensor: mean within 1e-5 of the group's
+    |mean| + std, inv within 1e-5 relative; one launch a call, two calls
+    bit for bit; the kernel's time and the plain version's against one
+    read of x."""
+    c = 192
+    xs = torch.randn((1, *LATENT, c), generator=g, device="cuda")
+    x = (xs * 1.5 + 0.25).to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+    del xs
+    errors = {}
+    for name, formula in (("group", ec.GN_GROUP), ("channel_means", ec.GN_CHANNEL_MEANS)):
+        before = ec.gn_stats.launches
+        (mean, inv), again = ec.gn_stats(x, 32, formula), ec.gn_stats(x, 32, formula)
+        rmean, rinv = ec.gn_stats_plain(x, 32, formula)
+        errors[name] = {
+            "mean": float(((mean - rmean).abs() / (rmean.abs() + 1.0 / rinv)).max()),
+            "inv": float(((inv - rinv).abs() / rinv).max()),
+            "launches_per_call": (ec.gn_stats.launches - before) / 2,
+            "repeat_bit_for_bit": bool(torch.equal(mean, again[0]) and torch.equal(inv, again[1]))}
+    worst = max(max(e["mean"], e["inv"]) for e in errors.values())
+    nb = x.numel() * x.element_size() + 2 * c * 4
+    b_ms, b_by = bound_ms(nb, 2 * x.numel())
+    res = dict(
+        shape=list(x.shape), dtype="bfloat16", max_abs_err=worst, tol=1e-5,
+        tol_ratio=worst / 1e-5, errors=errors,
+        ms=time_ms(torch, lambda: ec.gn_stats(x, 32, ec.GN_GROUP)),
+        plain_ms=time_ms(torch, lambda: ec.gn_stats_plain(x, 32, ec.GN_GROUP)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nb,
+    )
+    if not worst <= 1e-5 or not all(e["repeat_bit_for_bit"] and e["launches_per_call"] == 1
+                                    for e in errors.values()):
+        fail(f"gn_stats disagrees with its plain version: {res}")
+    return res
 
 
 def conv_inputs(torch, g, bsz, ci, sp, co, dtype):
@@ -1113,7 +1152,8 @@ def phase_synthesis(torch, tmp: str) -> tuple[dict, dict]:
     res = {"sample_shape": check_sample(np, os.path.join(out_dir, "00001", "sample.nii.gz"), mask),
            "s_per_volume_cli_first_case": timings[0], "launches": counts,
            "graph": check_graph_counts(volumes=1)}
-    if counts["haar_dwt3"] < 3 or counts["haar_idwt3"] < 1 or counts["affine_silu"] != 71 * 10:
+    if counts["haar_dwt3"] < 3 or counts["haar_idwt3"] < 1 or counts["affine_silu"] != 71 * 10 \
+            or counts["gn_stats"] != 71 * 10:
         fail(f"the main path did not run through every kernel: {counts}")
 
     # main path 2: every non-up/down ResBlock's two convs through K4b
@@ -1184,26 +1224,28 @@ FP32_VARIANTS = ("fp32", "faithful", "fp32_fuse_conv", "fp32_fuse_conv_ffma")
 FFMA_VARIANTS = ("fp32_fuse_conv_ffma",)
 # launches per volume of each variant on the graph path: K1 3 (condition)
 # and K2 1 (output) a volume, and with the unfused projection one K2 and
-# one K1 more for each of the 10 steps
-SYNTH_WANT = {"unfused": {"affine_silu": 0, "conv3d_fused_k4b": 0},
-              "fused": {"affine_silu": 710, "conv3d_fused_k4b": 0},
-              "fuse_conv_ddpm": {"affine_silu": 0, "conv3d_fused_k4b": 540, "conv3d_wgmma": 300,
-                                 "conv3d_wgmma_n32": 0, "conv3d_splitk": 240,
-                                 "conv3d_mma_sync": 0},
-              "fuse_conv_dpm": {"affine_silu": 0, "conv3d_fused_k4b": 540, "conv3d_wgmma": 300,
-                                "conv3d_wgmma_n32": 0, "conv3d_splitk": 240,
-                                "conv3d_mma_sync": 0},
-              "fp32": {"haar_dwt3": 3, "haar_idwt3": 1, "affine_silu": 0, "conv3d_fused_k4b": 0},
-              "faithful": {"haar_dwt3": 3 + 10, "haar_idwt3": 1 + 10, "affine_silu": 0,
-                           "conv3d_fused_k4b": 0},
+# one K1 more for each of the 10 steps; GroupNorm's statistics kernel at
+# the 71 GroupNorms of every forward
+SYNTH_WANT = {"unfused": {"gn_stats": 710, "affine_silu": 0, "conv3d_fused_k4b": 0},
+              "fused": {"gn_stats": 710, "affine_silu": 710, "conv3d_fused_k4b": 0},
+              "fuse_conv_ddpm": {"gn_stats": 710, "affine_silu": 0, "conv3d_fused_k4b": 540,
+                                 "conv3d_wgmma": 300, "conv3d_wgmma_n32": 0,
+                                 "conv3d_splitk": 240, "conv3d_mma_sync": 0},
+              "fuse_conv_dpm": {"gn_stats": 710, "affine_silu": 0, "conv3d_fused_k4b": 540,
+                                "conv3d_wgmma": 300, "conv3d_wgmma_n32": 0,
+                                "conv3d_splitk": 240, "conv3d_mma_sync": 0},
+              "fp32": {"gn_stats": 710, "haar_dwt3": 3, "haar_idwt3": 1, "affine_silu": 0,
+                       "conv3d_fused_k4b": 0},
+              "faithful": {"gn_stats": 710, "haar_dwt3": 3 + 10, "haar_idwt3": 1 + 10,
+                           "affine_silu": 0, "conv3d_fused_k4b": 0},
               # every level's convs (54 a forward) on the 3×TF32 kernel
-              "fp32_fuse_conv": {"haar_dwt3": 3, "haar_idwt3": 1, "affine_silu": 0,
-                                 "conv3d_fused_k4b": 540, "conv3d_wgmma_tf32": 540,
-                                 "conv3d_mma_sync": 0, "conv3d_wgmma": 0,
-                                 "conv3d_wgmma_n32": 0, "conv3d_splitk": 0},
-              "fp32_fuse_conv_ffma": {"haar_dwt3": 3, "haar_idwt3": 1, "affine_silu": 0,
-                                      "conv3d_fused_k4b": 540, "conv3d_wgmma_tf32": 0,
-                                      "conv3d_mma_sync": 540}}
+              "fp32_fuse_conv": {"gn_stats": 710, "haar_dwt3": 3, "haar_idwt3": 1,
+                                 "affine_silu": 0, "conv3d_fused_k4b": 540,
+                                 "conv3d_wgmma_tf32": 540, "conv3d_mma_sync": 0,
+                                 "conv3d_wgmma": 0, "conv3d_wgmma_n32": 0, "conv3d_splitk": 0},
+              "fp32_fuse_conv_ffma": {"gn_stats": 710, "haar_dwt3": 3, "haar_idwt3": 1,
+                                      "affine_silu": 0, "conv3d_fused_k4b": 540,
+                                      "conv3d_wgmma_tf32": 0, "conv3d_mma_sync": 540}}
 
 
 def phase_synthesis_fn(torch, np, cfg, sd, case) -> dict:
@@ -1947,7 +1989,7 @@ def phase_training(torch, tmp: str, profile: bool = False) -> dict:
         k3 = (71 + REMAT_GN_SITES) * n if extra else 0
         want = {"haar_dwt3": 5 * n, "haar_idwt3": n, "affine_silu": k3,
                 "affine_silu_bwd": 71 * n if extra else 0, "conv3d_fused_k4b": 0,
-                "conv3d_fused_k4a": 0, "conv3d_fused_v4": 0}
+                "conv3d_fused_k4a": 0, "conv3d_fused_v4": 0, "gn_stats": 0}
         r["launches_expected"] = want
         bad = {k: (r["launches"][k], v) for k, v in want.items() if r["launches"][k] != v}
         # a tensor whose gradient is exactly 0 for these few steps (a GN
@@ -4313,6 +4355,11 @@ KERNELS = {  # name: (source, replaces, key of its kernels-phase record)
     "conv3d_wgmma_tf32": ("fast_cwdm_tpu_torch/ops/csrc/conv3d_tf32.cu",
                           "fast_cwdm_tpu/ops/conv3d_pallas.py:154 (_blocked_kernel, run in fp32; "
                           "also :36 and :341 in fp32)", "fp32"),
+    # GroupNorm's statistics replace XLA's fused reductions (no pallas_call)
+    "gn_stats": ("fast_cwdm_tpu_torch/ops/csrc/gn_stats.cu",
+                 "none: XLA's fused reductions of fast_cwdm_tpu/models/nn.py:76-84 "
+                 "(GroupNorm32) and fast_cwdm_tpu/ops/conv3d_pallas.py:311 (group_stats)",
+                 "gn_stats"),
     # the K3 VJP replaces plain XLA (a custom VJP with no pallas_call)
     "affine_silu_bwd": ("fast_cwdm_tpu_torch/ops/csrc/affine_silu.cu",
                         "fast_cwdm_tpu/ops/elementwise_pallas.py:155 (_affine_silu_bwd, the VJP of "

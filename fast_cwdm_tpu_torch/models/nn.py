@@ -65,7 +65,9 @@ class GroupNorm32(nn.Module):
     E[x] and E[x²] over the spatial axes in one pass, group means of the
     channel means, var = max(E[x²] − E[x]², 0), eps 1e-5; under an active
     sp axis the channel means are the volume's (sums over the slab and the
-    voxel count, summed over the group). ``act="silu"``
+    voxel count, summed over the group); on the card outside autograd the
+    statistics are one launch of ``elementwise_cuda.gn_stats``'s kernel.
+    ``act="silu"``
     applies SiLU in the same pass through kernel K3 (fp32 SiLU, one cast);
     the caller applies ``F.silu`` itself for the unfused path (bf16 SiLU
     after the cast), as the JAX package does.
@@ -80,26 +82,20 @@ class GroupNorm32(nn.Module):
     def forward(self, x: torch.Tensor, act: str | None = None) -> torch.Tensor:
         b, c = x.shape[:2]
         g = self.num_groups
-        xf = x.float()
         spatial = tuple(range(2, x.dim()))
-        # a (B, C) input has no spatial axes: its channel means are itself
-        # (torch reads an empty ``dim`` as every axis)
         if spatial and current_sp() is not None:
             # this rank's slab: channel sums and the voxel count, summed
             # over the sp group in one all-reduce
+            xf = x.float()
             count = torch.full((b, 1), float(xf[0, 0].numel()), device=x.device)
             sums = all_reduce_sum_sp(
                 torch.cat([xf.sum(dim=spatial), (xf * xf).sum(dim=spatial), count], dim=1))
             mean_c, mean_sq_c = sums[:, :c] / sums[:, -1:], sums[:, c:2 * c] / sums[:, -1:]
+            mean_pc, inv_pc = elementwise_cuda.group_norm_inv(
+                mean_c.reshape(b, g, c // g).mean(dim=-1),
+                mean_sq_c.reshape(b, g, c // g).mean(dim=-1), c // g)
         else:
-            mean_c = xf.mean(dim=spatial) if spatial else xf  # (B, C)
-            mean_sq_c = (xf * xf).mean(dim=spatial) if spatial else xf * xf
-        mean = mean_c.reshape(b, g, c // g).mean(dim=-1)  # (B, G)
-        mean_sq = mean_sq_c.reshape(b, g, c // g).mean(dim=-1)
-        var = torch.clamp(mean_sq - mean * mean, min=0.0)
-        inv = torch.rsqrt(var + 1e-5)
-        mean_pc = mean.repeat_interleave(c // g, dim=-1)  # (B, C)
-        inv_pc = inv.repeat_interleave(c // g, dim=-1)
+            mean_pc, inv_pc = elementwise_cuda.gn_stats(x, g, elementwise_cuda.GN_CHANNEL_MEANS)
         if act == "silu":
             return elementwise_cuda.gn_apply_silu(
                 x, mean_pc, inv_pc, self.weight, self.bias
@@ -109,7 +105,7 @@ class GroupNorm32(nn.Module):
         bc = (b, c) + (1,) * (x.dim() - 2)
         scale = self.weight.reshape((1, c) + (1,) * (x.dim() - 2))
         shift = self.bias.reshape(scale.shape)
-        y = (xf - mean_pc.reshape(bc)) * inv_pc.reshape(bc) * scale + shift
+        y = (x.float() - mean_pc.reshape(bc)) * inv_pc.reshape(bc) * scale + shift
         return y.to(x.dtype)
 
 

@@ -1,5 +1,6 @@
-"""Wavelet transforms and the hand-written CUDA kernels (K1-K5 and the K3
-VJP), with one view of the wrappers' launch counters."""
+"""Wavelet transforms and the hand-written CUDA kernels (K1-K5, the K3
+VJP and GroupNorm's statistics), with one view of the wrappers' launch
+counters."""
 
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ def _counters() -> dict:
         "haar_idwt3": (wc.haar_idwt3, "launches"),
         "affine_silu": (ec.affine_silu, "launches"),
         "affine_silu_bwd": (ec.affine_silu_bwd, "launches"),
+        "gn_stats": (ec.gn_stats, "launches"),
         "conv3d_fused_k4a": (tc.conv3d_fused, "launches_k4a"),
         "conv3d_fused_k4b": (tc.conv3d_fused, "launches_k4b"),
         "conv3d_fused_v4": (tc.conv3d_fused_v4, "launches"),
@@ -41,7 +43,8 @@ def _counters() -> dict:
 
 
 def launch_counts() -> dict[str, int]:
-    """Every launch counter by name: K1, K2, K3 and its VJP, the fused conv
+    """Every launch counter by name: K1, K2, K3 and its VJP, GroupNorm's
+    statistics (``gn_stats``), the fused conv
     by entry point (``conv3d_fused_k4a``/``_k4b``/``_v4``) and by kernel
     (``conv3d_wgmma``, ``conv3d_splitk``, ``conv3d_mma_sync``)."""
     return {name: h[k] if isinstance(h, dict) else getattr(h, k)

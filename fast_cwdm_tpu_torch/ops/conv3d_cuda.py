@@ -46,7 +46,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from fast_cwdm_tpu_torch.ops import _build
+from fast_cwdm_tpu_torch.ops import _build, elementwise_cuda
 from fast_cwdm_tpu_torch.parallel.mesh import all_reduce_sum_sp, current_sp
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,23 +58,21 @@ def group_stats(x: torch.Tensor, num_groups: int) -> tuple[torch.Tensor, torch.T
     *spatial), fp32 (B, C). The JAX package's reduction: one mean over the
     voxels and the group's channels of x and of x², var = max(E[x²] −
     E[x]², 0), rsqrt(var + 1e-5) (not ``GroupNorm32``'s mean of channel
-    means). Under an active sp axis (``parallel.mesh.current_sp``) ``x`` is
-    this rank's slab: Σx, Σx² and the voxel count of the slab are summed
-    over the sp group in one all-reduce, so every rank gets the volume's
-    statistics."""
+    means); on the card outside autograd, one launch of the statistics
+    kernel (``elementwise_cuda.gn_stats``). Under an active sp axis
+    (``parallel.mesh.current_sp``) ``x`` is this rank's slab: Σx, Σx² and
+    the voxel count of the slab are summed over the sp group in one
+    all-reduce, so every rank gets the volume's statistics."""
+    if current_sp() is None:
+        return elementwise_cuda.gn_stats(x, num_groups, elementwise_cuda.GN_GROUP)
     b, c = x.shape[:2]
     g = num_groups
     xf = x.float().movedim(1, -1).reshape(b, -1, g, c // g)
-    if current_sp() is None:
-        mean = xf.mean(dim=(1, 3))
-        mean_sq = (xf * xf).mean(dim=(1, 3))
-    else:
-        count = torch.full((b, 1), float(xf.shape[1] * xf.shape[3]), device=x.device)
-        sums = all_reduce_sum_sp(torch.cat([xf.sum(dim=(1, 3)), (xf * xf).sum(dim=(1, 3)),
-                                            count], dim=1))
-        mean, mean_sq = sums[:, :g] / sums[:, -1:], sums[:, g:2 * g] / sums[:, -1:]
-    inv = torch.rsqrt(torch.clamp(mean_sq - mean * mean, min=0.0) + 1e-5)
-    return mean.repeat_interleave(c // g, dim=1), inv.repeat_interleave(c // g, dim=1)
+    count = torch.full((b, 1), float(xf.shape[1] * xf.shape[3]), device=x.device)
+    sums = all_reduce_sum_sp(torch.cat([xf.sum(dim=(1, 3)), (xf * xf).sum(dim=(1, 3)),
+                                        count], dim=1))
+    mean, mean_sq = sums[:, :g] / sums[:, -1:], sums[:, g:2 * g] / sums[:, -1:]
+    return elementwise_cuda.group_norm_inv(mean, mean_sq, c // g)
 
 
 def pack_conv_weights(w: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Wrapper of the CUDA kernel K3: fused per-channel affine + SiLU, and of
-its VJP.
+"""Wrappers of the CUDA kernel K3: fused per-channel affine + SiLU, of its
+VJP, and of GroupNorm's statistics in one pass (``gn_stats``).
 
 Counterpart of ``fast_cwdm_tpu/ops/elementwise_pallas.py``. GroupNorm-apply
 followed by SiLU collapses into ``y = silu(x·a + b)`` with per-(batch,
@@ -16,6 +16,12 @@ a CUDA tensor launches the kernel or raises.
 same source) on the card and :func:`affine_silu_bwd_plain` on the CPU.
 ``affine_silu.launches`` and ``affine_silu_bwd.launches`` count kernel
 launches.
+
+:func:`gn_stats` gives the per-(batch, channel) mean and inverse std of a
+GroupNorm's groups (``ops/csrc/gn_stats.cu``: one read of x in its own
+dtype, fp32 sums, one launch) where no gradient is needed; under autograd,
+and for CPU tensors, the plain torch version runs. ``gn_stats.launches``
+counts its launches.
 """
 
 from __future__ import annotations
@@ -225,3 +231,171 @@ def gn_apply_silu(
     a = rstd * scale[None, :]
     b = bias[None, :] - mean * a
     return affine_silu(x, a, b)
+
+
+# GroupNorm's two statistics formulas (``gn_stats``'s ``formula``): one mean
+# over the voxels and the group's channels (``conv3d_cuda.group_stats``, the
+# JAX package's ``group_stats``), or the mean of the channel means
+# (``models.nn.GroupNorm32``, the JAX module's)
+GN_GROUP, GN_CHANNEL_MEANS = 0, 1
+
+
+def group_norm_inv(mean: torch.Tensor, mean_sq: torch.Tensor,
+                   cpg: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, G) group E[x] and E[x²] → per-(batch, channel) fp32 ``(mean,
+    inv)``, (B, G·cpg): var = max(E[x²] − E[x]², 0), inv = rsqrt(var +
+    1e-5)."""
+    inv = torch.rsqrt(torch.clamp(mean_sq - mean * mean, min=0.0) + 1e-5)
+    return mean.repeat_interleave(cpg, dim=-1), inv.repeat_interleave(cpg, dim=-1)
+
+
+def gn_stats_plain(x: torch.Tensor, num_groups: int,
+                   formula: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of the statistics kernel: fp32 ``(mean, inv)``
+    (B, C) of ``x`` (B, C, *spatial); a (B, C) ``x`` (no spatial axes) is
+    its own channel means under ``GN_CHANNEL_MEANS``."""
+    b, c = x.shape[:2]
+    g = num_groups
+    if formula == GN_GROUP:
+        xf = x.float().movedim(1, -1).reshape(b, -1, g, c // g)
+        mean, mean_sq = xf.mean(dim=(1, 3)), (xf * xf).mean(dim=(1, 3))
+    elif formula == GN_CHANNEL_MEANS:
+        xf = x.float()
+        spatial = tuple(range(2, x.dim()))
+        # torch reads an empty ``dim`` as every axis
+        mean_c = xf.mean(dim=spatial) if spatial else xf
+        mean_sq_c = (xf * xf).mean(dim=spatial) if spatial else xf * xf
+        mean = mean_c.reshape(b, g, c // g).mean(dim=-1)
+        mean_sq = mean_sq_c.reshape(b, g, c // g).mean(dim=-1)
+    else:
+        raise ValueError(f"gn_stats: formula must be GN_GROUP or GN_CHANNEL_MEANS, got {formula!r}")
+    return group_norm_inv(mean, mean_sq, c // g)
+
+
+def _gn_lib() -> ctypes.CDLL:
+    lib = _build.load("gn_stats")
+    lib.gn_stats.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.gn_stats.restype = ctypes.c_int
+    return lib
+
+
+# threads a CTA of the statistics kernel, and the CTAs it aims for: two on
+# each SM of an H100 (132), each reading at least GN_MIN_VECTORS vectors a
+# thread
+GN_THREADS = 512
+GN_TARGET_CTAS = 132 * 2
+GN_MIN_VECTORS = 8
+
+
+def gn_channels_last(x: torch.Tensor) -> int:
+    """The statistics kernel's layouts: 0 for a contiguous ``x``, 1 for one
+    stored channels last, (B, *spatial, C) dense (``channels_last_3d``, or a
+    flattened view of it such as the attention block's (B, C, T)); raises
+    otherwise, as K3's :func:`_memory_format`."""
+    if x.is_contiguous():
+        return 0
+    if x.movedim(1, -1).is_contiguous():
+        return 1
+    raise ValueError(
+        f"gn_stats: the CUDA kernel takes contiguous or channels-last tensors, got "
+        f"strides {x.stride()}"
+    )
+
+
+def gn_stats_plan(x: torch.Tensor) -> tuple[int, int, int, int, int, int]:
+    """``(channels_last, vec, bdx, bdy, chunks, chunk_len)`` of the
+    statistics kernel for ``x``: its layout (:func:`gn_channels_last`);
+    ``vec`` elements a 16-byte vector (1 where the layout or
+    alignment does not allow vectors); a (bdx, bdy) block, threads along the
+    channel vectors of a voxel and along voxels (channels last) or 512
+    along a row (contiguous); ``chunks`` CTAs along the voxels of each
+    (batch, channel group) or (batch, channel) row, ``chunk_len`` voxels
+    (channels last) or vectors (contiguous) each, about
+    ``GN_TARGET_CTAS`` CTAs in all. Raises on a layout the kernel does not
+    take."""
+    bsz, c = x.shape[:2]
+    s = x.numel() // (bsz * c)
+    channels_last = gn_channels_last(x)
+    vec = 16 // x.element_size()
+    if x.data_ptr() % 16 or (c % vec if channels_last else s % vec):
+        vec = 1
+    if channels_last:
+        cv = c // vec
+        bdx = min(cv, GN_THREADS)
+        bdy = GN_THREADS // bdx
+        cgroups = -(-cv // bdx)
+        chunks = min(-(-GN_TARGET_CTAS // (bsz * cgroups)), -(-s // (bdy * GN_MIN_VECTORS)))
+        n = s
+    else:
+        bdx, bdy = GN_THREADS, 1
+        n = s // vec
+        chunks = min(-(-GN_TARGET_CTAS // (bsz * c)), -(-n // (GN_THREADS * GN_MIN_VECTORS)))
+    chunk_len = -(-n // max(1, chunks))
+    return channels_last, vec, bdx, bdy, -(-n // chunk_len), chunk_len
+
+
+# one ticket counter per device, 0 between launches: the kernel's last CTA
+# finds itself by it and returns it to 0
+_GN_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _gn_ticket(device: torch.device) -> torch.Tensor:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    ticket = _GN_TICKETS.get(index)
+    if ticket is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "gn_stats: the first launch on a device allocates its ticket counter "
+                "and cannot be captured in a CUDA graph; run it once eagerly first")
+        ticket = _GN_TICKETS[index] = torch.zeros(1, dtype=torch.int32, device=device)
+    return ticket
+
+
+def _gn_stats_kernel(x: torch.Tensor, num_groups: int,
+                     formula: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The statistics kernel on the card: one launch."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"gn_stats: the CUDA kernel takes float32 or bfloat16, got {x.dtype}")
+    bsz, c = x.shape[:2]
+    if x.numel() == 0 or c % num_groups or formula not in (GN_GROUP, GN_CHANNEL_MEANS):
+        raise ValueError(f"gn_stats: need a nonempty x with C a multiple of num_groups and a "
+                         f"known formula, got {tuple(x.shape)}, {num_groups}, {formula!r}")
+    channels_last, vec, bdx, bdy, chunks, chunk_len = gn_stats_plan(x)
+    mean = torch.empty((bsz, c), dtype=torch.float32, device=x.device)
+    inv = torch.empty_like(mean)
+    work = torch.empty(2 * (chunks + 1) * bsz * c, dtype=torch.float32, device=x.device)
+    ticket = _gn_ticket(x.device)
+    with torch.cuda.device(x.device):
+        status = _gn_lib().gn_stats(
+            x.data_ptr(), mean.data_ptr(), inv.data_ptr(), work.data_ptr(), ticket.data_ptr(),
+            bsz, c, x.numel() // (bsz * c), num_groups, channels_last, vec,
+            bdx, bdy, chunks, chunk_len, formula, _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, "gn_stats")
+    gn_stats.launches += 1
+    return mean, inv
+
+
+def gn_stats(x: torch.Tensor, num_groups: int,
+             formula: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """GroupNorm statistics of ``x`` (B, C, *spatial) in ``num_groups``
+    groups: fp32 ``(mean, inv)`` (B, C), each channel holding its group's,
+    by ``formula`` (``GN_GROUP`` or ``GN_CHANNEL_MEANS``). A CUDA tensor with
+    spatial axes whose statistics autograd will not differentiate (no grad
+    mode, or ``x`` not requiring grad) launches the kernel (float32 or
+    bfloat16, contiguous or channels last, else it raises); everything
+    else, the CPU and training under autograd among it, runs the plain
+    version."""
+    if x.device.type == "cuda" and x.dim() > 2 and not (
+            torch.is_grad_enabled() and x.requires_grad):
+        return _gn_stats_kernel(x, num_groups, formula)
+    return gn_stats_plain(x, num_groups, formula)
+
+
+gn_stats.launches = 0

@@ -29,6 +29,7 @@ PORT_KERNELS = {
     "haar_idwt3": ("haar_idwt3_kernel",),
     "affine_silu": ("affine_silu_kernel",),
     "affine_silu_bwd": ("affine_silu_bwd_reduce",),
+    "gn_stats": ("gn_stats_kernel",),
     "conv3d_wgmma": ("conv3d_wgmma_kernel",),
     "conv3d_wgmma_n32": ("conv3d_wgmma_kernel",),
     "conv3d_splitk": ("conv3d_splitk_kernel",),

@@ -456,7 +456,7 @@ def test_launch_counts_reads_and_sets_every_wrapper_counter():
         ops.set_launch_counts(want)
         assert ops.launch_counts() == want
         got = (wc.haar_dwt3.launches, wc.haar_idwt3.launches, ec.affine_silu.launches,
-               ec.affine_silu_bwd.launches, tc.conv3d_fused.launches_k4a,
+               ec.affine_silu_bwd.launches, ec.gn_stats.launches, tc.conv3d_fused.launches_k4a,
                tc.conv3d_fused.launches_k4b, tc.conv3d_fused_v4.launches,
                *tc.kernel_launches.values())
         assert got == tuple(range(1, len(want) + 1))
