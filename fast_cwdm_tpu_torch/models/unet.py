@@ -42,6 +42,7 @@ from fast_cwdm_tpu_torch.models.nn import (
     conv_nd,
     timestep_embedding,
 )
+from fast_cwdm_tpu_torch.ops import attention as attention_ops
 from fast_cwdm_tpu_torch.ops import wavelet as wv
 from fast_cwdm_tpu_torch.ops.wavelet import dtype_scalar
 from fast_cwdm_tpu_torch.ops.conv3d_cuda import WG_BN, conv3d_fused, group_stats, pack_weights
@@ -362,13 +363,14 @@ class AttentionBlock(nn.Module):
     ``proj_out`` zero-initialised) applied as dense layers over the channel
     axis, as the JAX package's ``nn.Dense``. ``use_new_attention_order``
     reads qkv as ``[q | k | v]`` (qkv-major); the legacy order is head-major
-    ``[h0: q k v | h1: q k v | ...]``. q and k are each scaled by 1/√√ch,
-    the logits' softmax is taken in fp32 and cast back, in plain einsums in
-    the JAX package's order. Not ``F.scaled_dot_product_attention``: it
-    scales once and takes the softmax in the input dtype.
-
-    The attention matrix is built whole: (heads, T, T) per sample, T the
-    number of positions.
+    ``[h0: q k v | h1: q k v | ...]``. q and k are each scaled by 1/√√ch in
+    the compute dtype and the softmax's statistics are fp32, on either
+    route of ``ops/attention.py``: on the card in bf16 or fp16 outside
+    autograd, ``F.scaled_dot_product_attention`` held to the flash backend,
+    which never builds the (heads, T, T) matrix (T the number of positions)
+    and does not round the logits to bf16 before the softmax (PARITY.md);
+    everywhere else (the CPU, fp32, training) the JAX package's einsums,
+    the matrix built whole per sample.
     """
 
     def __init__(self, channels: int, num_heads: int = 1, num_head_channels: int = -1,
@@ -405,11 +407,11 @@ class AttentionBlock(nn.Module):
         else:
             q, k, v = qkv.reshape(b, -1, heads, 3 * ch).chunk(3, dim=-1)
         scale = dtype_scalar(1.0 / math.sqrt(math.sqrt(ch)), q.dtype)
-        logits = torch.einsum("bthc,bshc->bhts", q * scale, k * scale)
-        weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
-        a = torch.einsum("bhts,bshc->bthc", weights, v).reshape(b, -1, c)
+        a = attention_ops.attention(q, k, v, scale).reshape(b, -1, c)
         out = flat.transpose(1, 2) + self._dense(self.proj_out, a)  # (B, T, C)
-        return out.transpose(1, 2).reshape(b, c, *spatial)
+        # viewed as (B, C, *spatial) in channels-last memory, the UNet's
+        # activations' format, without a copy
+        return out.reshape(b, *spatial, c).movedim(-1, 1)
 
 
 def refuse_sp(module: nn.Module) -> None:

@@ -1,6 +1,6 @@
-"""Wavelet transforms and the hand-written CUDA kernels (K1-K5, the K3
-VJP and GroupNorm's statistics), with one view of the wrappers' launch
-counters."""
+"""Wavelet transforms, the hand-written CUDA kernels (K1-K5, the K3
+VJP and GroupNorm's statistics) and the attention route, with one view of
+the wrappers' launch counters."""
 
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from fast_cwdm_tpu_torch.ops.wavelet import (  # noqa: F401
 
 def _counters() -> dict:
     """name → (holder, attribute or key) of every wrapper's launch counter."""
+    from fast_cwdm_tpu_torch.ops import attention as at
     from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
     from fast_cwdm_tpu_torch.ops import elementwise_cuda as ec
     from fast_cwdm_tpu_torch.ops import wavelet_cuda as wc
@@ -39,6 +40,7 @@ def _counters() -> dict:
         "conv3d_fused_k4b": (tc.conv3d_fused, "launches_k4b"),
         "conv3d_fused_v4": (tc.conv3d_fused_v4, "launches"),
         **{k: (tc.kernel_launches, k) for k in tc.kernel_launches},
+        "attention": (at.attention, "launches"),
     }
 
 
@@ -46,7 +48,8 @@ def launch_counts() -> dict[str, int]:
     """Every launch counter by name: K1, K2, K3 and its VJP, GroupNorm's
     statistics (``gn_stats``), the fused conv
     by entry point (``conv3d_fused_k4a``/``_k4b``/``_v4``) and by kernel
-    (``conv3d_wgmma``, ``conv3d_splitk``, ``conv3d_mma_sync``)."""
+    (``conv3d_wgmma``, ``conv3d_splitk``, ``conv3d_mma_sync``), and the
+    fused attention route (``attention``)."""
     return {name: h[k] if isinstance(h, dict) else getattr(h, k)
             for name, (h, k) in _counters().items()}
 

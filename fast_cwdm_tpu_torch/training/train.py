@@ -18,7 +18,8 @@ from the step's generators on every rank and each rank takes its rows, so
 a sharded step computes what an unsharded step on the global batch
 computes. After the backward (and any accumulation) one all-reduce of a
 flat float32 buffer averages the gradients, the loss and the batch-mean
-metrics over the ranks; AdamW and the EMA then run identically on every
+metrics over the ranks (the span ``cwdm.train.allreduce``, with its
+bytes); AdamW and the EMA then run identically on every
 rank. Under a tp axis (``parallel.mesh.shard_params``) the ranks of a tp
 group hold the same rows and draws, each its slices of the sharded
 parameters: their gradients are averaged over the replica group in a
@@ -391,10 +392,12 @@ def make_train_step(
                 # the tp slices first: they reduce over the replica group
                 sliced = pmesh.sharded_params(model) if tp is not None else {}
                 order = [k for k in grads if k in sliced] + [k for k in grads if k not in sliced]
-                pmesh.all_reduce_mean_(
-                    mesh, [*(grads[k] for k in order), loss, terms["mse_wav"],
-                           *(terms[k] for k in means)],
-                    comm, replicated=2 + len(means), sharded=len(sliced))
+                reduced = [*(grads[k] for k in order), loss, terms["mse_wav"],
+                           *(terms[k] for k in means)]
+                with annotate("cwdm.train.allreduce",
+                              bytes=sum(t.numel() * t.element_size() for t in reduced)):
+                    pmesh.all_reduce_mean_(mesh, reduced, comm, replicated=2 + len(means),
+                                           sharded=len(sliced))
                 loss = loss[0]
                 for k in means:
                     terms[k] = terms[k][0]

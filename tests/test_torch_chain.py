@@ -446,6 +446,7 @@ def test_launch_counts_reads_and_sets_every_wrapper_counter():
     """One view of the wrappers' counters, which the captured chain uses to
     count a replay as the captured step's launches."""
     from fast_cwdm_tpu_torch import ops
+    from fast_cwdm_tpu_torch.ops import attention as at
     from fast_cwdm_tpu_torch.ops import conv3d_cuda as tc
     from fast_cwdm_tpu_torch.ops import elementwise_cuda as ec
     from fast_cwdm_tpu_torch.ops import wavelet_cuda as wc
@@ -458,7 +459,7 @@ def test_launch_counts_reads_and_sets_every_wrapper_counter():
         got = (wc.haar_dwt3.launches, wc.haar_idwt3.launches, ec.affine_silu.launches,
                ec.affine_silu_bwd.launches, ec.gn_stats.launches, tc.conv3d_fused.launches_k4a,
                tc.conv3d_fused.launches_k4b, tc.conv3d_fused_v4.launches,
-               *tc.kernel_launches.values())
+               *tc.kernel_launches.values(), at.attention.launches)
         assert got == tuple(range(1, len(want) + 1))
         ops.set_launch_counts({"affine_silu": 0})
         assert ec.affine_silu.launches == 0 and wc.haar_dwt3.launches == 1

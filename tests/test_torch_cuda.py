@@ -7,9 +7,11 @@ UNets that reach K4b on each conv kernel (an fp32 one on the 3×TF32
 kernel), a .ckpt round trip of a model on
 the card, complete_dataset on the card, a train step on the card
 against the same step on the CPU, the synthesis chain captured as a CUDA
-graph against the eager chain (an attention UNet's too, and the unfused
-x0 projection's, K2 and K1 every step), and a WavUNet's forward on the
-card against the CPU.
+graph against the eager chain (an attention UNet's too, with the fused
+attention route at every block, and the unfused x0 projection's, K2 and K1
+every step), the fused attention route against the einsum path at the
+cwdm-attn-bf16 UNet's widths and its 16 launches a forward, and a WavUNet's
+forward on the card against the CPU.
 
 Marked ``cuda``: skipped where no GPU is present. This file imports no JAX,
 so it also runs where JAX is not installed:
@@ -35,6 +37,7 @@ from fast_cwdm_tpu_torch.ops import wavelet as wv
 from fast_cwdm_tpu_torch.ops import wavelet_cuda as wc
 
 pytestmark = pytest.mark.cuda
+BF16_FACTOR = 2.0  # as tests/test_torch_unet.py
 
 
 @pytest.fixture
@@ -863,15 +866,77 @@ def test_attention_unet_graphed_chain_equals_the_eager_chain(gen):
     """The _graph_case UNet with attention at ds 2 (16³ = 4,096 positions,
     4 heads) and in the bottleneck: the graphed chain's image equals the
     eager chain's bit for bit."""
+    from fast_cwdm_tpu_torch import ops
+
     model, diffusion, cond, mask = _graph_case(dict(attention_resolutions="16",
                                                     bottleneck_attention=True, num_heads=4))
     assert sum(type(m).__name__ == "AttentionBlock" for m in model.modules()) == 4
-    imgs = {}
+    imgs, counts = {}, {}
     for graphed in (False, True):
         run = common.make_synthesis_fn(model, diffusion, crop_z=32, device="cuda",
                                        cuda_graph=graphed)
+        before = ops.launch_counts()
         imgs[graphed] = run(cond, mask, torch.Generator(device="cuda").manual_seed(3))
+        torch.cuda.synchronize()
+        counts[graphed] = ops.launches_since(before)
     assert imgs[False].max() > 0.0 and np.array_equal(imgs[True], imgs[False])
+    # the fused attention route at every block of every step, on both paths
+    assert counts[True] == counts[False]
+    assert counts[False]["attention"] == 4 * diffusion.num_timesteps
+
+
+ATTENTION_CASES = [(15_680, 2), (1_960, 4)]  # the cwdm-attn-bf16 UNet's ds 4 and ds 8 blocks
+
+
+@pytest.mark.parametrize("case", ATTENTION_CASES)
+def test_attention_route_matches_the_einsum_path(gen, case):
+    """The fused route (SDPA held to the flash backend) against the einsum
+    path at the cwdm-attn-bf16 UNet's widths, 64-channel heads, in bf16:
+    its error from the fp32 product (einsums on fp32 copies, TF32 off) within
+    BF16_FACTOR times the einsum path's; one launch counted."""
+    from fast_cwdm_tpu_torch.ops import attention as attn
+    from fast_cwdm_tpu_torch.ops.wavelet import dtype_scalar
+
+    t, heads = case
+    q, k, v = (torch.randn((1, t, heads, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    scale = dtype_scalar(1.0 / 64 ** 0.25, torch.bfloat16)
+    with torch.no_grad():
+        before = attn.attention.launches
+        fused = attn.attention(q, k, v, scale)
+        assert attn.attention.launches == before + 1
+        plain = attn.plain(q, k, v, scale)
+        ref = attn.plain(q.float(), k.float(), v.float(), scale)
+    err_fused = float((fused.float() - ref).abs().max())
+    err_plain = float((plain.float() - ref).abs().max())
+    assert fused.shape == plain.shape == (1, t, heads, 64) and fused.dtype == torch.bfloat16
+    assert 0 < err_fused <= BF16_FACTOR * err_plain, (err_fused, err_plain)
+
+
+def test_attention_unet_forward_launches_the_route_at_every_block(gen):
+    """The cwdm-attn-bf16 UNet at its published size (84,743,048 parameters,
+    16 attention blocks) on a 112×112×80 latent: one forward in bf16 counts 16
+    fused attention launches."""
+    import json
+
+    from fast_cwdm_tpu_torch import ops
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "cwdm_bench", "configs", "cwdm-attn-bf16.json")) as f:
+        cfg = json.load(f)["model"]
+    with torch.device("meta"):
+        model, _ = common.build_model_and_diffusion(dict(cfg, fuse_gn_silu=True, fuse_conv=True))
+    model = model.to_empty(device="cuda").eval()
+    for prm in model.parameters():
+        torch.nn.init.normal_(prm, std=0.02, generator=gen)
+    assert sum(prm.numel() for prm in model.parameters()) == 84_743_048
+    x = torch.randn((1, 112, 112, 80, 32), generator=gen, device="cuda")
+    with torch.inference_mode():
+        before = ops.launch_counts()
+        out = model(x.permute(0, 4, 1, 2, 3), torch.tensor([5], device="cuda"))
+        torch.cuda.synchronize()
+    assert ops.launches_since(before)["attention"] == 16
+    assert torch.isfinite(out).all()
 
 
 def test_wunet_forward_on_the_card_matches_the_cpu(gen):
